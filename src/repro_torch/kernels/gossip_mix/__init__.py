@@ -1,0 +1,4 @@
+from repro_torch.kernels.gossip_mix.kernel import gossip_mix_2d
+from repro_torch.kernels.gossip_mix.ref import gossip_mix_reference
+
+__all__ = ["gossip_mix_2d", "gossip_mix_reference"]
