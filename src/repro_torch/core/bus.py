@@ -16,8 +16,12 @@ It
 3. runs mix, weighted self term and ``−η·update`` as one pass of the fused
    ``gossip_mix`` kernel over the flat buffer, and unpacks the result.
 
-The model-sharded paths and the compressed (int8/bf16 wire) lane are later
-slices (ROADMAP queue 1).
+The compressed lane (:func:`mix_bus_compressed`) mixes the same way but
+sends every float group wider than the wire dtype over the wire as a bf16
+cast or as int8 with one float32 scale per row (the ``quant_pack`` kernel),
+with an error-feedback residual carried from call to call.
+
+The model-sharded paths are a later slice (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -30,11 +34,14 @@ import torch
 
 from repro_torch import _tree
 from repro_torch.kernels.gossip_mix import gossip_mix_2d
+from repro_torch.kernels.quant_pack import quantize_pack_2d
 
 PyTree = Any
 
 __all__ = ["BusLayout", "plan_layout", "pack", "unpack", "mix_bus",
-           "sublane_rows", "LANE", "DEFAULT_BLOCK_R"]
+           "mix_bus_compressed", "wire_dtype_for", "quantize_wire",
+           "dequantize_wire", "sublane_rows", "LANE", "DEFAULT_BLOCK_R",
+           "WIRE_DTYPES"]
 
 # Bus rows are exactly one 128-wide lane tile: padding granularity is one
 # sublane tile (sublane(dtype) × 128 elements) per group.
@@ -47,6 +54,71 @@ DEFAULT_BLOCK_R = 256
 def sublane_rows(dtype: torch.dtype) -> int:
     """Sublane tile height the layout pads each group to: 8 fp32, 16 bf16, 32 int8."""
     return max(8, 32 // max(dtype.itemsize, 1))
+
+
+# Wire dtypes of the compressed lane: bf16 is a plain cast; int8 carries one
+# float32 scale per 128-lane bus row.
+WIRE_DTYPES = ("bfloat16", "int8")
+_WIRE = {"bfloat16": torch.bfloat16, "int8": torch.int8}
+_SCALE_BYTES_PER_ROW = 4
+
+
+def _wire(wire_dtype) -> torch.dtype:
+    name = str(wire_dtype).removeprefix("torch.")
+    if name not in _WIRE:
+        raise ValueError(f"unsupported wire dtype {wire_dtype!r}; expected one of "
+                         f"{WIRE_DTYPES}")
+    return _WIRE[name]
+
+
+def wire_dtype_for(dtype: torch.dtype, wire_dtype) -> torch.dtype | None:
+    """The dtype a ``dtype`` bus group ships at on a compressed lane.
+
+    ``None`` → the group stays exact: the lane is off (``wire_dtype=None``),
+    the group is not floating point (int/bool state never quantizes), or
+    compression would not shrink it (bf16 → bf16). Raises on wire dtypes
+    outside :data:`WIRE_DTYPES` (names or torch dtypes).
+    """
+    if wire_dtype is None:
+        return None
+    wt = _wire(wire_dtype)
+    if not dtype.is_floating_point or dtype.itemsize <= wt.itemsize:
+        return None
+    return wt
+
+
+def quantize_wire(x: torch.Tensor, wire_dtype) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Quantize one tensor for the lossy wire: ``(payload, scale-or-None)``.
+
+    bf16 wire is a cast (``scale=None``); int8 wire uses a per-row absmax
+    scale over the LAST axis (``scale = absmax/127``, float32, shape
+    ``x.shape[:-1] + (1,)``), so ``|x − payload·scale| ≤ scale/2``
+    elementwise and all-zero rows round-trip exactly. The generic (leaf)
+    twin of the bus-buffer kernel :func:`repro_torch.kernels.quant_pack.quantize_pack_2d`;
+    its ``absmax/127`` is a true division, as the reference computes it
+    eagerly, where the kernel follows the reference kernel's compiled
+    multiply by ``fl32(1/127)``.
+    """
+    if _wire(wire_dtype) == torch.bfloat16:
+        return x.to(torch.bfloat16), None
+    xf = x.float()
+    squeeze = xf.dim() == 0
+    if squeeze:
+        xf = xf[None]
+    amax = xf.abs().amax(-1, keepdim=True)
+    scale = torch.where(amax > 0.0, amax / 127.0, 1.0)
+    q = torch.round(xf / scale).to(torch.int8)
+    if squeeze:
+        return q[0], scale[0]
+    return q, scale
+
+
+def dequantize_wire(payload: torch.Tensor, scale: torch.Tensor | None,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of :func:`quantize_wire` up to the quantization error."""
+    if scale is None:
+        return payload.to(dtype)
+    return (payload.float() * scale).to(dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,10 +165,24 @@ class BusLayout:
     def payload_elements(self) -> int:
         return sum(g.n for g in self.groups)
 
-    def padded_bytes(self) -> int:
+    def padded_bytes(self, wire_dtype=None) -> int:
         """Per-worker buffer bytes (incl. tile padding): the payload one
-        neighbour exchange moves."""
-        return sum(g.rows * g.cols * g.dtype.itemsize for g in self.groups)
+        neighbour exchange moves.
+
+        ``wire_dtype`` prices the compressed lane: float groups wider than
+        the wire dtype ship at its width, int8 plus one float32 scale per
+        row; every other group stays at its exact bytes.
+        """
+        total = 0
+        for g in self.groups:
+            wt = wire_dtype_for(g.dtype, wire_dtype)
+            if wt is None:
+                total += g.rows * g.cols * g.dtype.itemsize
+            else:
+                total += g.rows * g.cols * wt.itemsize
+                if wt == torch.int8:
+                    total += g.rows * _SCALE_BYTES_PER_ROW
+        return total
 
 
 def _pick_block_r(rows: int, block_r: int, sub: int) -> int:
@@ -270,3 +356,93 @@ def mix_bus(params: PyTree, spec, *, updates: PyTree | None = None,
                                eta if updates is not None else None,
                                others, nchunks, layout.groups)
     return unpack(mixed, layout)
+
+
+# ---------------------------------------------------------------------------
+# Compressed (lossy) consensus lane — the cross-pod stage of hierarchical gossip
+# ---------------------------------------------------------------------------
+
+
+def _quantize_rows(xe: torch.Tensor, block_r: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """int8 quantize-pack of a (lead..., R, C) float32 buffer → ``(values
+    int8, scales float32 (lead..., R, 1))``, one scale per bus row, by the
+    quant_pack kernel over the row-flattened view."""
+    x2 = xe.reshape(-1, xe.shape[-1])
+    q, s = quantize_pack_2d(x2, block_r=min(block_r, x2.shape[0]))
+    return q.view(xe.shape), s.view(xe.shape[:-1] + (1,))
+
+
+def _dequant_f32(v: torch.Tensor, s: torch.Tensor | None) -> torch.Tensor:
+    return v.float() if s is None else v.float() * s
+
+
+def _mix_buffers_local_compressed(bufs, res_bufs, weights, perms, groups, wire_dtype):
+    """Every worker on one device: the permutation is a row gather of the
+    dequantized buffer, which equals sending (values, scales) and
+    dequantizing at the receiver. The reference's order of operations:
+    ``acc = deq·w₀``, then ``+= deq[perm]·w`` per permutation, one cast, and
+    the new residual ``xe − deq``. Products are formed in place on fresh
+    temporaries, which rounds exactly as the out-of-place expressions."""
+    outs, new_res = [], []
+    for gi, (x, g) in enumerate(zip(bufs, groups)):
+        wt = wire_dtype_for(g.dtype, wire_dtype)
+        idx = [_device_index(perm, x.device) for _, perm in perms]
+        if wt is None:   # exact group: int/bool state never quantizes
+            acc = x.float() * weights[0]
+            for i, ix in enumerate(idx):
+                acc += x[ix].float().mul_(weights[i + 1])
+            outs.append(acc.to(g.dtype))
+            new_res.append(None)
+            continue
+        xe = torch.add(x, res_bufs[gi])          # x promoted to float32 exactly
+        if wt == torch.bfloat16:
+            v, s = xe.to(torch.bfloat16), None
+        else:
+            v, s = _quantize_rows(xe, g.block_r)
+        deq = _dequant_f32(v, s)
+        del v, s
+        acc = deq * weights[0]
+        for i, ix in enumerate(idx):
+            acc += deq[ix].mul_(weights[i + 1])
+        outs.append(acc.to(g.dtype))
+        del acc
+        new_res.append(xe.sub_(deq))
+    return outs, new_res
+
+
+def mix_bus_compressed(params: PyTree, spec, *, wire_dtype,
+                       residual: list | None = None,
+                       block_r: int = DEFAULT_BLOCK_R) -> tuple[PyTree, list | None]:
+    """Lossy consensus with error feedback — the compressed cross-pod lane.
+
+    The same ``P_j ← Σ_i A[i,j]·P_i`` as :func:`mix_bus`, but every float
+    dtype group wider than ``wire_dtype`` rides the wire quantized (bf16
+    cast, or int8 with one float32 scale per bus row). Error feedback: the
+    residual ``r ← (x + r) − dequant(quant(x + r))`` is carried across calls
+    and every worker, self term included, mixes dequantized values.
+
+    Returns ``(mixed_params, new_residual)``. ``residual`` is an opaque
+    per-dtype-group list (``None`` on the first call → zeros; ``None``
+    entries for exact groups); thread it through successive calls.
+    ``wire_dtype=None`` delegates to :func:`mix_bus` bit-identically and
+    passes ``residual`` through untouched.
+    """
+    if wire_dtype is None:
+        return mix_bus(params, spec, block_r=block_r), residual
+    a0, others = _split_perms(spec)
+    weights = [float(w) for w in np.asarray([a0] + [w for w, _ in others], np.float32)]
+    layout = plan_layout(params, lead_ndim=1, block_r=block_r)
+    wts = [wire_dtype_for(g.dtype, wire_dtype) for g in layout.groups]
+    if not others:   # degenerate (M == 1): nothing rides the wire
+        return params, residual
+    bufs = pack(params, layout)
+    res_bufs = residual
+    if res_bufs is None:
+        res_bufs = [None if wt is None else torch.zeros(b.shape, dtype=torch.float32,
+                                                        device=b.device)
+                    for b, wt in zip(bufs, wts)]
+    if len(res_bufs) != len(bufs):
+        raise ValueError("residual does not match the bus layout")
+    mixed, new_res = _mix_buffers_local_compressed(bufs, res_bufs, weights, others,
+                                                   layout.groups, wire_dtype)
+    return unpack(mixed, layout), new_res

@@ -106,8 +106,10 @@ def make_train_step(
         if gossip is None:
             raise ValueError("gossip mode requires a GossipSpec")
         # mix + update in ONE kernel pass over the flat bus (mix_first only:
-        # adapt-then-combine needs the update applied before the mix)
-        fuse_update = gossip.resolved_backend() == "fused" and mix_first
+        # adapt-then-combine needs the update applied before the mix; a
+        # hierarchical spec runs two staged mixes, then adds the update)
+        fuse_update = (gossip.resolved_backend() == "fused" and mix_first
+                       and not gossip.hierarchical)
         vg = torch.func.vmap(torch.func.grad_and_value(loss_fn))
 
         def step(state: TrainState, batch: PyTree) -> tuple[TrainState, StepMetrics]:

@@ -11,6 +11,11 @@ Backends (selected via :class:`GossipSpec`):
   the tree packs into one buffer per dtype and the mix (+ optimizer update,
   in the train step) is one pass of the fused ``gossip_mix`` kernel.
 
+``GossipSpec(hierarchical=True)`` runs a Kronecker (multi-pod) topology as
+its two factored stages, intra-pod then cross-pod (:func:`hierarchical_mix`);
+:func:`hierarchical_mix_compressed` sends the cross-pod stage over the
+compressed wire of :func:`repro_torch.core.bus.mix_bus_compressed`.
+
 The reference's ``ppermute`` and ``allreduce`` backends need a mesh of
 devices; they come with the distributed slice (ROADMAP queue 1, item 17).
 """
@@ -25,9 +30,10 @@ import torch
 
 from repro_torch import _tree
 from repro_torch.core import bus
-from repro_torch.core.topology import Topology
+from repro_torch.core.topology import Topology, split_kronecker
 
-__all__ = ["GossipSpec", "mix_pytree", "mix_reference", "mix_pytree_reference"]
+__all__ = ["GossipSpec", "mix_pytree", "mix_reference", "mix_pytree_reference",
+           "split_hierarchical", "hierarchical_mix", "hierarchical_mix_compressed"]
 
 PyTree = Any
 
@@ -40,11 +46,15 @@ class GossipSpec:
     backend: 'einsum' | 'fused' | 'auto' ('auto' resolves as in the
       reference, to the mesh backends this port does not have yet).
     period: gossip every `period` optimizer steps (1 = the paper's DSM).
+    hierarchical: run a kronecker/`hier` topology as its two factored
+      stages (:func:`split_hierarchical`), intra-pod then cross-pod, instead
+      of one mix with the product matrix: the same consensus matrix.
     """
 
     topology: Topology
     backend: str = "auto"
     period: int = 1
+    hierarchical: bool = False
 
     def resolved_backend(self) -> str:
         if self.backend != "auto":
@@ -75,6 +85,9 @@ def mix_pytree_reference(params: PyTree, A) -> PyTree:
 
 def mix_pytree(params: PyTree, spec: GossipSpec) -> PyTree:
     """Consensus step over the parameter tree (leaves have leading M dim)."""
+    if spec.hierarchical:
+        intra, inter = split_hierarchical(dataclasses.replace(spec, hierarchical=False))
+        return mix_pytree(mix_pytree(params, intra), inter)
     backend = spec.resolved_backend()
     if backend == "einsum":
         return mix_pytree_reference(params, spec.topology.A)
@@ -86,3 +99,44 @@ def mix_pytree(params: PyTree, spec: GossipSpec) -> PyTree:
             "the meshless 'einsum' and 'fused' backends only so far "
             "(ROADMAP queue 1, item 17)")
     raise ValueError(f"unknown gossip backend {backend!r}")
+
+
+# ---------------------------------------------------------------------------
+# Hierarchical multi-pod mixing
+# ---------------------------------------------------------------------------
+
+
+def split_hierarchical(spec: GossipSpec) -> tuple[GossipSpec, GossipSpec]:
+    """Factor a spec on a kronecker/`hier` topology into its two stages:
+    ``(intra, inter)`` specs on the same M workers, ``I ⊗ A_inner`` (pod
+    local) and ``A_outer ⊗ I`` (cross-pod), whose back-to-back mix equals
+    one mix with the Kronecker matrix."""
+    intra_t, inter_t = split_kronecker(spec.topology)
+    return (dataclasses.replace(spec, topology=intra_t),
+            dataclasses.replace(spec, topology=inter_t))
+
+
+def hierarchical_mix(params: PyTree, intra: GossipSpec, inter: GossipSpec) -> PyTree:
+    """Two-level gossip: mix inside each pod, then across pods. The
+    equivalent consensus matrix is ``A_inter ⊗ A_intra``."""
+    return mix_pytree(mix_pytree(params, intra), inter)
+
+
+def hierarchical_mix_compressed(params: PyTree, intra: GossipSpec,
+                                inter: GossipSpec, *,
+                                dci_dtype: str | None = None,
+                                residual: list | None = None
+                                ) -> tuple[PyTree, list | None]:
+    """Two-level gossip with a lossy cross-pod (DCI) stage.
+
+    The intra-pod stage is the exact mix of ``intra``'s backend; the
+    cross-pod stage rides :func:`repro_torch.core.bus.mix_bus_compressed`
+    (bf16 cast, or int8 with a per-row scale, plus error feedback). Returns
+    ``(mixed_params, residual)``; thread ``residual`` across rounds.
+    ``dci_dtype=None`` is bit-identical to :func:`hierarchical_mix` and
+    passes ``residual`` through.
+    """
+    if dci_dtype is None:
+        return hierarchical_mix(params, intra, inter), residual
+    return bus.mix_bus_compressed(mix_pytree(params, intra), inter,
+                                  wire_dtype=dci_dtype, residual=residual)

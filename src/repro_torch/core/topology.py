@@ -2,8 +2,9 @@
 
 A numpy-only copy of the reference's ``repro/core/topology.py``, cut to what
 the decentralized train step needs: the ``Topology`` container, the weight
-rules, the regular graph builders, the permutation decompositions the gossip
-bus runs on, and the spectral helpers. ``A[i, j]`` is the weight node j
+rules, the regular graph builders, the Kronecker (multi-pod) builders and
+their two-stage factorization, the permutation decompositions the gossip bus
+runs on, and the spectral helpers. ``A[i, j]`` is the weight node j
 gives node i's estimate, so the consensus step is ``W(k+1) = W(k) @ A``.
 """
 from __future__ import annotations
@@ -16,7 +17,8 @@ import numpy as np
 
 __all__ = [
     "Topology", "clique", "undirected_ring", "ring_lattice",
-    "directed_ring_lattice", "torus_2d", "hypercube", "uniform_weights",
+    "directed_ring_lattice", "torus_2d", "hypercube", "kronecker", "hier",
+    "split_kronecker", "kronecker_factors", "uniform_weights",
     "metropolis_weights", "circulant_decomposition",
     "permutation_decomposition", "spectral_gap", "second_eigenvalue_modulus",
     "spectral_projectors", "BY_NAME", "make",
@@ -29,17 +31,26 @@ class Topology:
 
     ``circulant_offsets``: if node i listens to i+δ mod M for δ in offsets
     (δ=0 is the self loop), the sorted offset tuple; else None.
+    ``group_of``: optional per-node group (pod) id, set by the hierarchical
+    builders (:func:`kronecker`, :func:`hier`); None ⇒ no grouping.
     """
 
     name: str
     A: np.ndarray
     directed: bool = False
     circulant_offsets: tuple[int, ...] | None = None
+    group_of: tuple[int, ...] | None = None
 
     def __post_init__(self):
         A = np.asarray(self.A, dtype=np.float64)
         object.__setattr__(self, "A", A)
         _check_consensus_matrix(A)
+        if self.group_of is not None:
+            g = tuple(int(x) for x in self.group_of)
+            if len(g) != A.shape[0]:
+                raise ValueError(
+                    f"group_of must assign all {A.shape[0]} nodes, got {len(g)}")
+            object.__setattr__(self, "group_of", g)
 
     @property
     def M(self) -> int:
@@ -174,6 +185,64 @@ def hypercube(log2M: int) -> Topology:
         for b in range(log2M):
             adj[i, i ^ (1 << b)] = True
     return Topology(name=f"hypercube-{M}", A=uniform_weights(adj), directed=False)
+
+
+def kronecker(outer: Topology, inner: Topology, name: str | None = None) -> Topology:
+    """Hierarchical topology A_outer ⊗ A_inner (multi-pod): worker (p, i)
+    mixes within its pod via A_inner and across pods via A_outer. Node (p, i)
+    is index ``p·M_inner + i``; ``group_of`` records the pod id p."""
+    A = np.kron(outer.A, inner.A)
+    group_of = tuple(int(p) for p in np.repeat(np.arange(outer.M), inner.M))
+    return Topology(
+        name=name or f"kron({outer.name},{inner.name})", A=A,
+        directed=outer.directed or inner.directed, group_of=group_of)
+
+
+def hier(n_pods: int, pod_size: int, *, outer: str = "ring",
+         inner: str = "clique") -> Topology:
+    """A ring over pods ⊗ a clique within each pod by default; ``outer`` and
+    ``inner`` name any builder of :data:`BY_NAME`."""
+    return kronecker(make(outer, n_pods), make(inner, pod_size),
+                     name=f"hier-{outer}{n_pods}x{inner}{pod_size}")
+
+
+def split_kronecker(topo: Topology) -> tuple[Topology, Topology]:
+    """Factor a :func:`kronecker` topology into its two M-node stages.
+
+    ``intra.A = I_P ⊗ A_inner`` (every edge inside a pod) and
+    ``inter.A = A_outer ⊗ I_s`` (every non-self edge crosses pods), with
+    ``inter.A @ intra.A == topo.A``. Requires ``topo.group_of`` with equal
+    contiguous groups."""
+    A_outer, A_inner = kronecker_factors(topo)
+    P_, s = A_outer.shape[0], A_inner.shape[0]
+    intra = Topology(name=f"{topo.name}-intra", A=np.kron(np.eye(P_), A_inner),
+                     directed=topo.directed, group_of=topo.group_of)
+    inter = Topology(name=f"{topo.name}-inter", A=np.kron(A_outer, np.eye(s)),
+                     directed=topo.directed, group_of=topo.group_of)
+    return intra, inter
+
+
+def kronecker_factors(topo: Topology) -> tuple[np.ndarray, np.ndarray]:
+    """Recover (A_outer, A_inner) of a :func:`kronecker` topology.
+
+    Block (p, q) of A is ``A_outer[p, q] · A_inner`` and A_inner's entries
+    sum to s, so each block's total weight is ``s · A_outer[p, q]``. Raises
+    ValueError if the topology is not a Kronecker product over equal
+    contiguous groups."""
+    if topo.group_of is None:
+        raise ValueError(f"{topo.name} has no group metadata (not a kronecker)")
+    g = np.asarray(topo.group_of)
+    P_ = int(g.max()) + 1
+    s = topo.M // P_
+    if topo.M != P_ * s or not np.array_equal(g, np.repeat(np.arange(P_), s)):
+        raise ValueError("split_kronecker needs equal contiguous groups")
+    blocks = topo.A.reshape(P_, s, P_, s).transpose(0, 2, 1, 3)
+    A_outer = blocks.sum((2, 3)) / s
+    p0, q0 = np.unravel_index(int(np.argmax(A_outer)), A_outer.shape)
+    A_inner = blocks[p0, q0] / A_outer[p0, q0]
+    if not np.allclose(np.kron(A_outer, A_inner), topo.A, atol=1e-9):
+        raise ValueError(f"{topo.name} is not a kronecker of its blocks")
+    return A_outer, A_inner
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,8 @@ they run where the port runs:
 
 Tolerances are the reference's kernel-test ones: atol 1e-5 for float32,
 5e-2 for bf16. Kernel and plain version round the same float32 operations
-in the same order, so in practice they agree bit for bit.
+in the same order, so in practice they agree bit for bit; quant_pack is
+held to exact equality of values and scales.
 """
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ from repro_torch.core import bus
 from repro_torch.core import topology as T
 from repro_torch.core.gossip import GossipSpec
 from repro_torch.kernels.gossip_mix import gossip_mix_2d, gossip_mix_reference
+from repro_torch.kernels.quant_pack import quantize_pack_2d, quantize_pack_reference
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 F32, BF16 = torch.float32, torch.bfloat16
@@ -82,3 +84,77 @@ def test_mix_bus_on_card_matches_cpu(cuda):
     assert gossip_mix_2d.launches == before + 3          # one per chunk
     for a, b in zip(_tree.leaves(on_cpu), _tree.leaves(on_card)):
         torch.testing.assert_close(b.cpu(), a, atol=1e-5, rtol=0)
+
+
+def _quant_input(kind, dtype, device):
+    if kind == "ties":     # amax 127 ⇒ scale exactly 1, entries k + 0.5
+        x = np.tile(np.arange(-64, 64) + 0.5, (32, 1)).astype(np.float32)
+        x[:, 0] = 127.0
+        x[1::2] *= -1
+        return torch.from_numpy(x).to(device=device, dtype=dtype)
+    shape = {"rows128": (1001, 128), "odd_cols": (37, 129), "zeros_negative": (64, 128)}[kind]
+    x = _randn(shape, torch.float32, 7, device) * torch.arange(
+        1, shape[0] + 1, device=device, dtype=torch.float32)[:, None]
+    if kind == "zeros_negative":
+        x = -x.abs()
+        x[5] = 0
+    return x.to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["rows128", "odd_cols", "zeros_negative", "ties"])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_quant_pack_kernel_equals_plain_version(cuda, kind, dtype):
+    x = _quant_input(kind, dtype, cuda)
+    before = quantize_pack_2d.launches
+    v, s = quantize_pack_2d(x, block_r=x.shape[0])
+    torch.cuda.synchronize()
+    assert quantize_pack_2d.launches == before + 1
+    rv, rs = quantize_pack_reference(x)
+    assert v.dtype == torch.int8 and s.dtype == F32 and s.shape == (x.shape[0], 1)
+    assert torch.equal(v, rv) and torch.equal(s, rs)
+
+
+@pytest.mark.gpu
+def test_quant_pack_unaligned_buffer_equals_plain_version(cuda):
+    flat = _randn((1, 64 * 128 + 1), F32, 8, cuda).view(-1)
+    x = flat[1:].view(64, 128)          # 4 bytes off a 16-byte boundary
+    v, s = quantize_pack_2d(x)
+    rv, rs = quantize_pack_reference(x)
+    assert torch.equal(v, rv) and torch.equal(s, rs)
+
+
+@pytest.mark.gpu
+def test_quant_pack_raises_instead_of_falling_back(cuda):
+    with pytest.raises(ValueError, match="contiguous"):
+        quantize_pack_2d(torch.zeros(128, 8, device=cuda).t())
+    with pytest.raises(TypeError):
+        quantize_pack_2d(torch.zeros(8, 128, device=cuda, dtype=torch.float16))
+    with pytest.raises(ValueError, match="block_r"):
+        quantize_pack_2d(torch.zeros(48, 128, device=cuda), block_r=32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wire", ["bfloat16", "int8"])
+def test_mix_bus_compressed_on_card_matches_cpu(cuda, wire):
+    M = 4
+    p = {"w": _randn((M, 127), F32, 9, "cpu"), "b": _randn((M, 33, 5), F32, 10, "cpu"),
+         "steps": torch.arange(M * 300, dtype=torch.int32).view(M, 300)}
+    spec = GossipSpec(topology=T.undirected_ring(M), backend="fused")
+    x_cpu, r_cpu = p, None
+    x_gpu, r_gpu = _tree.map(lambda t: t.to(cuda), p), None
+    before = quantize_pack_2d.launches
+    for _ in range(3):
+        x_cpu, r_cpu = bus.mix_bus_compressed(x_cpu, spec, wire_dtype=wire, residual=r_cpu,
+                                              block_r=32)
+        x_gpu, r_gpu = bus.mix_bus_compressed(x_gpu, spec, wire_dtype=wire, residual=r_gpu,
+                                              block_r=32)
+    torch.cuda.synchronize()
+    assert quantize_pack_2d.launches == before + (3 if wire == "int8" else 0)
+    for a, b in zip(_tree.leaves(x_cpu), _tree.leaves(x_gpu)):
+        assert b.device.type == "cuda" and b.dtype == a.dtype
+        torch.testing.assert_close(b.cpu(), a, atol=1e-5, rtol=0)
+    for a, b in zip(r_cpu, r_gpu):
+        assert (a is None) == (b is None)
+        if a is not None:
+            torch.testing.assert_close(b.cpu(), a, atol=1e-5, rtol=0)
