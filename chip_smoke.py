@@ -34,8 +34,24 @@ through these phases, in order, and exits non-zero at the first failure:
    quant_pack and one gossip_mix launch per round, round 1 within half the
    largest row scale plus one bf16 ulp of the exact ``hierarchical_mix``,
    a profiled round.
-6. report — one JSON line of kernels, the nvidia-smi line, and last the
+6. checkpoint — ``export_consensus`` of slice 1's trained worker-stacked
+   params to an npz under ``build/``; ``load_consensus_params`` of it must
+   equal ``consensus_params`` of the in-memory params bit for bit.
+7. slice 3 — serving granite-3-2b at its published widths and full depth
+   (40 layers, bf16, seeded random weights): a ``WaveBatcher`` with 4 slots
+   serves 8 requests of a 3072-token prompt and 128 new tokens. Checks
+   exactly one flash_attention launch per layer in each wave's prefill,
+   finite logprobs, and that one wave's last-position prefill logits
+   through the kernel agree with the same prefill through the training
+   path's ``blockwise_attention``; times prefill and decode, reads peak
+   memory and profiles one prefill and one decode step.
+8. report — one JSON line of kernels, the nvidia-smi line, and last the
    ``{"ok": true, ...}`` line.
+
+The flash_attention kernel check (phase 3) uses the reference's
+kernel-test tolerances, float32 atol 2e-5 and bf16 3e-2, and holds bf16
+besides to one bf16 ulp of the plain value plus 1e-4, element by element;
+at the serving prefill's shape it runs both dtypes.
 """
 from __future__ import annotations
 
@@ -60,12 +76,19 @@ STEPS = 5
 LR = 0.01
 TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 DCI_ROUNDS = 8          # compressed cross-pod rounds of slice 2
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+SERVE_SLOTS = 4         # slice 3: WaveBatcher slots
+SERVE_REQUESTS = 8
+PROMPT_LEN = 3072       # a multiple of blockwise_attention's 1024 chunk
+NEW_TOKENS = 128
+SERVE_MAX_LEN = PROMPT_LEN + NEW_TOKENS   # inside granite's 4096 context
 
 # Device-memory rates (bytes/s) from NVIDIA's data sheets, by card name
 # (first match wins), and the H100's float32 rate outside the tensor cores.
 MEMORY_RATES = (("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
                 ("H100", 3.35e12))
 F32_PEAK = 67e12
+BF16_PEAK = 989e12      # dense tensor-core rate
 
 
 def log(msg: str) -> None:
@@ -96,6 +119,25 @@ def time_cuda(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _kernel_wrappers() -> dict:
+    """Each kernel's wrapper by name; a wrapper counts its launches."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.gossip_mix import gossip_mix_2d
+    from repro_torch.kernels.quant_pack import quantize_pack_2d
+
+    return {"gossip_mix": gossip_mix_2d, "quant_pack": quantize_pack_2d,
+            "flash_attention": flash_attention}
+
+
+def reset_launches() -> None:
+    for fn in _kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in _kernel_wrappers().items()}
+
+
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
@@ -117,12 +159,14 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.gossip_mix import kernel as gm
     from repro_torch.kernels.quant_pack import kernel as qp
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:   # nvcc runs outside the GIL
-        built = list(pool.map(lambda m: (m, m.library()[1]), (gm, qp)))
+    mods = (gm, qp, fa)
+    with ThreadPoolExecutor(max_workers=len(mods)) as pool:   # nvcc runs outside the GIL
+        built = list(pool.map(lambda m: (m, m.library()[1]), mods))
     log(f"[build] {len(built)} kernels built in {time.perf_counter() - t0:.2f} s")
     for mod, build_log in built:
         log(f"[build]   {os.path.relpath(mod.SOURCE, ROOT)}")
@@ -142,10 +186,10 @@ def _mix_inputs(rows, cols, k, w_dtype, u_dtype, gen):
     return w, nbr, wts, u
 
 
-def _bound(moved: float, ops: float, card: str) -> tuple[float, str]:
-    """Least time (ms) for ``moved`` bytes and ``ops`` float32 operations,
-    and which of the two bounds it."""
-    t_bytes, t_ops = moved / memory_rate(card), ops / F32_PEAK
+def _bound(moved: float, ops: float, card: str, peak: float = F32_PEAK) -> tuple[float, str]:
+    """Least time (ms) for ``moved`` bytes and ``ops`` operations at the
+    ``peak`` rate of their type, and which of the two bounds it."""
+    t_bytes, t_ops = moved / memory_rate(card), ops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -288,11 +332,126 @@ def phase_quant_check(card: str) -> dict:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
+# (B, Lq, Lkv, H, Hkv, hd, causal, window): the reference's FLASH_CASES
+# (tests/test_kernels.py), then lengths off the 64-row tile, Lq != Lkv, a
+# window smaller than a tile, MQA, rows past Lkv + window - 1.
+FLASH_CASES = [
+    (2, 128, 128, 4, 2, 64, True, None),
+    (1, 256, 256, 8, 1, 32, True, 64),
+    (2, 128, 128, 4, 4, 64, False, None),
+    (1, 64, 64, 2, 2, 128, True, None),
+    (1, 128, 128, 4, 2, 16, True, 32),
+    (2, 333, 333, 8, 2, 64, True, None),
+    (1, 100, 100, 4, 2, 16, True, None),
+    (1, 70, 150, 4, 1, 32, True, None),
+    (1, 150, 70, 4, 2, 32, True, None),
+    (1, 200, 200, 2, 2, 16, True, 5),
+    (1, 130, 130, 4, 1, 128, False, 17),
+    (1, 150, 70, 4, 2, 32, True, 5),      # rows no key reaches: the mean of v
+    (1, 200, 130, 2, 1, 64, False, 40),
+]
+
+
+def _attn_inputs(B, Lq, Lkv, H, Hkv, hd, dtype, gen):
+    """q, k, v in the model's (B, L, H, hd) layout, as the (B, H, L, hd)
+    views ops.attention hands the kernel."""
+    import torch
+
+    q = torch.randn((B, Lq, H, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, Lkv, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, Lkv, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def _flash_err(out, ref, dtype, case) -> float:
+    """max|err| of the kernel's output against its plain version; raises
+    past FLASH_TOL, and for bf16 where an element is off by more than one
+    bf16 ulp of the plain value (2^-7·|ref|) plus 1e-4. Both sides round a
+    float32 result once to bf16, so they may differ by that rounding only;
+    a fixed atol would be as large as a typical output of a long causal row
+    (|o| ~ sqrt(e/i) at row i)."""
+    import torch
+
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    excess = 0.0
+    if dtype == torch.bfloat16:
+        excess = (diff - 2.0 ** -7 * ref.float().abs() - 1e-4).max().item()
+    tol = FLASH_TOL[str(dtype).split(".")[1]]
+    if out.dtype != dtype or err > tol or excess > 0:
+        raise AssertionError(
+            f"flash_attention mismatch {dtype} (B, Lq, Lkv, H, Hkv, hd, causal, window)="
+            f"{case}: max|err| {err} (tol {tol}), {excess} past 1 bf16 ulp + 1e-4")
+    return err
+
+
+def phase_flash_check(card: str) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import attention_reference, flash_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, Lq, Lkv, H, Hkv, hd, causal, window in FLASH_CASES:
+            q, k, v = _attn_inputs(B, Lq, Lkv, H, Hkv, hd, dtype, gen)
+            out = flash_attention(q, k, v, causal=causal, window=window)
+            ref = attention_reference(q, k, v, causal=causal, window=window)
+            err = _flash_err(out, ref, dtype, (B, Lq, Lkv, H, Hkv, hd, causal, window))
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
+    log(f"[kernel] flash_attention matches its plain version on {len(FLASH_CASES)} cases "
+        f"x 2 dtypes (max|err| float32 {worst[torch.float32]:.3g}, bf16 "
+        f"{worst[torch.bfloat16]:.3g})")
+
+    # The serving slice's prefill: granite-3-2b, B = SERVE_SLOTS, L = PROMPT_LEN.
+    cfg = serve_config()
+    B, L, H, Hkv, hd = SERVE_SLOTS, PROMPT_LEN, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = _attn_inputs(B, L, L, H, Hkv, hd, torch.bfloat16, gen)
+    shape = (B, L, L, H, Hkv, hd, True, None)
+    # float32 first: the same index and tile logic held to 2e-5 on rows of
+    # up to 3072 keys, where a bf16 tolerance would hide a lost kv tile
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    err32 = _flash_err(flash_attention(q32, k32, v32, causal=True),
+                       attention_reference(q32, k32, v32, causal=True), torch.float32, shape)
+    del q32, k32, v32
+    torch.cuda.empty_cache()
+    err = _flash_err(flash_attention(q, k, v, causal=True),
+                     attention_reference(q, k, v, causal=True), torch.bfloat16, shape)
+    log(f"[kernel] flash_attention at the prefill shape q {(B, L, H, hd)} k/v "
+        f"{(B, L, Hkv, hd)} causal vs plain version: max|err| float32 {err32:.3g}, "
+        f"bf16 {err:.3g}")
+    ms = time_cuda(lambda: flash_attention(q, k, v, causal=True), iters=20)
+    plain_ms = time_cuda(lambda: attention_reference(q, k, v, causal=True), iters=3, warmup=1)
+    library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), iters=20)
+    moved = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()  # q, k, v in; o out
+    ops = 4 * B * H * hd * (L * (L + 1) // 2)   # q·k and p·v over the causal pairs
+    bound_ms, bound_by = _bound(moved, ops, card, peak=BF16_PEAK)
+    log(f"[kernel] flash_attention {ms:.3f} ms (bound {bound_ms:.3f} ms by {bound_by}, "
+        f"{ops / ms / 1e9:.1f} TFLOP/s); plain version {plain_ms:.3f} ms; "
+        f"scaled_dot_product_attention {library_ms:.3f} ms")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
 
 def slice_config():
     from repro_torch.configs import get_config
 
     return get_config("granite-3-2b", n_layers=N_LAYERS)
+
+
+def serve_config():
+    """granite-3-2b at its published widths and full depth (slice 3)."""
+    from repro_torch.configs import get_config
+
+    return get_config("granite-3-2b")
 
 
 def slice_bus_group():
@@ -360,22 +519,20 @@ def phase_slice() -> dict:
     from repro_torch.core import topology as T
     from repro_torch.core.decentralized import make_train_step
     from repro_torch.core.gossip import GossipSpec
-    from repro_torch.kernels.gossip_mix import gossip_mix_2d
-    from repro_torch.kernels.quant_pack import quantize_pack_2d
     from repro_torch.train import train
 
     params0, batcher, batches, loss, opt = slice_setup("slice")
     topo = T.undirected_ring(M_WORKERS)
     spec = GossipSpec(topology=topo, backend="fused")
     torch.cuda.reset_peak_memory_stats()
-    gossip_mix_2d.launches = quantize_pack_2d.launches = 0
+    reset_launches()
     state, hist = train(loss, params0, opt, batches(), steps=STEPS, gossip=spec,
                         log_every=STEPS, device="cuda", verbose=False)
-    launches = {"gossip_mix": gossip_mix_2d.launches, "quant_pack": quantize_pack_2d.launches}
+    launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if not all(math.isfinite(x) for x in hist.loss):
         raise AssertionError(f"non-finite loss: {hist.loss}")
-    if launches != {"gossip_mix": STEPS, "quant_pack": 0}:
+    if launches != {"gossip_mix": STEPS, "quant_pack": 0, "flash_attention": 0}:
         raise AssertionError(f"training launched {launches} in {STEPS} steps, "
                              f"want 1 gossip_mix per step")
     tokens = M_WORKERS * PER_WORKER_BATCH * SEQ_LEN
@@ -398,7 +555,7 @@ def phase_slice() -> dict:
         f"(bf16 tol {TOL['bfloat16']}); losses {m_f.loss.item():.4f} / {m_e.loss.item():.4f}")
     del s_e, m_e
     profile_call("one fused step", lambda: fused(s_f, batch))
-    return {"launches": launches, "step_s": step_s, "tokens": tokens}
+    return {"launches": launches, "step_s": step_s, "tokens": tokens, "params": state.params}
 
 
 def phase_slice2(slice1: dict) -> dict:
@@ -424,16 +581,15 @@ def phase_slice2(slice1: dict) -> dict:
     topo = T.hier(2, 2)          # ring of 2 pods ⊗ clique of 2: the product is clique(4)
     spec = GossipSpec(topology=topo, backend="fused", hierarchical=True)
     torch.cuda.reset_peak_memory_stats()
-    gossip_mix_2d.launches = quantize_pack_2d.launches = 0
+    reset_launches()
     state, hist = train(loss, params0, opt, batches(), steps=STEPS, gossip=spec,
                         log_every=STEPS, device="cuda", verbose=False)
-    train_launches = {"gossip_mix": gossip_mix_2d.launches,
-                      "quant_pack": quantize_pack_2d.launches}
+    train_launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del params0
     if not all(math.isfinite(x) for x in hist.loss):
         raise AssertionError(f"non-finite loss: {hist.loss}")
-    if train_launches != {"gossip_mix": 2 * STEPS, "quant_pack": 0}:
+    if train_launches != {"gossip_mix": 2 * STEPS, "quant_pack": 0, "flash_attention": 0}:
         raise AssertionError(f"hierarchical training launched {train_launches} in "
                              f"{STEPS} steps, want 2 gossip_mix per step")
     step_s = hist.step_time[-1]
@@ -473,7 +629,7 @@ def phase_slice2(slice1: dict) -> dict:
     exact = hierarchical_mix(params, intra, inter)
     amax = max(x.abs().max().item() for x in _tree.leaves(mix_pytree(params, intra)))
     torch.cuda.synchronize()
-    gossip_mix_2d.launches = quantize_pack_2d.launches = 0
+    reset_launches()
     x, res, round_ms, peak = params, None, [], 0
     for r in range(DCI_ROUNDS):
         torch.cuda.reset_peak_memory_stats()    # the round alone, not its checks
@@ -491,8 +647,9 @@ def phase_slice2(slice1: dict) -> dict:
         if r == 0:
             check_round1(x, exact, amax)
             del exact
-    lane_launches = {"gossip_mix": gossip_mix_2d.launches,
-                     "quant_pack": quantize_pack_2d.launches}
+    lane_launches = read_launches()
+    if lane_launches["flash_attention"]:
+        raise AssertionError(f"the compressed lane launched {lane_launches}")
     steady = round_ms[1:]
     log(f"[slice2] {DCI_ROUNDS} compressed rounds, launches {lane_launches}; round 0 "
         f"{round_ms[0]:.1f} ms, rounds 1-{DCI_ROUNDS - 1} {sum(steady) / len(steady):.1f} "
@@ -502,6 +659,176 @@ def phase_slice2(slice1: dict) -> dict:
     profile_call("one compressed round", lambda: hierarchical_mix_compressed(
         x, intra, inter, dci_dtype="int8", residual=res))
     return {"slice2_hier_train": train_launches, "slice2_compressed": lane_launches}
+
+
+def phase_checkpoint(params_M) -> None:
+    """export_consensus of slice 1's worker-stacked params, then
+    load_consensus_params of the file, bit for bit against
+    consensus_params of the in-memory params."""
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.serving import load_consensus_params
+    from repro_torch.train import checkpoint as ckpt
+
+    path = os.path.join(ROOT, "build", "chip_smoke", "slice1_consensus.npz")
+    t0 = time.perf_counter()
+    ckpt.export_consensus(params_M, dst=path, step=STEPS)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_consensus_params(path, slice_config(), device="cuda")
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    want = ckpt.consensus_params(params_M)
+    pairs = list(zip(_tree.flatten_with_path(loaded), _tree.leaves(want)))
+    bad = ["/".join(map(str, p)) for (p, a), b in pairs
+           if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b)]
+    if bad or len(pairs) != len(_tree.leaves(want)):
+        raise AssertionError(f"consensus checkpoint round trip differs at {bad[:5]}")
+    size, step = os.path.getsize(path), ckpt.latest_step(path)
+    os.remove(path)
+    os.remove(path + ".meta.json")
+    log(f"[checkpoint] export_consensus of {_tree.leaves(params_M)[0].shape[0]} stacked "
+        f"workers → {size / 1e9:.2f} GB npz (step {step}) in {t_save:.1f} s; "
+        f"load_consensus_params {t_load:.1f} s; {len(pairs)} leaves equal to "
+        f"consensus_params bit for bit")
+
+
+def phase_serve() -> dict:
+    """Slice 3: the full-depth model served by WaveBatcher, then the
+    prefill check against the blockwise route, timings and a profile."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import token_stream
+    from repro_torch.models import model as Mo
+    from repro_torch.models.params import count_params
+    from repro_torch.serving import WaveBatcher, generate, make_serve_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[serve] {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated before slice 3")
+    cfg = serve_config()
+    t0 = time.perf_counter()
+    params = Mo.init(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    prompts, _ = token_stream(S=SERVE_REQUESTS, seq_len=PROMPT_LEN - 1,
+                              vocab=cfg.vocab_size, seed=1)
+    log(f"[serve] {cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} heads="
+        f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
+        f"{cfg.param_dtype}: {count_params(Mo.model_defs(cfg)):,} params; "
+        f"{SERVE_REQUESTS} requests of {PROMPT_LEN} prompt + {NEW_TOKENS} new tokens, "
+        f"{SERVE_SLOTS} slots; set-up {time.perf_counter() - t0:.1f} s")
+
+    # the user's path: WaveBatcher → generate → prefill (flash kernel) + decode
+    wb = WaveBatcher(params, cfg, SERVE_SLOTS, SERVE_MAX_LEN)
+    rids = [wb.submit(p, NEW_TOKENS) for p in prompts]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    wave_s = []
+    while wb.queue:
+        before = read_launches()
+        t0 = time.perf_counter()
+        wb.run_wave()
+        wave_s.append(time.perf_counter() - t0)   # generate() ends in a host transfer
+        n = read_launches()["flash_attention"] - before["flash_attention"]
+        if n != cfg.n_layers:
+            raise AssertionError(f"wave {len(wave_s)}: {n} flash_attention launches, "
+                                 f"want one per layer ({cfg.n_layers})")
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if sorted(wb.done) != rids or any(len(wb.done[r]) != NEW_TOKENS for r in rids):
+        raise AssertionError("WaveBatcher did not serve every request in full")
+    if launches["gossip_mix"] or launches["quant_pack"]:
+        raise AssertionError(f"serving launched {launches}")
+    new_tokens = SERVE_REQUESTS * NEW_TOKENS
+    log(f"[serve] {len(wave_s)} waves, flash_attention launches {launches['flash_attention']} "
+        f"({cfg.n_layers} per wave's prefill); wave wall {[round(x * 1e3, 1) for x in wave_s]} ms; "
+        f"{new_tokens / sum(wave_s):,.1f} generated tokens/s end to end; peak memory "
+        f"{peak_gb:.2f} GB")
+
+    wave = prompts[:SERVE_SLOTS]
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        res = generate(params, cfg, wave, n_new=NEW_TOKENS)
+        gen_s = time.perf_counter() - t0
+        if not np.isfinite(res.logprobs).all():
+            raise AssertionError("non-finite logprobs")
+        if not all(np.array_equal(res.tokens[i], wb.done[rids[i]]) for i in range(SERVE_SLOTS)):
+            raise AssertionError("generate() and WaveBatcher disagree on wave 1's tokens")
+        log(f"[serve] wave 1 again through generate(): the same tokens, logprobs finite "
+            f"(mean {res.logprobs.mean():.4f}), {gen_s * 1e3:.1f} ms")
+
+        tok = torch.from_numpy(wave).cuda()
+        prefill_s = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = Mo.prefill(params, cfg, tok, max_len=SERVE_MAX_LEN)
+            torch.cuda.synchronize()
+            prefill_s.append(time.perf_counter() - t0)
+        pf = sum(prefill_s) / len(prefill_s)
+        # decode from generate()'s own runs: a run is one prefill and
+        # NEW_TOKENS - 1 decode steps (the first wave also warms the caches'
+        # allocations, so it is left out)
+        runs = wave_s[1:] + [gen_s]
+        step_s = sum((r - pf) / (NEW_TOKENS - 1) for r in runs) / len(runs)
+        nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        serve_step = make_serve_step(cfg)
+        profile_call("one decode step", lambda: serve_step(params, caches, nxt))
+        del caches
+        log(f"[serve] prefill of a wave ({SERVE_SLOTS} x {PROMPT_LEN} tokens): "
+            f"{[round(x * 1e3, 2) for x in prefill_s]} ms, mean {pf * 1e3:.2f} ms = time to "
+            f"first token, {SERVE_SLOTS * PROMPT_LEN / pf:,.0f} prompt tokens/s; decode "
+            f"{step_s * 1e3:.2f} ms/step ((run - prefill) / {NEW_TOKENS - 1} over "
+            f"{len(runs)} generate() runs), {SERVE_SLOTS / step_s:,.1f} generated tokens/s")
+
+        check_prefill(params, cfg, tok)
+        profile_call("one prefill wave", lambda: Mo.prefill(params, cfg, tok,
+                                                            max_len=SERVE_MAX_LEN))
+    del params
+    return {"launches": launches}
+
+
+def check_prefill(params, cfg, tok) -> None:
+    """The wave's last-position prefill logits through the kernel (the
+    serving route) against the same prefill through the training path's
+    blockwise_attention, both bf16 on the card. Tolerance: twice the
+    blockwise route's own distance from a float32 forward of the same
+    weights (plus 1e-5 for float32 sums in another order). The two bf16
+    routes round differently only inside attention, so a kernel as accurate
+    as the blockwise route stays within it; a wrong kernel (mask, GQA head,
+    tile edge) moves the logits by far more."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.models import model as Mo
+
+    kernel = Mo.prefill(params, cfg, tok, max_len=SERVE_MAX_LEN)[0][:, -1]
+    before = read_launches()["flash_attention"]
+    h, _ = Mo.forward(params, cfg, tok)
+    if read_launches()["flash_attention"] != before:
+        raise AssertionError("the training path launched flash_attention")
+    block = Mo.logits_from_hidden(params, cfg, h[:, -1:])[:, -1]
+    del h
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    p32 = _tree.map(lambda x: x.float(), params)
+    h, _ = Mo.forward(p32, cfg32, tok)
+    exact = Mo.logits_from_hidden(p32, cfg32, h[:, -1:])[:, -1]
+    del h, p32
+    e_kb = (kernel - block).abs().max().item()
+    e_bf = (block - exact).abs().max().item()
+    e_kf = (kernel - exact).abs().max().item()
+    finite = bool(torch.isfinite(kernel).all())
+    tol = 2 * e_bf + 1e-5
+    log(f"[serve] last-position prefill logits (|logit| ≤ {exact.abs().max().item():.3f}): "
+        f"kernel vs blockwise max|err| {e_kb:.4g} (tol {tol:.4g}); vs float32: "
+        f"kernel {e_kf:.4g}, blockwise {e_bf:.4g}; argmax agree "
+        f"{int((kernel.argmax(-1) == block.argmax(-1)).sum())}/{kernel.shape[0]}")
+    if not finite or e_kb > tol:
+        raise AssertionError(f"prefill through the kernel off the blockwise route: "
+                             f"{e_kb} > {tol} (finite {finite})")
 
 
 def check_round1(got, exact, amax: float) -> None:
@@ -546,7 +873,7 @@ def profile_call(label: str, fn) -> None:
         log("[profile] device time: not measured (the profiler saw no device kernels)")
         return
     log(f"[profile] {label}: device busy {busy:.1f} ms of {wall_ms:.1f} ms wall "
-        f"(under the profiler)")
+        f"(under the profiler), {sum(r[2] for r in rows)} kernel launches")
     by_kind: dict[str, float] = {}
     for name, ms, _ in rows:
         by_kind[_kernel_kind(name)] = by_kind.get(_kernel_kind(name), 0.0) + ms
@@ -560,6 +887,8 @@ def _kernel_kind(name: str) -> str:
     n = name.lower()
     if "gossip_mix" in n:
         return "gossip_mix kernel (bus mix + update)"
+    if "flash_attention_fwd" in n:
+        return "flash_attention kernel (prefill attention)"
     if "quant_pack" in n:
         return "quant_pack kernel (int8 wire)"
     if "indexselect" in n or "index_elementwise" in n:
@@ -581,10 +910,12 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     card = torch.cuda.get_device_name(0)
-    entries = [phase_kernel_check(card), phase_quant_check(card)]
+    entries = [phase_kernel_check(card), phase_quant_check(card), phase_flash_check(card)]
     slice1 = phase_slice()
+    phase_checkpoint(slice1.pop("params"))
     by_path = {"slice1_train": slice1["launches"]}
     by_path.update(phase_slice2(slice1))
+    by_path["slice3_serve"] = phase_serve()["launches"]
     for e in entries:
         e["launches_by_path"] = {path: n[e["name"]] for path, n in by_path.items()}
         e["launches"] = sum(e["launches_by_path"].values())

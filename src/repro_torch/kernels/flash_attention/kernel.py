@@ -1,0 +1,104 @@
+"""Wrapper of the flash-attention forward kernel (``csrc/flash_attention.cu``).
+
+:func:`flash_attention` computes blockwise online-softmax attention with
+causal and sliding-window masks and GQA, the port of the Pallas TPU kernel
+``repro/kernels/flash_attention/kernel.py:flash_attention``, in its layout:
+q (B, H, Lq, hd), k/v (B, Hkv, Lkv, hd). For CPU tensors it runs the plain
+version (:mod:`.ref`); for CUDA tensors it launches the CUDA kernel, built
+at first call, or raises. There is no fallback from one to the other.
+``flash_attention.launches`` counts kernel launches.
+
+The kernel reads every operand through its (batch, head, row) strides, so a
+transposed view of a (B, L, H, hd) tensor goes in without a copy; the head
+dim must be contiguous. Unlike the Pallas kernel it takes any Lq and Lkv
+(it masks the ragged edge itself); block sizes are the kernel's own (64).
+It is forward only, as the TPU kernel is: the output carries no gradient
+(``repro_torch.kernels.flash_attention.ops.attention`` guards autograd).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ref import attention_reference
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128)
+
+
+@functools.cache
+def library() -> tuple[ctypes.CDLL, str]:
+    """The built kernel library and its compiler log (built once per process)."""
+    lib, log = _build.load("flash_attention", SOURCE)
+    lib.flash_attention_fwd.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.flash_attention_fwd.restype = ctypes.c_int
+    return lib, log
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    scale: float | None = None) -> torch.Tensor:
+    """q: (B, H, Lq, hd); k/v: (B, Hkv, Lkv, hd) → (B, H, Lq, hd) in q's dtype."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q, k, v must be 4-D, got {q.dim()}, {k.dim()}, {v.dim()}")
+    B, H, Lq, hd = q.shape
+    Hkv, Lkv = k.shape[1], k.shape[2]
+    if tuple(v.shape) != tuple(k.shape) or k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not fit "
+                         f"q {tuple(q.shape)}")
+    if Hkv == 0 or H % Hkv:
+        raise ValueError(f"{H} q heads are not a multiple of {Hkv} kv heads")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be a positive length, got {window}")
+    scale = float(scale if scale is not None else 1.0 / np.sqrt(hd))
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, causal=causal, window=window, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on CPU or CUDA tensors, not {q.device}")
+
+    for t in (k, v):
+        if t.device != q.device:
+            raise ValueError(f"all operands must be on {q.device}, got {t.device}")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share a float32 or bfloat16 dtype, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in the kernel's {HEAD_DIMS}")
+    out = torch.empty_like(q)     # keeps q's memory order, so a view's output is one too
+    if out.numel() == 0:
+        return out
+    vec = 16 // q.element_size()
+    strides = []
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        if t.stride(3) != 1:
+            raise ValueError(f"{name} needs a contiguous head dim, got strides {t.stride()}")
+        if t.data_ptr() % 16 or any(s % vec for s in t.stride()[:3]):
+            raise ValueError(f"{name} rows must be 16-byte aligned: data_ptr "
+                             f"{t.data_ptr()}, strides {t.stride()}")
+        strides += list(t.stride()[:3])
+
+    lib, _ = library()
+    c_strides = (ctypes.c_longlong * 12)(*strides)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, H, Hkv, Lq, Lkv, hd, c_strides, scale, int(causal),
+            int(window or 0), _DTYPE_CODE[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,11 +1,18 @@
-"""Attention for training: dense and blockwise GQA.
+"""Attention: dense and blockwise GQA, and the full KV cache for serving.
 
-The port of the training path of the reference's
-``repro/models/attention.py``: ``dense_attention``, ``blockwise_attention``
-(the online-softmax algorithm in plain PyTorch), ``attention_any`` and the
-cache-free branch of ``gqa_apply``. Tensors keep the reference's
-``(B, L, H, hd)`` layout. KV caches, MLA and cross-attention come with the
-serving and model-family slices.
+The port of the reference's ``repro/models/attention.py`` for the dense GQA
+family: ``dense_attention`` (with ``kv_valid``), ``blockwise_attention``
+(the online-softmax algorithm in plain PyTorch), ``attention_any``,
+``KVCache``/``init_kv_cache``, ``slot_decode_attention``,
+``_ragged_kv_valid``, and ``gqa_apply`` with its cache-free (training),
+prefill and cached-decode branches. Tensors keep the reference's
+``(B, L, H, hd)`` layout. Ring and paged caches, MLA, cross-attention and
+the mesh decode come with later slices.
+
+A long unmasked prefill goes through the hand-written flash kernel
+(``repro_torch.kernels.flash_attention.ops.attention``); training keeps
+``blockwise_attention``, as the reference's model does, because the kernel
+is forward only.
 
 Where the reference asks for a float32 product of low-precision operands
 (``preferred_element_type=float32``), :func:`f32_product` multiplies in the
@@ -14,20 +21,24 @@ rounding of the scores for bf16 (ROADMAP queue 3 records it).
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.layers import rope
 from repro_torch.models.params import ParamDef
 
 PyTree = Any
 NEG_INF = -1e30   # finite: a fully masked row recovers where -inf gives NaN
 
+BLOCK_THRESHOLD = 1024   # kv length above which attention goes blockwise
+
 __all__ = ["NEG_INF", "repeat_kv", "dense_attention", "blockwise_attention",
-           "attention_any", "gqa_defs", "gqa_apply", "f32_product"]
+           "attention_any", "KVCache", "init_kv_cache", "slot_decode_attention",
+           "gqa_defs", "gqa_apply", "f32_product"]
 
 
 def f32_product(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -55,15 +66,23 @@ def repeat_kv(x: torch.Tensor, H: int) -> torch.Tensor:
     return torch.repeat_interleave(x, H // Kh, dim=2)
 
 
+def _valid_bias(kv_valid: torch.Tensor) -> torch.Tensor:
+    """(B, Lkv) bool → (B, 1, 1, Lkv) additive float32 bias."""
+    return torch.where(kv_valid, 0.0, NEG_INF).float()[:, None, None, :]
+
+
 def dense_attention(q, k, v, q_pos, kv_pos, *, causal=True, window=None,
-                    scale=None) -> torch.Tensor:
-    """q: (B, Lq, H, hd); k/v: (B, Lkv, Kh, hd); GQA kv repeated to H heads."""
+                    kv_valid=None, scale=None) -> torch.Tensor:
+    """q: (B, Lq, H, hd); k/v: (B, Lkv, Kh, hd); GQA kv repeated to H heads.
+    kv_valid: optional (B, Lkv) bool, e.g. cache slots not yet written."""
     H, hd = q.shape[2], q.shape[3]
     scale = float(scale if scale is not None else 1.0 / np.sqrt(hd))
     k = repeat_kv(k, H)
     v = repeat_kv(v, H)
     s = f32_product("bqhd,bshd->bhqs", q, k)
     s = s * scale + _mask_bias(q_pos, kv_pos, causal=causal, window=window)
+    if kv_valid is not None:
+        s = s + _valid_bias(kv_valid)
     p = torch.softmax(s, dim=-1).to(v.dtype)
     return torch.einsum("bhqs,bshd->bqhd", p, v)
 
@@ -119,15 +138,15 @@ def blockwise_attention(q, k, v, q_base: int, *, causal=True, window=None,
     return out.permute(0, 2, 1, 3)
 
 
-def attention_any(q, k, v, q_base, *, causal=True, window=None, scale=None,
-                  block_threshold=1024) -> torch.Tensor:
-    """Dense for short kv, blockwise for long kv."""
+def attention_any(q, k, v, q_base, *, causal=True, window=None, kv_valid=None,
+                  scale=None, block_threshold=BLOCK_THRESHOLD) -> torch.Tensor:
+    """Dense for short kv or a kv_valid mask, blockwise for long kv."""
     Lkv = k.shape[1]
-    if Lkv <= block_threshold:
+    if Lkv <= block_threshold or kv_valid is not None:
         q_pos = q_base + torch.arange(q.shape[1], device=q.device)
         kv_pos = torch.arange(Lkv, device=q.device)
         return dense_attention(q, k, v, q_pos, kv_pos, causal=causal,
-                               window=window, scale=scale)
+                               window=window, kv_valid=kv_valid, scale=scale)
     return blockwise_attention(q, k, v, q_base, causal=causal, window=window,
                                scale=scale)
 
@@ -146,14 +165,110 @@ def gqa_defs(cfg: ModelConfig) -> PyTree:
     }
 
 
-def gqa_apply(params, cfg: ModelConfig, x) -> torch.Tensor:
-    """Causal self-attention over whole (B, L, D) sequences from position 0
-    (the reference's training branch: no cache, no memory)."""
+class KVCache(NamedTuple):
+    """A full KV cache. ``k``/``v``: (B, S, Kh, hd), S = max_len (with a
+    leading layer dim for a scanned segment); ``pos``: tokens written so far.
+
+    ``gqa_apply`` writes new keys and values into ``k``/``v`` in place (an
+    eager copy would move the whole cache at every decode step) and returns
+    a KVCache over the same storage with ``pos`` advanced: the cache passed
+    in is stale afterwards. ``pos`` is a Python int, so no step waits on the
+    device to learn where to write."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: int
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype,
+                  device: torch.device, layers: int | None = None) -> KVCache:
+    """An empty cache; ``layers`` stacks one per layer of a scanned segment
+    (each layer its own storage, not a broadcast view)."""
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    if layers is not None:
+        shape = (layers,) + shape
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device), 0)
+
+
+def slot_decode_attention(q, k_ctx, v_ctx, kv_valid, scale=None) -> torch.Tensor:
+    """One-token-per-slot decode attention with per-slot validity.
+
+    q: (S, 1, H, hd); k_ctx/v_ctx: (S, Lkv, Kh, hd); kv_valid: (S, Lkv).
+    Causality is entirely in kv_valid: each slot's query is its newest
+    token, so every valid key is attendable (the ragged dense decode)."""
+    H = q.shape[2]
+    scale = float(scale if scale is not None else 1.0 / np.sqrt(q.shape[-1]))
+    k_ctx = repeat_kv(k_ctx, H)
+    v_ctx = repeat_kv(v_ctx, H)
+    s = f32_product("bqhd,bshd->bhqs", q, k_ctx) * scale + _valid_bias(kv_valid)
+    p = torch.softmax(s, dim=-1).to(v_ctx.dtype)
+    return torch.einsum("bhqs,bshd->bqhd", p, v_ctx)
+
+
+def _ragged_kv_valid(S: int, lengths: torch.Tensor, prompt_len: int,
+                     pos: int) -> torch.Tensor:
+    """(B, S) cache-slot validity for right-padded ragged prompts: real
+    prompt columns [0, len_b), decode columns [prompt_len, pos+1)."""
+    idx = torch.arange(S, device=lengths.device)[None, :]
+    return ((idx < lengths[:, None]) | (idx >= prompt_len)) & (idx < pos + 1)
+
+
+def gqa_apply(params, cfg: ModelConfig, x, *, cache: KVCache | None = None,
+              lengths: torch.Tensor | None = None, prompt_len: int | None = None):
+    """Causal self-attention over (B, L, D) → (out, new cache or None).
+
+    Without a cache: whole sequences from position 0 (training). With a
+    cache and L > 1: prefill of an empty cache; a long unmasked prompt goes
+    through the flash kernel. With a cache and L == 1: one cached decode
+    step. lengths: (B,) true prompt lengths of RIGHT-padded ragged batches:
+    in prefill pad keys are masked out; in decode (with ``prompt_len``, the
+    padded prompt width) rope positions are per row (len_b + t) and the pad
+    columns stay masked, so batched ragged decode matches unbatched.
+    """
+    B, L, _ = x.shape
     q = torch.einsum("bld,dhk->blhk", x, params["wq"])
     k = torch.einsum("bld,dhk->blhk", x, params["wk"])
     v = torch.einsum("bld,dhk->blhk", x, params["wv"])
-    pos = torch.arange(x.shape[1], device=x.device)
-    q = rope(q, pos, cfg.rope_theta)
-    k = rope(k, pos, cfg.rope_theta)
-    o = attention_any(q, k, v, 0, causal=True)
-    return torch.einsum("blhk,hkd->bld", o, params["wo"])
+    if cache is not None and lengths is not None and L == 1:
+        # token t of row b sits at column prompt_len + t, position len_b + t
+        q_pos = (cache.pos - (prompt_len - lengths))[:, None]
+    else:
+        base = cache.pos if cache is not None else 0
+        q_pos = base + torch.arange(L, device=x.device)
+    q = rope(q, q_pos, cfg.rope_theta)
+    k = rope(k, q_pos, cfg.rope_theta)
+
+    if cache is None:
+        o = attention_any(q, k, v, 0, causal=True)
+        return torch.einsum("blhk,hkd->bld", o, params["wo"]), None
+
+    if L > 1:
+        # prefill: the cache is empty (pos 0); right-padded ragged prompts
+        # mask their pad keys and take the dense path, as in the reference
+        kv_valid = None
+        if lengths is not None:
+            kv_valid = torch.arange(L, device=x.device)[None, :] < lengths[:, None]
+        if kv_valid is None and L > BLOCK_THRESHOLD:
+            o = flash_ops.attention(q, k, v, causal=True)
+        else:
+            o = attention_any(q, k, v, 0, causal=True, kv_valid=kv_valid)
+        cache.k[:, :L] = k
+        cache.v[:, :L] = v
+        new_cache = KVCache(cache.k, cache.v, cache.pos + L)
+        return torch.einsum("blhk,hkd->bld", o, params["wo"]), new_cache
+
+    pos = cache.pos
+    cache.k[:, pos:pos + L] = k
+    cache.v[:, pos:pos + L] = v
+    new_cache = KVCache(cache.k, cache.v, pos + L)
+    S = cache.k.shape[1]
+    if lengths is not None:
+        kv_valid = _ragged_kv_valid(S, lengths, prompt_len, pos)
+        o = slot_decode_attention(q, cache.k, cache.v, kv_valid)
+    else:
+        arange_s = torch.arange(S, device=x.device)
+        kv_valid = (arange_s < pos + L)[None, :].expand(B, S)
+        o = dense_attention(q, cache.k, cache.v, pos + torch.arange(L, device=x.device),
+                            arange_s, causal=True, kv_valid=kv_valid)
+    return torch.einsum("blhk,hkd->bld", o, params["wo"]), new_cache

@@ -7,6 +7,7 @@ returning a ParamDef tree and ``<name>_apply(params, cfg, x, ...)``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import numpy as np
@@ -33,14 +34,21 @@ def rmsnorm_apply(params: PyTree, x: torch.Tensor, eps: float = 1e-6) -> torch.T
     return (normed * params["scale"].float()).to(x.dtype)
 
 
+@functools.lru_cache(maxsize=16)
+def _rope_freqs(hd: int, theta: float, device: torch.device) -> torch.Tensor:
+    """The reference's float32 frequencies, computed by numpy as it does,
+    moved to ``device`` once: a host→device copy at every call would make
+    the host wait for the device twice per layer (decode is host-bound)."""
+    freqs = 1.0 / (theta ** (np.arange(0, hd, 2, dtype=np.float32) / hd))
+    return torch.from_numpy(np.asarray(freqs, np.float32)).to(device)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
     """Rotary embedding, split-halves layout (not interleaved), in float32.
 
     x: (..., L, H, hd); positions: (..., L).
     """
-    hd = x.shape[-1]
-    freqs = 1.0 / (theta ** (np.arange(0, hd, 2, dtype=np.float32) / hd))
-    freqs = torch.from_numpy(np.asarray(freqs, np.float32)).to(x.device)
+    freqs = _rope_freqs(x.shape[-1], float(theta), x.device)
     angles = positions[..., :, None].float() * freqs        # (..., L, hd/2)
     cos = torch.cos(angles)[..., :, None, :]
     sin = torch.sin(angles)[..., :, None, :]

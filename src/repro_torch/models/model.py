@@ -1,16 +1,18 @@
-"""Model assembly: the dense GQA decoder.
+"""Model assembly: the dense GQA decoder, for training and serving.
 
-The port of the training path of the reference's ``repro/models/model.py``
-for the dense family (granite): ``model_defs``, ``init``, ``forward`` (no
-caches), ``logits_from_hidden``, ``cross_entropy_chunked`` and ``loss_fn``,
-all pure functions over a params tree.
+The port of the reference's ``repro/models/model.py`` for the dense family
+(granite): ``model_defs``, ``init``, ``forward`` (with or without KV
+caches), ``logits_from_hidden``, ``cross_entropy_chunked``, ``loss_fn``,
+``init_cache``, ``prefill`` and ``decode_step``, all functions over a params
+tree. KV caches are written in place (``attention.KVCache``).
 
 Layers are grouped into segments as in the reference. A scanned segment
 (``cfg.scan_layers``, what the full configs use) stacks its leaves on a
-leading layer dim and runs as a Python loop over it; a list segment (what
-``reduced()`` gives) is a list of per-layer trees. ``cfg.remat`` only trades
-memory for recompute in the reference and is ignored here (ROADMAP).
-Other layer kinds, MoE, MLA and encoder-decoder come with their families.
+leading layer dim and runs as a Python loop over it, its cache stacked the
+same way; a list segment (what ``reduced()`` gives) is a list of per-layer
+trees and caches. ``cfg.remat`` only trades memory for recompute in the
+reference and is ignored here (ROADMAP). Other layer kinds, MoE, MLA and
+encoder-decoder come with their families.
 """
 from __future__ import annotations
 
@@ -28,7 +30,8 @@ from repro_torch.models.params import ParamDef, init_tree
 PyTree = Any
 
 __all__ = ["Segment", "plan_segments", "model_defs", "init", "forward",
-           "logits_from_hidden", "cross_entropy_chunked", "loss_fn"]
+           "logits_from_hidden", "cross_entropy_chunked", "loss_fn",
+           "init_cache", "prefill", "decode_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,26 +104,45 @@ def init(generator: torch.Generator, cfg: ModelConfig,
     return init_tree(generator, model_defs(cfg), dtype, device)
 
 
-def _block_apply(bp: PyTree, cfg: ModelConfig, x):
-    """One residual block: x + attn(norm1(x)), then + mlp(norm2(x))."""
-    x = x + attn_lib.gqa_apply(bp["mix"], cfg, L.rmsnorm_apply(bp["norm1"], x, cfg.norm_eps))
+def _block_apply(bp: PyTree, cfg: ModelConfig, x, cache=None, lengths=None,
+                 prompt_len=None):
+    """One residual block: x + attn(norm1(x)), then + mlp(norm2(x)).
+    Returns (x, new cache or None)."""
+    a, new_cache = attn_lib.gqa_apply(bp["mix"], cfg, L.rmsnorm_apply(bp["norm1"], x, cfg.norm_eps),
+                                      cache=cache, lengths=lengths, prompt_len=prompt_len)
+    x = x + a
     h2 = L.rmsnorm_apply(bp["norm2"], x, cfg.norm_eps)
-    return x + L.mlp_apply(bp["mlp"], cfg, h2)
+    return x + L.mlp_apply(bp["mlp"], cfg, h2), new_cache
 
 
 def _embed(params, cfg: ModelConfig, tokens):
     return params["embed"][tokens.long()].to(getattr(torch, cfg.compute_dtype))
 
 
-def forward(params, cfg: ModelConfig, tokens) -> torch.Tensor:
-    """Decoder forward over (B, L) tokens → final-norm hidden (B, L, D)."""
+def forward(params, cfg: ModelConfig, tokens, *, caches: list | None = None,
+            lengths=None, prompt_len: int | None = None):
+    """Decoder forward over (B, L) tokens → (final-norm hidden (B, L, D),
+    new caches or None). ``caches`` (from :func:`init_cache`) are written in
+    place; lengths/prompt_len as in ``attention.gqa_apply``."""
     _check_supported(cfg)
     x = _embed(params, cfg, tokens)
-    for seg, sp in zip(plan_segments(cfg), params["segments"]):
+    new_caches: list = []
+    for si, (seg, sp) in enumerate(zip(plan_segments(cfg), params["segments"])):
+        cache_s = caches[si] if caches is not None else None
+        seg_new = []
         for li in range(seg.length):
             bp = _tree.map(lambda a: a[li], sp) if seg.scanned else sp[li]
-            x = _block_apply(bp, cfg, x)
-    return L.rmsnorm_apply(params["out_norm"], x, cfg.norm_eps)
+            c = None
+            if cache_s is not None:   # a layer of a stacked cache is a view into it
+                c = (attn_lib.KVCache(cache_s.k[li], cache_s.v[li], cache_s.pos)
+                     if seg.scanned else cache_s[li])
+            x, nc = _block_apply(bp, cfg, x, c, lengths, prompt_len)
+            seg_new.append(nc)
+        if cache_s is not None and seg.scanned:
+            seg_new = attn_lib.KVCache(cache_s.k, cache_s.v, seg_new[-1].pos)
+        new_caches.append(seg_new)
+    h = L.rmsnorm_apply(params["out_norm"], x, cfg.norm_eps)
+    return h, (new_caches if caches is not None else None)
 
 
 def _unembed(params, cfg: ModelConfig) -> torch.Tensor:
@@ -158,5 +180,54 @@ def loss_fn(params, cfg: ModelConfig, batch: PyTree) -> torch.Tensor:
     labels = batch.get("labels")
     if labels is None:
         tokens, labels = tokens[:, :-1], tokens[:, 1:]
-    h = forward(params, cfg, tokens)
+    h, _ = forward(params, cfg, tokens)
     return cross_entropy_chunked(params, cfg, h, labels)
+
+
+def init_cache(params, cfg: ModelConfig, batch: int, max_len: int) -> list:
+    """Empty per-layer caches on the params' device (one stacked
+    ``KVCache`` for a scanned segment, a list of them for a list segment)."""
+    dtype = getattr(torch, cfg.compute_dtype)
+    dev = params["embed"].device
+    caches: list = []
+    for seg in plan_segments(cfg):
+        if seg.scanned:
+            caches.append(attn_lib.init_kv_cache(cfg, batch, max_len, dtype, dev,
+                                                 layers=seg.length))
+        else:
+            caches.append([attn_lib.init_kv_cache(cfg, batch, max_len, dtype, dev)
+                           for _ in range(seg.length)])
+    return caches
+
+
+def prefill(params, cfg: ModelConfig, tokens, max_len: int | None = None,
+            lengths=None):
+    """Run the prompt, building caches → (logits (B, 1, V) of the last
+    position, caches).
+
+    With ``lengths`` (B,), tokens are RIGHT-padded ragged prompts: pad keys
+    are masked out of attention and the logits are taken at each row's last
+    *real* position (column lengths[b]-1), not the pad tail.
+    """
+    B, Lp = tokens.shape
+    max_len = max_len or Lp
+    caches = init_cache(params, cfg, B, max_len)
+    h, new_caches = forward(params, cfg, tokens, caches=caches, lengths=lengths,
+                            prompt_len=Lp)
+    if lengths is not None:
+        h_last = h[torch.arange(B, device=h.device), lengths.long() - 1][:, None, :]
+    else:
+        h_last = h[:, -1:]
+    return logits_from_hidden(params, cfg, h_last), new_caches
+
+
+def decode_step(params, cfg: ModelConfig, caches, token, *, lengths=None,
+                prompt_len: int | None = None):
+    """One decode step. token: (B, 1) → (logits (B, 1, V), new caches).
+
+    lengths/prompt_len continue a ragged prefill: rope positions per row run
+    lengths[b], lengths[b]+1, ... and the original pad columns stay masked.
+    """
+    h, new_caches = forward(params, cfg, token, caches=caches, lengths=lengths,
+                            prompt_len=prompt_len)
+    return logits_from_hidden(params, cfg, h), new_caches

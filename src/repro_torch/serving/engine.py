@@ -1,0 +1,172 @@
+"""Batched serving: prefill and greedy or sampled decode over KV caches.
+
+The port of the reference's ``repro/serving/engine.py`` without the mesh:
+``load_consensus_params`` (a monolithic npz, worker-stacked or not),
+``make_serve_step``, ``GenerationResult``, ``generate`` and the lock-step
+``WaveBatcher``. The reference's jitted ``lax.scan`` decode loop is a
+Python loop here; tokens and logprobs stay on the device and come to the
+host at the end, as in the reference. The KV caches are written in place.
+
+Greedy decoding is ``argmax`` (the first maximum, as in JAX). With
+``temperature > 0`` tokens are drawn from a ``torch.Generator`` seeded by
+``seed``: deterministic for a seed, but not the numbers ``jax.random``
+draws. ``ContinuousBatcher`` and the paged caches are not ported yet
+(ROADMAP queue 1, item 15).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch import _tree
+from repro_torch.configs.base import ModelConfig
+from repro_torch.convert import to_device
+from repro_torch.models import model as M
+from repro_torch.train import checkpoint as ckpt_lib
+
+PyTree = Any
+
+__all__ = ["load_consensus_params", "make_serve_step", "GenerationResult",
+           "generate", "WaveBatcher"]
+
+
+def load_consensus_params(path: str, cfg: ModelConfig, *,
+                          dtype: torch.dtype | str | None = None,
+                          device: str | torch.device = "cuda") -> PyTree:
+    """Decode-ready params from a gossip-trained checkpoint.
+
+    The checkpoint may be worker-stacked (every leaf carries the leading M
+    dim the decentralized trainer keeps) or already consensus-averaged; a
+    stacked one is collapsed on ``device`` by
+    ``checkpoint.consensus_params`` (the paper's output model
+    w̄ = (1/M) Σ_j w_j) before serving."""
+    dt = dtype or cfg.param_dtype
+    dt = getattr(torch, dt) if isinstance(dt, str) else dt
+    like = _tree.map(lambda d: torch.empty(d.shape, dtype=dt, device="meta"),
+                     M.model_defs(cfg))
+    data = np.load(ckpt_lib._npz_path(path))
+    # worker-stacked iff a stored leaf has one more dim than its template
+    # (bf16 leaves are stored as a same-shape uint16 view)
+    by_key = {ckpt_lib._path_key(p): leaf for p, leaf in _tree.flatten_with_path(like)}
+    f0 = data.files[0]
+    leaf0 = by_key[ckpt_lib._base_key(f0)]
+    if data[f0].ndim == leaf0.dim() + 1:
+        Mw = data[f0].shape[0]
+        stacked = _tree.map(lambda t: torch.empty((Mw,) + tuple(t.shape), dtype=t.dtype,
+                                                  device="meta"), like)
+        return ckpt_lib.consensus_params(ckpt_lib.restore(path, stacked, device))
+    return ckpt_lib.restore(path, like, device)
+
+
+def make_serve_step(cfg: ModelConfig):
+    """serve_step(params, caches, token) -> (logits, caches): ONE new token
+    against the KV caches (written in place)."""
+
+    def serve_step(params, caches, token):
+        return M.decode_step(params, cfg, caches, token)
+
+    return serve_step
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    tokens: np.ndarray        # (B, n_new) int32
+    logprobs: np.ndarray      # (B, n_new) float32
+
+
+@torch.no_grad()
+def generate(params, cfg: ModelConfig, prompt, *, n_new: int,
+             max_len: int | None = None, temperature: float = 0.0,
+             seed: int = 0, lengths=None) -> GenerationResult:
+    """Prefill the prompt and decode n_new tokens (greedy or sampled).
+
+    ``prompt`` (B, Lp) and ``lengths`` may be numpy arrays or tensors; they
+    are moved to the params' device. ``lengths`` (B,) marks RIGHT-padded
+    ragged prompts: pad keys are masked out of prefill attention, per-row
+    rope positions continue from each row's real length, and decoding starts
+    from each row's last real token. The decode step after the last token
+    is not run: its logits would be discarded.
+    """
+    dev = params["embed"].device
+    prompt = to_device(prompt, dev)
+    B, Lp = prompt.shape
+    max_len = max_len or (Lp + n_new)
+    if lengths is not None:
+        lengths = to_device(lengths, dev).to(torch.int32)
+    logits, caches = M.prefill(params, cfg, prompt, max_len=max_len, lengths=lengths)
+    logits = logits[:, -1]
+    gen = torch.Generator(device=dev).manual_seed(seed) if temperature > 0 else None
+    toks, lps = [], []
+    for t in range(n_new):
+        lp = torch.log_softmax(logits, dim=-1)
+        if gen is not None:
+            probs = torch.softmax(logits / temperature, dim=-1)
+            nxt = torch.multinomial(probs, 1, generator=gen)[:, 0]
+        else:
+            nxt = torch.argmax(logits, dim=-1)
+        toks.append(nxt)
+        lps.append(torch.gather(lp, -1, nxt[:, None])[:, 0])
+        if t + 1 < n_new:
+            logits, caches = M.decode_step(
+                params, cfg, caches, nxt[:, None], lengths=lengths,
+                prompt_len=Lp if lengths is not None else None)
+            logits = logits[:, -1]
+    return GenerationResult(torch.stack(toks, dim=1).to(torch.int32).cpu().numpy(),
+                            torch.stack(lps, dim=1).cpu().numpy())
+
+
+@dataclasses.dataclass
+class _Request:
+    rid: int
+    prompt: np.ndarray
+    n_new: int
+
+
+class WaveBatcher:
+    """Wave-based batched serving: requests are grouped into fixed-size
+    waves, RIGHT-padded to the wave's longest prompt, prefilled together and
+    decoded in lock-step (one shared cache position per wave). Ragged waves
+    pass per-row ``lengths`` so pad positions never leak into attention.
+    """
+
+    def __init__(self, params, cfg: ModelConfig, batch_slots: int, max_len: int,
+                 pad_id: int = 0):
+        self.params, self.cfg = params, cfg
+        self.B, self.max_len, self.pad_id = batch_slots, max_len, pad_id
+        self.queue: list[_Request] = []
+        self.done: dict[int, np.ndarray] = {}
+        self._rid = 0
+
+    def submit(self, prompt: np.ndarray, n_new: int) -> int:
+        self._rid += 1
+        self.queue.append(_Request(self._rid, np.asarray(prompt), n_new))
+        return self._rid
+
+    def _next_wave(self) -> list[_Request]:
+        wave, self.queue = self.queue[: self.B], self.queue[self.B:]
+        return wave
+
+    def run_wave(self) -> None:
+        wave = self._next_wave()
+        if not wave:
+            return
+        Lp = max(len(r.prompt) for r in wave)
+        n_new = max(r.n_new for r in wave)
+        prompts = np.full((len(wave), Lp), self.pad_id, np.int32)
+        for i, r in enumerate(wave):  # right-pad: positions stay 0..len-1
+            prompts[i, :len(r.prompt)] = r.prompt
+        lens = np.array([len(r.prompt) for r in wave], np.int32)
+        ragged = bool((lens != Lp).any())
+        res = generate(self.params, self.cfg, prompts, n_new=n_new,
+                       max_len=min(self.max_len, Lp + n_new),
+                       lengths=lens if ragged else None)
+        for i, r in enumerate(wave):
+            self.done[r.rid] = res.tokens[i, : r.n_new]
+
+    def run_until_done(self) -> dict[int, np.ndarray]:
+        while self.queue:
+            self.run_wave()
+        return self.done

@@ -7,7 +7,9 @@ they run where the port runs:
 Tolerances are the reference's kernel-test ones: atol 1e-5 for float32,
 5e-2 for bf16. Kernel and plain version round the same float32 operations
 in the same order, so in practice they agree bit for bit; quant_pack is
-held to exact equality of values and scales.
+held to exact equality of values and scales. flash_attention sums in
+another order than its plain version (tiles, online softmax), so it is held
+to the reference's flash tolerances: atol 2e-5 for float32, 3e-2 for bf16.
 """
 import numpy as np
 import pytest
@@ -17,6 +19,8 @@ from repro_torch import _tree
 from repro_torch.core import bus
 from repro_torch.core import topology as T
 from repro_torch.core.gossip import GossipSpec
+from repro_torch.kernels.flash_attention import attention_reference, flash_attention
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.gossip_mix import gossip_mix_2d, gossip_mix_reference
 from repro_torch.kernels.quant_pack import quantize_pack_2d, quantize_pack_reference
 
@@ -158,3 +162,90 @@ def test_mix_bus_compressed_on_card_matches_cpu(cuda, wire):
         assert (a is None) == (b is None)
         if a is not None:
             torch.testing.assert_close(b.cpu(), a, atol=1e-5, rtol=0)
+
+
+FLASH_TOL = {F32: 2e-5, BF16: 3e-2}
+# (B, Lq, Lkv, H, Hkv, hd, causal, window): lengths off the 64-row tile,
+# Lq != Lkv both ways, windows smaller than a tile, MQA, every head dim
+ODD_FLASH_CASES = [
+    (2, 333, 333, 8, 2, 64, True, None),
+    (1, 100, 100, 4, 2, 16, True, None),
+    (1, 70, 150, 4, 1, 32, True, None),
+    (1, 150, 70, 4, 2, 32, True, None),
+    (1, 200, 200, 2, 2, 16, True, 5),
+    (1, 130, 130, 4, 1, 128, False, 17),
+    (1, 65, 65, 8, 1, 64, True, None),
+    # rows that no key reaches (Lq >= Lkv + window): the mean of v
+    (1, 150, 70, 4, 2, 32, True, 5),
+    (1, 150, 70, 4, 2, 32, False, 5),
+    (1, 200, 130, 2, 1, 64, False, 40),
+]
+
+
+def _qkv(B, Lq, Lkv, H, Hkv, hd, dtype, device, seed=0):
+    """(B, H, L, hd) views of (B, L, H, hd) tensors, as ops.attention passes them."""
+    q = _randn((B, Lq, H, hd), dtype, seed, device)
+    k = _randn((B, Lkv, Hkv, hd), dtype, seed + 1, device)
+    v = _randn((B, Lkv, Hkv, hd), dtype, seed + 2, device)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ODD_FLASH_CASES)
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_flash_attention_kernel_matches_plain_version(cuda, case, dtype):
+    B, Lq, Lkv, H, Hkv, hd, causal, window = case
+    q, k, v = _qkv(B, Lq, Lkv, H, Hkv, hd, dtype, cuda)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref = attention_reference(q, k, v, causal=causal, window=window)
+    assert out.dtype == dtype and out.shape == ref.shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=FLASH_TOL[dtype], rtol=0)
+
+
+@pytest.mark.gpu
+def test_flash_attention_raises_instead_of_falling_back(cuda):
+    q, k, v = _qkv(1, 64, 64, 4, 2, 32, F32, cuda)
+    with pytest.raises(ValueError, match="operands"):
+        flash_attention(q, k.cpu(), v)
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        flash_attention(q, k.to(BF16), v)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention(q[:, :3], k, v)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q[..., :24], k[..., :24], v[..., :24])
+    with pytest.raises(ValueError, match="contiguous head dim"):
+        flash_attention(q.transpose(2, 3), k.transpose(2, 3), v.transpose(2, 3))
+
+
+@pytest.mark.gpu
+def test_flash_ops_attention_backward_raises(cuda):
+    q, k, v = _qkv(1, 64, 64, 4, 2, 32, F32, cuda)
+    q = q.transpose(1, 2).detach().requires_grad_()
+    out = flash_ops.attention(q, k.transpose(1, 2), v.transpose(1, 2))
+    with pytest.raises(NotImplementedError, match="backward"):
+        out.sum().backward()
+
+
+@pytest.mark.gpu
+def test_generate_on_card_matches_cpu(cuda):
+    """A prompt longer than the dense threshold: prefill through the kernel
+    on the card, through the plain version on the CPU; same greedy tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as Mo
+    from repro_torch.serving import generate
+
+    cfg = get_config("granite-3-2b", reduced=True, n_layers=2, d_model=64, n_heads=4,
+                     n_kv_heads=2, head_dim=16, d_ff=128, vocab_size=256)
+    params = Mo.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    prompt = np.random.default_rng(0).integers(0, 256, size=(2, 1100)).astype(np.int32)
+    on_cpu = generate(params, cfg, prompt, n_new=6)
+    before = flash_attention.launches
+    on_card = generate(_tree.map(lambda x: x.to(cuda), params), cfg, prompt, n_new=6)
+    assert flash_attention.launches == before + cfg.n_layers
+    assert np.array_equal(on_cpu.tokens, on_card.tokens)
+    np.testing.assert_allclose(on_card.logprobs, on_cpu.logprobs, atol=1e-4)

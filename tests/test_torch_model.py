@@ -125,7 +125,7 @@ def test_bf16_forward_close_to_reference():
     tl = TM.loss_fn(tp, tcfg, {"tokens": torch.from_numpy(toks)})
     assert abs(tl.item() - float(jl)) < 2e-2
     jh = jax.jit(lambda p: JM.forward(p, jcfg, jnp.asarray(toks))[0])(jp)
-    th = TM.forward(tp, tcfg, torch.from_numpy(toks))
+    th = TM.forward(tp, tcfg, torch.from_numpy(toks))[0]
     assert th.dtype == torch.bfloat16 and tuple(th.shape) == tuple(jh.shape)
     np.testing.assert_allclose(th.float().numpy(), np.asarray(jh, np.float32), atol=0.25)
 
