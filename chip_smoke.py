@@ -10,7 +10,10 @@ through these phases, in order, and exits non-zero at the first failure:
    ``nvidia-smi`` reports them; turns TF32 off for float32 products.
 2. build — compiles every kernel of the paths below from the sources in this
    checkout (``nvcc``, ``sm_90a``), one compiler per source, all started
-   together, and prints the build time.
+   together, and prints the build time, each kernel's registers and spills
+   (``ptxas -v``) and the count of ``HGMMA`` instructions in the
+   flash_attention library's SASS (``cuobjdump``): none fails the run, as
+   the bf16 route must run on the tensor cores.
 3. kernel check — holds each kernel against its plain PyTorch version on the
    card at small and odd shapes and at the shape its path gives it, then
    times kernel and plain version with CUDA events. gossip_mix: float32 atol
@@ -44,14 +47,18 @@ through these phases, in order, and exits non-zero at the first failure:
    finite logprobs, and that one wave's last-position prefill logits
    through the kernel agree with the same prefill through the training
    path's ``blockwise_attention``; times prefill and decode, reads peak
-   memory and profiles one prefill and one decode step.
+   memory and profiles one prefill and one decode step; the profiled
+   prefill must run the wgmma kernel once per layer and never the float32
+   one.
 8. report — one JSON line of kernels, the nvidia-smi line, and last the
    ``{"ok": true, ...}`` line.
 
 The flash_attention kernel check (phase 3) uses the reference's
 kernel-test tolerances, float32 atol 2e-5 and bf16 3e-2, and holds bf16
 besides to one bf16 ulp of the plain value plus 1e-4, element by element;
-at the serving prefill's shape it runs both dtypes.
+at the serving prefill's shape it runs both dtypes, each on its own kernel
+(bf16: wgmma tensor cores and TMA; float32: CUDA cores), and prints each
+one's time and TFLOP/s.
 """
 from __future__ import annotations
 
@@ -59,6 +66,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -159,6 +167,7 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.gossip_mix import kernel as gm
     from repro_torch.kernels.quant_pack import kernel as qp
@@ -170,9 +179,47 @@ def phase_build() -> None:
     log(f"[build] {len(built)} kernels built in {time.perf_counter() - t0:.2f} s")
     for mod, build_log in built:
         log(f"[build]   {os.path.relpath(mod.SOURCE, ROOT)}")
-        for line in build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build]     {line.strip()}")
+        for kernel, regs, spills in _ptxas_usage(build_log):
+            log(f"[build]     {kernel}: {regs} registers, spills {spills}")
+    # the bf16 route must issue wgmma: count HGMMA in the library's SASS
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass",
+                           str(_build.library_path("flash_attention", fa.SOURCE))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    n_hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    log(f"[build] flash_attention library: {n_hgmma} HGMMA instructions in its SASS "
+        f"(cuobjdump --dump-sass)")
+    if n_hgmma == 0:
+        raise AssertionError("the flash_attention library issues no HGMMA: the bf16 route "
+                             "is not on the tensor cores")
+
+
+def _ptxas_usage(build_log: str) -> list[tuple[str, str, str]]:
+    """(kernel, registers, spill stores/loads) per entry function that
+    ``ptxas -v`` reports; the name is the mangled one's kernel identifier
+    and template argument."""
+    out, kernel, spills = [], "?", "?"
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            names, i = [], 0
+            while i < len(mangled):      # length-prefixed identifiers of the mangled name
+                m = re.match(r"\d+", mangled[i:])
+                if m:
+                    n, i = int(m.group()), i + m.end()
+                    names.append(mangled[i:i + n])
+                    i += n
+                else:
+                    i += 1
+            kernel = next((w for w in names if "kernel" in w),
+                          next((w for w in names if not w.startswith("_GLOBAL")), mangled))
+            arg = re.search(r"ILi(\d+)E", mangled)
+            kernel += f"<{arg.group(1)}>" if arg else ""
+        elif "spill stores" in line:
+            spills = line.strip().split(", ", 1)[1]
+        elif "Used" in line and "registers" in line:
+            out.append((kernel, line.split("Used ")[1].split()[0], spills))
+    return out
 
 
 def _mix_inputs(rows, cols, k, w_dtype, u_dtype, gen):
@@ -410,35 +457,40 @@ def phase_flash_check(card: str) -> dict:
     B, L, H, Hkv, hd = SERVE_SLOTS, PROMPT_LEN, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = _attn_inputs(B, L, L, H, Hkv, hd, torch.bfloat16, gen)
     shape = (B, L, L, H, Hkv, hd, True, None)
-    # float32 first: the same index and tile logic held to 2e-5 on rows of
-    # up to 3072 keys, where a bf16 tolerance would hide a lost kv tile
+    # float32 first: the CUDA-core route held to 2e-5 on rows of up to 3072
+    # keys, where a bf16 tolerance would hide a lost kv tile; then bf16, the
+    # wgmma route, with the same inputs rounded to bf16
     q32, k32, v32 = q.float(), k.float(), v.float()
     err32 = _flash_err(flash_attention(q32, k32, v32, causal=True),
                        attention_reference(q32, k32, v32, causal=True), torch.float32, shape)
-    del q32, k32, v32
-    torch.cuda.empty_cache()
     err = _flash_err(flash_attention(q, k, v, causal=True),
                      attention_reference(q, k, v, causal=True), torch.bfloat16, shape)
     log(f"[kernel] flash_attention at the prefill shape q {(B, L, H, hd)} k/v "
         f"{(B, L, Hkv, hd)} causal vs plain version: max|err| float32 {err32:.3g}, "
         f"bf16 {err:.3g}")
+    ops = 4 * B * H * hd * (L * (L + 1) // 2)   # q·k and p·v over the causal pairs
+    ms32 = time_cuda(lambda: flash_attention(q32, k32, v32, causal=True), iters=5)
+    del q32, k32, v32
+    torch.cuda.empty_cache()
     ms = time_cuda(lambda: flash_attention(q, k, v, causal=True), iters=20)
     plain_ms = time_cuda(lambda: attention_reference(q, k, v, causal=True), iters=3, warmup=1)
     library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), iters=20)
     moved = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()  # q, k, v in; o out
-    ops = 4 * B * H * hd * (L * (L + 1) // 2)   # q·k and p·v over the causal pairs
     bound_ms, bound_by = _bound(moved, ops, card, peak=BF16_PEAK)
-    log(f"[kernel] flash_attention {ms:.3f} ms (bound {bound_ms:.3f} ms by {bound_by}, "
-        f"{ops / ms / 1e9:.1f} TFLOP/s); plain version {plain_ms:.3f} ms; "
+    log(f"[kernel] flash_attention bf16 (wgmma) {ms:.3f} ms, {ops / ms / 1e9:.1f} TFLOP/s "
+        f"(bound {bound_ms:.3f} ms by {bound_by}; it issues 1.5x these FLOP on the tensor "
+        f"cores, P·V twice for the split P); float32 (CUDA cores) {ms32:.3f} ms, "
+        f"{ops / ms32 / 1e9:.1f} TFLOP/s; plain version {plain_ms:.3f} ms; "
         f"scaled_dot_product_attention {library_ms:.3f} ms")
     del q, k, v
     torch.cuda.empty_cache()
     return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bf16.cuh",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "float32_ms": ms32}
 
 
 def slice_config():
@@ -783,8 +835,9 @@ def phase_serve() -> dict:
             f"{len(runs)} generate() runs), {SERVE_SLOTS / step_s:,.1f} generated tokens/s")
 
         check_prefill(params, cfg, tok)
-        profile_call("one prefill wave", lambda: Mo.prefill(params, cfg, tok,
-                                                            max_len=SERVE_MAX_LEN))
+        rows = profile_call("one prefill wave", lambda: Mo.prefill(params, cfg, tok,
+                                                                   max_len=SERVE_MAX_LEN))
+        check_flash_route(rows, cfg.n_layers)
     del params
     return {"launches": launches}
 
@@ -831,6 +884,21 @@ def check_prefill(params, cfg, tok) -> None:
                              f"{e_kb} > {tol} (finite {finite})")
 
 
+def check_flash_route(rows, n_layers: int) -> None:
+    """The profiled bf16 prefill ran the wgmma kernel once per layer and
+    never the float32 CUDA-core kernel."""
+    flash = [(name, count) for name, _, count in rows if "flash_attention_fwd" in name]
+    if not rows:
+        log("[serve] flash_attention route of the prefill: not measured (no profile)")
+        return
+    launches = sum(count for _, count in flash)
+    if launches != n_layers or any("wgmma" not in name for name, _ in flash):
+        raise AssertionError(f"the bf16 prefill ran {flash}, want {n_layers} launches of "
+                             f"the wgmma kernel and nothing else")
+    log(f"[serve] the profiled prefill ran {launches} launches of {flash[0][0][:60]} and "
+        f"none of the float32 kernel")
+
+
 def check_round1(got, exact, amax: float) -> None:
     """Round 1 of the int8 lane against the exact two-stage mix: every
     element within half the largest row scale (amax/127) plus one bf16 ulp
@@ -851,8 +919,10 @@ def check_round1(got, exact, amax: float) -> None:
         f"(bound: half the largest row scale {half_scale:.4g} + 1 bf16 ulp)")
 
 
-def profile_call(label: str, fn) -> None:
-    """Device time of one call of ``fn`` by kernel (torch.profiler, CUPTI)."""
+def profile_call(label: str, fn) -> list[tuple[str, float, int]]:
+    """Device time of one call of ``fn`` by kernel (torch.profiler, CUPTI);
+    returns (kernel name, device ms, launches) rows, none if the profiler saw
+    no device kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -871,7 +941,7 @@ def profile_call(label: str, fn) -> None:
     busy = sum(r[1] for r in rows)
     if busy == 0:
         log("[profile] device time: not measured (the profiler saw no device kernels)")
-        return
+        return []
     log(f"[profile] {label}: device busy {busy:.1f} ms of {wall_ms:.1f} ms wall "
         f"(under the profiler), {sum(r[2] for r in rows)} kernel launches")
     by_kind: dict[str, float] = {}
@@ -881,6 +951,7 @@ def profile_call(label: str, fn) -> None:
         log(f"[profile]   {ms:8.2f} ms {100 * ms / busy:5.1f}%  {kind}")
     for name, ms, count in rows[:8]:
         log(f"[profile]   top: {ms:8.2f} ms x{count:<4d} {name[:100]}")
+    return rows
 
 
 def _kernel_kind(name: str) -> str:

@@ -2,9 +2,10 @@
 
 Each kernel's ``csrc/*.cu`` exposes a plain ``extern "C"`` entry; ``nvcc``
 compiles it for Hopper (``sm_90a``) into ``build/kernels/`` at the root of
-the checkout, named by a hash of the source and flags, at first use. A
-plain C interface builds in seconds, where a source that includes
-PyTorch's headers takes minutes. Nothing here runs at import.
+the checkout, at first use, named by a hash of every file under the
+source's ``csrc/`` directory (the ``.cu`` and the headers it includes) and
+of the flags. A plain C interface builds in seconds, where a source that
+includes PyTorch's headers takes minutes. Nothing here runs at import.
 """
 from __future__ import annotations
 
@@ -32,15 +33,28 @@ def nvcc() -> str:
     return path
 
 
+def digest(source: Path) -> str:
+    """Hash of the flags and of every file in ``source``'s directory tree,
+    by relative path and content: a changed header rebuilds the library."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    root = Path(source).resolve().parent
+    for f in sorted(p for p in root.rglob("*") if p.is_file()):
+        h.update(b"\0" + str(f.relative_to(root)).encode() + b"\0" + f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str, source: Path) -> Path:
+    """Where :func:`build` puts the library of ``source`` as it is now."""
+    return BUILD_DIR / f"{name}-{digest(source)}.so"
+
+
 def build(name: str, source: Path) -> tuple[Path, str]:
     """Compile ``source`` (once per content) → (library path, compiler log).
 
     The log holds ``ptxas -v``'s registers and spills per kernel; it is
     empty when the library was already built.
     """
-    src = Path(source).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"{name}-{digest}.so"
+    lib = library_path(name, source)
     if lib.exists():
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -1,32 +1,37 @@
-// Flash-attention forward for Hopper (sm_90a):
+// Flash-attention forward for Hopper (sm_90a), two routes by dtype:
 //
 //     o = softmax(scale · q kᵀ + mask) v      (per batch b and q head h,
 //                                              kv head h / G for GQA)
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
-// (flash_attention, body _flash_kernel). It computes the same blockwise
-// online softmax: per kv tile the running max m, the running sum l and the
-// accumulator acc are rescaled by exp(m_old − m_new), all in float32; the
-// causal and sliding-window masks are applied per tile with the finite
-// NEG_INF = −1e30, so a row that is fully masked within one tile gets
-// p = exp(0) = 1 there and recovers (corr = exp(−1e30 − m) = 0) at its first
-// real key, as the TPU kernel does, where −inf would give NaN; the output
-// is acc / max(l, 1e-30), rounded once to q's dtype. A row that no key
-// reaches at all (a sliding window with Lq >= Lkv + window) gets the plain
-// version's softmax of an all-NEG_INF row, the mean of v over all Lkv keys:
-// its q tile visits every kv tile. (The TPU kernel's value there depends on
-// its block sizes, as it averages only the tiles it does not skip.)
+//   * bf16: flash_attention_bf16.cuh, wgmma tensor cores on bf16 tiles that
+//     TMA copies into shared memory (the serving prefill's route);
+//   * float32: this file's kernel, CUDA-core float32 FMAs. The reference
+//     holds float32 to 2e-5, which TF32 tensor cores cannot meet, and no
+//     path of the port runs attention in float32 on this kernel's hot loop.
 //
-// Design (simple first):
-//   * one block of 256 threads per (q tile of 64 rows, q head, batch); the
-//     TPU's sequential "arbitrary" kv grid axis becomes a loop inside the
-//     block over only the kv tiles the tile's mask can reach (causal: up to
-//     the diagonal; window: from the first tile inside it), which replaces
-//     the pl.when skip; q tiles are issued last-first so the long causal
-//     rows start early;
+// Both replace the Pallas TPU kernel src/repro/kernels/flash_attention/
+// kernel.py (flash_attention, body _flash_kernel). They compute the same
+// blockwise online softmax: per kv tile the running max m, the running sum l
+// and the accumulator acc are rescaled by exp(m_old − m_new), all in
+// float32; the causal and sliding-window masks are applied per tile with the
+// finite NEG_INF = −1e30, so a row that is fully masked within one tile gets
+// p = exp(0) = 1 there and recovers (corr = exp(−1e30 − m) = 0) at its first
+// real key, as the TPU kernel does, where −inf would give NaN; the output is
+// acc / max(l, 1e-30), rounded once to q's dtype. A row that no key reaches
+// at all (a sliding window with Lq >= Lkv + window) gets the plain version's
+// softmax of an all-NEG_INF row, the mean of v over all Lkv keys: its q tile
+// visits every kv tile. (The TPU kernel's value there depends on its block
+// sizes, as it averages only the tiles it does not skip.)
+//
+// The float32 kernel (simple first):
+//   * one block of 256 threads per (q tile of 64 rows, q head, batch); a
+//     loop inside the block over only the kv tiles the tile's mask can
+//     reach (causal: up to the diagonal; window: from the first tile inside
+//     it), which replaces the pl.when skip; q tiles are issued last-first so
+//     the long causal rows start early;
 //   * the q tile and each 64-row k and v tile are staged in shared memory
-//     as float32 (16-byte global loads, the ragged edge zero-filled); keys
-//     past Lkv get p = 0, so the kernel has no block-multiple contract;
+//     (16-byte global loads, the ragged edge zero-filled); keys past Lkv get
+//     p = 0, so the kernel has no block-multiple contract;
 //   * the 16 × 16 threads own a 4 × 4 block of scores (rows ty + 16i,
 //     columns tx + 16j) and the same 4 rows of acc (columns tx + 16c); row
 //     max and sum are reduced over the 16 lanes of a half-warp with
@@ -34,23 +39,12 @@
 //   * GQA reads kv head h / G straight from k and v; no repeated heads;
 //   * every operand is addressed through (batch, head, row) strides with a
 //     contiguous head dim, so the (B, L, H, hd) model layout needs no
-//     transposed copy;
-//   * hd is a template parameter (16, 32, 64, 128); float32 and bf16 (bf16
-//     carried as its 16 bits).
-//
-// What bounds it: at the serving slice's prefill (granite-3-2b: q (4, 3072,
-// 32, 64), k/v (4, 3072, 8, 64), bf16, causal) the work is 1.55e11 FLOP
-// (the causal half of 4·B·H·L²·hd), 0.156 ms at the H100's 989 TFLOP/s of
-// bf16 tensor cores; the 126 MB of q, k, v and o take 0.038 ms at 3.35
-// TB/s. So it is bound by operations. This first version does every
-// product as float32 FMAs on the CUDA cores (67 TFLOP/s: at least 2.3 ms
-// even at peak), waits on each tile's loads (no cp.async/TMA pipeline),
-// keeps float32 tiles (twice the shared memory of bf16, fewer blocks per
-// SM) and computes the diagonal tiles whole under the mask. Tensor cores
-// (mma.sync/wgmma), TMA and warp specialisation are the redesign.
-#include <cuda_bf16.h>
+//     transposed copy; hd is a template parameter (16, 32, 64, 128).
+// It is bound by the CUDA cores' float32 rate (67 TFLOP/s), not by bytes.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_attention_bf16.cuh"
 
 #define FLASH_NEG_INF (-1e30f)
 
@@ -62,8 +56,6 @@ constexpr int THREADS = 256;  // 16 (ty: rows) x 16 (tx: columns)
 constexpr int RPT = 4;        // q rows per thread: ty + 16 i
 constexpr int CPT = 4;        // score columns per thread: tx + 16 j
 constexpr int LDP = BKV + 4;  // padded row of the p tile (floats)
-
-typedef uint16_t bf16_bits;
 
 struct Strides {
     long long b, h, l;  // elements; the head dim is contiguous
@@ -81,55 +73,19 @@ struct Params {
     int window;  // <= 0: no sliding window
 };
 
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16_bits from_f32<bf16_bits>(float x) {
-    return __bfloat16_as_ushort(__float2bfloat16_rn(x));
-}
-
-// 16 bytes of T at p → VEC floats (exact for both types).
-template <typename T> struct Vec;
-template <> struct Vec<float> {
-    static constexpr int N = 4;
-    static __device__ __forceinline__ void load(const float* p, float* out) {
-        const float4 r = *reinterpret_cast<const float4*>(p);
-        out[0] = r.x; out[1] = r.y; out[2] = r.z; out[3] = r.w;
-    }
-};
-template <> struct Vec<bf16_bits> {
-    static constexpr int N = 8;
-    static __device__ __forceinline__ void load(const bf16_bits* p, float* out) {
-        const uint4 r = *reinterpret_cast<const uint4*>(p);
-        const unsigned int w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {  // little endian: low half first
-            out[2 * e] = __uint_as_float(w[e] << 16);
-            out[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
-        }
-    }
-};
-
 // Rows [row0, row0 + 64) of a (rows, HD) operand into a float32 tile with
 // row pitch HD + 4; rows at or past n_rows are zero.
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
+template <int HD>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
                                           long long row_stride, int row0, int n_rows) {
-    constexpr int N = Vec<T>::N;
-    constexpr int CH = HD / N;  // 16-byte chunks per row
+    constexpr int CH = HD / 4;  // 16-byte chunks per row
     constexpr int LD = HD + 4;
     for (int c = threadIdx.x; c < 64 * CH; c += THREADS) {
         const int r = c / CH, ch = c % CH;
-        float vals[N];
-        if (row0 + r < n_rows) {
-            Vec<T>::load(src + (long long)(row0 + r) * row_stride + ch * N, vals);
-        } else {
-#pragma unroll
-            for (int e = 0; e < N; ++e) vals[e] = 0.f;
-        }
-        float4* d = reinterpret_cast<float4*>(dst + r * LD + ch * N);
-#pragma unroll
-        for (int e = 0; e < N / 4; ++e)
-            d[e] = make_float4(vals[4 * e], vals[4 * e + 1], vals[4 * e + 2], vals[4 * e + 3]);
+        float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (row0 + r < n_rows)
+            val = *reinterpret_cast<const float4*>(src + (long long)(row0 + r) * row_stride + ch * 4);
+        *reinterpret_cast<float4*>(dst + r * LD + ch * 4) = val;
     }
 }
 
@@ -150,8 +106,8 @@ constexpr size_t smem_bytes() {
     return (size_t)(3 * 64 * (HD + 4) + BQ * LDP) * sizeof(float);
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS) flash_attention_fwd_kernel(const Params p) {
+template <int HD>
+__global__ void __launch_bounds__(THREADS) flash_attention_fwd_f32_kernel(const Params p) {
     constexpr int LD = HD + 4;
     constexpr int CPO = HD / 16;  // output columns per thread: tx + 16 c
     extern __shared__ float4 smem4[];
@@ -163,10 +119,10 @@ __global__ void __launch_bounds__(THREADS) flash_attention_fwd_kernel(const Para
     const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
     const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // last tile first
     const int h = blockIdx.y, b = blockIdx.z, hk = h / p.G;
-    const T* qp = static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h;
-    const T* kp = static_cast<const T*>(p.k) + b * p.sk.b + hk * p.sk.h;
-    const T* vp = static_cast<const T*>(p.v) + b * p.sv.b + hk * p.sv.h;
-    T* op = static_cast<T*>(p.o) + b * p.so.b + h * p.so.h;
+    const float* qp = static_cast<const float*>(p.q) + b * p.sq.b + h * p.sq.h;
+    const float* kp = static_cast<const float*>(p.k) + b * p.sk.b + hk * p.sk.h;
+    const float* vp = static_cast<const float*>(p.v) + b * p.sv.b + hk * p.sv.h;
+    float* op = static_cast<float*>(p.o) + b * p.so.b + h * p.so.h;
 
     // the kv tiles this q tile's mask can reach; a tile holding a row that
     // no key reaches (a window with Lq >= Lkv + window) visits them all
@@ -176,7 +132,7 @@ __global__ void __launch_bounds__(THREADS) flash_attention_fwd_kernel(const Para
     const int hi = p.causal && !keyless_row ? min(q_last / BKV + 1, n_kv) : n_kv;
     const int lo = p.window > 0 && !keyless_row ? max(q0 - p.window + 1, 0) / BKV : 0;
 
-    load_tile<T, HD>(Qs, qp, p.sq.l, q0, p.Lq);
+    load_tile<HD>(Qs, qp, p.sq.l, q0, p.Lq);
 
     float m[RPT], l[RPT], acc[RPT][CPO];
 #pragma unroll
@@ -190,8 +146,8 @@ __global__ void __launch_bounds__(THREADS) flash_attention_fwd_kernel(const Para
     for (int kt = lo; kt < hi; ++kt) {
         const int k0 = kt * BKV;
         __syncthreads();  // the previous tile's readers are done
-        load_tile<T, HD>(Ks, kp, p.sk.l, k0, p.Lkv);
-        load_tile<T, HD>(Vs, vp, p.sv.l, k0, p.Lkv);
+        load_tile<HD>(Ks, kp, p.sk.l, k0, p.Lkv);
+        load_tile<HD>(Vs, vp, p.sv.l, k0, p.Lkv);
         __syncthreads();
 
         // scores: s[i][j] = q[ty + 16i] · k[tx + 16j]
@@ -280,29 +236,28 @@ __global__ void __launch_bounds__(THREADS) flash_attention_fwd_kernel(const Para
         if (qpos < p.Lq) {
 #pragma unroll
             for (int c = 0; c < CPO; ++c)
-                op[(long long)qpos * p.so.l + tx + 16 * c] = from_f32<T>(acc[i][c] / denom);
+                op[(long long)qpos * p.so.l + tx + 16 * c] = acc[i][c] / denom;
         }
     }
 }
 
-template <typename T, int HD>
+template <int HD>
 cudaError_t launch(const Params& p, int B, int H, cudaStream_t stream) {
     const size_t smem = smem_bytes<HD>();
-    cudaError_t err = cudaFuncSetAttribute(flash_attention_fwd_kernel<T, HD>,
+    cudaError_t err = cudaFuncSetAttribute(flash_attention_fwd_f32_kernel<HD>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((unsigned)((p.Lq + BQ - 1) / BQ), (unsigned)H, (unsigned)B);
-    flash_attention_fwd_kernel<T, HD><<<grid, THREADS, smem, stream>>>(p);
+    flash_attention_fwd_f32_kernel<HD><<<grid, THREADS, smem, stream>>>(p);
     return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t dispatch_hd(const Params& p, int B, int H, int hd, cudaStream_t s) {
     switch (hd) {
-        case 16: return launch<T, 16>(p, B, H, s);
-        case 32: return launch<T, 32>(p, B, H, s);
-        case 64: return launch<T, 64>(p, B, H, s);
-        case 128: return launch<T, 128>(p, B, H, s);
+        case 16: return launch<16>(p, B, H, s);
+        case 32: return launch<32>(p, B, H, s);
+        case 64: return launch<64>(p, B, H, s);
+        case 128: return launch<128>(p, B, H, s);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -312,14 +267,21 @@ cudaError_t dispatch_hd(const Params& p, int B, int H, int hd, cudaStream_t s) {
 // q: (B, H, Lq, hd), k/v: (B, Hkv, Lkv, hd), o: (B, H, Lq, hd), addressed
 // through `strides`: 12 element strides, (batch, head, row) of q, k, v, o in
 // that order; the head dim must be contiguous and every row 16-byte aligned
-// (the wrapper checks). dtype: 0 = float32, 1 = bfloat16 (all four
-// operands). window <= 0: no sliding window. Returns a cudaError_t.
+// (the wrapper checks). dtype: 0 = float32 (the CUDA-core kernel), 1 =
+// bfloat16 (the wgmma kernel), all four operands. window <= 0: no sliding
+// window. Returns a cudaError_t; nothing falls back from one route to the
+// other.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int B, int H, int Hkv, int Lq, int Lkv, int hd,
                                    const long long* strides, float scale, int causal,
                                    int window, int dtype, void* stream) {
     if (B < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || Lq < 1 || Lkv < 1)
         return (int)cudaErrorInvalidValue;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (dtype == 1)
+        return (int)flash_bf16::dispatch_hd(q, k, v, o, B, H, Hkv, Lq, Lkv, hd, strides, scale,
+                                            causal, window, s);
+    if (dtype != 0) return (int)cudaErrorInvalidValue;
     Params p;
     p.q = q; p.k = k; p.v = v; p.o = o;
     p.sq = {strides[0], strides[1], strides[2]};
@@ -332,8 +294,5 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     p.scale = scale;
     p.causal = causal;
     p.window = window;
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == 0) return (int)dispatch_hd<float>(p, B, H, hd, s);
-    if (dtype == 1) return (int)dispatch_hd<bf16_bits>(p, B, H, hd, s);
-    return (int)cudaErrorInvalidValue;
+    return (int)dispatch_hd(p, B, H, hd, s);
 }

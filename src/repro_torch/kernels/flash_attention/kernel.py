@@ -1,18 +1,25 @@
-"""Wrapper of the flash-attention forward kernel (``csrc/flash_attention.cu``).
+"""Wrapper of the flash-attention forward kernels (``csrc/flash_attention.cu``).
 
 :func:`flash_attention` computes blockwise online-softmax attention with
 causal and sliding-window masks and GQA, the port of the Pallas TPU kernel
 ``repro/kernels/flash_attention/kernel.py:flash_attention``, in its layout:
 q (B, H, Lq, hd), k/v (B, Hkv, Lkv, hd). For CPU tensors it runs the plain
-version (:mod:`.ref`); for CUDA tensors it launches the CUDA kernel, built
-at first call, or raises. There is no fallback from one to the other.
-``flash_attention.launches`` counts kernel launches.
+version (:mod:`.ref`); for CUDA tensors it launches a CUDA kernel, built at
+first call, or raises. The dtype picks the kernel, one for each:
 
-The kernel reads every operand through its (batch, head, row) strides, so a
+* bfloat16: ``csrc/flash_attention_bf16.cuh``, wgmma tensor cores on bf16
+  tiles that TMA copies into shared memory, 128 q rows by 128 kv rows;
+* float32: the CUDA-core kernel in ``csrc/flash_attention.cu``, 64 by 64
+  (the reference's float32 tolerance, 2e-5, rules out TF32 tensor cores).
+
+Nothing falls back from one route to another: a failed build or launch
+raises. ``flash_attention.launches`` counts kernel launches.
+
+The kernels read every operand through its (batch, head, row) strides, so a
 transposed view of a (B, L, H, hd) tensor goes in without a copy; the head
-dim must be contiguous. Unlike the Pallas kernel it takes any Lq and Lkv
-(it masks the ragged edge itself); block sizes are the kernel's own (64).
-It is forward only, as the TPU kernel is: the output carries no gradient
+dim must be contiguous and every row 16-byte aligned. Unlike the Pallas
+kernel they take any Lq and Lkv (they mask the ragged edge themselves). They
+are forward only, as the TPU kernel is: the output carries no gradient
 (``repro_torch.kernels.flash_attention.ops.attention`` guards autograd).
 """
 from __future__ import annotations
@@ -30,6 +37,8 @@ from repro_torch.kernels.flash_attention.ref import attention_reference
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
+MAX_GRID_YZ = 65535   # the bf16 kernel's grid (H, B, Lq / 128): y and z at most this
+BF16_BLOCK_Q = 128
 
 
 @functools.cache
@@ -86,6 +95,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"{name} rows must be 16-byte aligned: data_ptr "
                              f"{t.data_ptr()}, strides {t.stride()}")
         strides += list(t.stride()[:3])
+    if q.dtype == torch.bfloat16 and (B > MAX_GRID_YZ or -(-Lq // BF16_BLOCK_Q) > MAX_GRID_YZ):
+        raise ValueError(f"the bf16 kernel takes at most {MAX_GRID_YZ} batches and "
+                         f"{MAX_GRID_YZ * BF16_BLOCK_Q} q rows, got {B} and {Lq}")
 
     lib, _ = library()
     c_strides = (ctypes.c_longlong * 12)(*strides)

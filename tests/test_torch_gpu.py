@@ -9,7 +9,10 @@ Tolerances are the reference's kernel-test ones: atol 1e-5 for float32,
 in the same order, so in practice they agree bit for bit; quant_pack is
 held to exact equality of values and scales. flash_attention sums in
 another order than its plain version (tiles, online softmax), so it is held
-to the reference's flash tolerances: atol 2e-5 for float32, 3e-2 for bf16.
+to the reference's flash tolerances: atol 2e-5 for float32, 3e-2 for bf16,
+and bf16 besides to one bf16 ulp of the plain value plus 1e-4 element by
+element, as ``chip_smoke.py`` holds it (both sides round a float32 result
+once to bf16).
 """
 import numpy as np
 import pytest
@@ -166,7 +169,9 @@ def test_mix_bus_compressed_on_card_matches_cpu(cuda, wire):
 
 FLASH_TOL = {F32: 2e-5, BF16: 3e-2}
 # (B, Lq, Lkv, H, Hkv, hd, causal, window): lengths off the 64-row tile,
-# Lq != Lkv both ways, windows smaller than a tile, MQA, every head dim
+# Lq != Lkv both ways, windows smaller than a tile, MQA, every head dim;
+# then the bf16 kernel's 128-row q and kv tiles: lengths 1 past a multiple,
+# Lkv < Lq, windows that end inside a tile, each head dim
 ODD_FLASH_CASES = [
     (2, 333, 333, 8, 2, 64, True, None),
     (1, 100, 100, 4, 2, 16, True, None),
@@ -179,6 +184,13 @@ ODD_FLASH_CASES = [
     (1, 150, 70, 4, 2, 32, True, 5),
     (1, 150, 70, 4, 2, 32, False, 5),
     (1, 200, 130, 2, 1, 64, False, 40),
+    (1, 129, 129, 4, 2, 64, True, None),
+    (2, 257, 257, 2, 1, 16, True, None),
+    (1, 129, 257, 4, 2, 32, False, None),
+    (1, 257, 129, 4, 2, 128, True, None),
+    (1, 300, 300, 4, 2, 32, True, 100),
+    (1, 385, 385, 2, 2, 128, True, 200),
+    (1, 257, 257, 4, 1, 64, False, 70),
 ]
 
 
@@ -203,6 +215,9 @@ def test_flash_attention_kernel_matches_plain_version(cuda, case, dtype):
     ref = attention_reference(q, k, v, causal=causal, window=window)
     assert out.dtype == dtype and out.shape == ref.shape
     torch.testing.assert_close(out.float(), ref.float(), atol=FLASH_TOL[dtype], rtol=0)
+    if dtype == BF16:
+        excess = ((out.float() - ref.float()).abs() - 2.0 ** -7 * ref.float().abs() - 1e-4)
+        assert excess.max().item() <= 0
 
 
 @pytest.mark.gpu
@@ -220,6 +235,31 @@ def test_flash_attention_raises_instead_of_falling_back(cuda):
         flash_attention(q[..., :24], k[..., :24], v[..., :24])
     with pytest.raises(ValueError, match="contiguous head dim"):
         flash_attention(q.transpose(2, 3), k.transpose(2, 3), v.transpose(2, 3))
+    # bf16 rows whose stride is not a multiple of 16 bytes: TMA cannot copy
+    # them, and nothing takes them elsewhere
+    qb, kb, vb = (t.to(BF16) for t in _qkv(1, 64, 64, 4, 2, 36, F32, cuda))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(qb[..., :32], kb[..., :32], vb[..., :32])
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(qb[..., :24], kb[..., :24], vb[..., :24])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,kernel", [(BF16, "flash_attention_fwd_wgmma_kernel"),
+                                          (F32, "flash_attention_fwd_f32_kernel")])
+def test_flash_attention_dtype_picks_its_one_kernel(cuda, dtype, kernel):
+    """bf16 runs the wgmma kernel, float32 the CUDA-core kernel, and nothing
+    else: the kernel names the profiler sees on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v = _qkv(1, 200, 200, 4, 2, 64, dtype, cuda)
+    flash_attention(q, k, v)                     # built and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flash_attention(q, k, v)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if "flash_attention_fwd" in e.key]
+    assert names and all(kernel in n for n in names)
 
 
 @pytest.mark.gpu
