@@ -15,8 +15,9 @@ through these phases, in order, and exits non-zero at the first failure:
    flash_attention library's SASS (``cuobjdump``): none fails the run, as
    the bf16 route must run on the tensor cores.
 3. kernel check — holds each kernel against its plain PyTorch version on the
-   card at small and odd shapes and at the shape its path gives it, then
-   times kernel and plain version with CUDA events. gossip_mix: float32 atol
+   card at small and odd shapes and at the shapes its paths give it (for
+   gossip_mix: k=2 for the ring, k=1 for the one-peer ring), then times
+   kernel and plain version with CUDA events. gossip_mix: float32 atol
    1e-5, bf16 atol 5e-2 (the reference's kernel-test tolerances).
    quant_pack: values and scales exactly equal (float32 and bf16 input, odd
    rows and columns, an unaligned buffer, zero rows, half-way ties, negative
@@ -40,7 +41,22 @@ through these phases, in order, and exits non-zero at the first failure:
 6. checkpoint — ``export_consensus`` of slice 1's trained worker-stacked
    params to an npz under ``build/``; ``load_consensus_params`` of it must
    equal ``consensus_params`` of the in-memory params bit for bit.
-7. slice 3 — serving granite-3-2b at its published widths and full depth
+7. slice 5 — the same model and batches on the one-peer time-varying ring
+   (``GossipSpec(time_varying="one_peer_exp")``, M=4): 5 ``train()``
+   steps of ``momentum_sgd(warmup_cosine(0.01, 2, 5), 0.9)`` with
+   worker-sharded asynchronous checkpoints every 2 steps, exactly one k=1
+   gossip_mix launch per step; the shards restore to the trained params bit
+   for bit, and ``consensus_from_sharded`` and ``load_consensus_params`` of
+   them equal ``consensus_params`` bit for bit. Then a fused one-peer step
+   at an even and at an odd step against an einsum step on that round's
+   dense matrix, a ``microbatch=2`` momentum step against ``microbatch=1``
+   (both within the bf16 tolerance), 2 Adam steps and 1 Adafactor step at
+   ``microbatch=2`` (finite losses), and ``survivor_mix`` /
+   ``survivor_hierarchical_mix`` with a dead worker (its slice bit-equal to
+   its input, the live ones within the bf16 tolerance of a float32 einsum
+   with the repaired matrices). Prints ms/step with and without a
+   checkpoint in flight, the writer's seconds and each part's peak memory.
+8. slice 3 — serving granite-3-2b at its published widths and full depth
    (40 layers, bf16, seeded random weights): a ``WaveBatcher`` with 4 slots
    serves 8 requests of a 3072-token prompt and 128 new tokens. Checks
    exactly one flash_attention launch per layer in each wave's prefill,
@@ -50,7 +66,7 @@ through these phases, in order, and exits non-zero at the first failure:
    memory and profiles one prefill and one decode step; the profiled
    prefill must run the wgmma kernel once per layer and never the float32
    one.
-8. report — one JSON line of kernels, the nvidia-smi line, and last the
+9. report — one JSON line of kernels, the nvidia-smi line, and last the
    ``{"ok": true, ...}`` line.
 
 The flash_attention kernel check (phase 3) uses the reference's
@@ -295,11 +311,32 @@ def phase_kernel_check(card: str) -> dict:
         f"{moved / ms / 1e6:.0f} GB/s); plain version {plain_ms:.3f} ms")
     del w, nbr, u
     torch.cuda.empty_cache()
+
+    # Slice 5's shape: the same rows, one one-peer neighbour (k=1).
+    w, nbr, wts, u = _mix_inputs(rows, bus.LANE, 1, bf16, bf16, gen)
+    out = gossip_mix_2d(w, nbr, wts, u, -1.0)
+    ref = gossip_mix_reference(w, nbr, wts, u, -1.0)
+    torch.cuda.synchronize()
+    err1 = (out.float() - ref.float()).abs().max().item()
+    del out, ref
+    if err1 > TOL["bfloat16"]:
+        raise AssertionError(f"gossip_mix mismatch at the one-peer shape: {err1}")
+    ms1 = time_cuda(lambda: gossip_mix_2d(w, nbr, wts, u, -1.0), iters=20)
+    plain_ms1 = time_cuda(lambda: gossip_mix_reference(w, nbr, wts, u, -1.0), iters=3, warmup=1)
+    moved1 = n * w.element_size() * (1 + 1 + 1) + n * u.element_size()  # w, 1 nbr, out + u
+    bound_ms1, bound_by1 = _bound(moved1, n * (2 * 1 + 3), card)
+    log(f"[kernel] gossip_mix at the one-peer shape ({rows}, {bus.LANE}) bf16 k=1: max|err| "
+        f"{err1:.3g} vs plain version; {ms1:.3f} ms (bound {bound_ms1:.3f} ms by {bound_by1}, "
+        f"{moved1 / ms1 / 1e6:.0f} GB/s); plain version {plain_ms1:.3f} ms")
+    del w, nbr, u
+    torch.cuda.empty_cache()
     return {"name": "gossip_mix", "route": "cuda",
             "source": "src/repro_torch/kernels/gossip_mix/csrc/gossip_mix.cu",
             "replaces": "src/repro/kernels/gossip_mix/kernel.py:45",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "k1_max_abs_err": err1, "k1_ms": ms1, "k1_plain_ms": plain_ms1,
+            "k1_bound_ms": bound_ms1, "k1_bound_by": bound_by1}
 
 
 def _quant_cases(gen):
@@ -713,6 +750,212 @@ def phase_slice2(slice1: dict) -> dict:
     return {"slice2_hier_train": train_launches, "slice2_compressed": lane_launches}
 
 
+def phase_slice5(slice1: dict) -> dict:
+    """Slice 5: one-peer time-varying training with worker-sharded
+    asynchronous checkpoints; both one-peer rounds against the dense
+    matrix; gradient accumulation with momentum, Adam and Adafactor;
+    survivor mixing. Returns the training run's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.convert import to_device
+    from repro_torch.core import topology as T
+    from repro_torch.core.decentralized import init_state, make_train_step
+    from repro_torch.core.gossip import GossipSpec, survivor_hierarchical_mix, survivor_mix
+    from repro_torch.kernels.gossip_mix import gossip_mix_2d
+    from repro_torch.optim import adafactor_like, adam, momentum_sgd, warmup_cosine
+    from repro_torch.serving import load_consensus_params
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import train
+
+    def fresh(label: str) -> float:
+        """Collect, reset the peak, and return the GB still allocated."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gb = torch.cuda.memory_allocated() / 1e9
+        log(f"[slice5] {gb:.2f} GB allocated before {label}")
+        return gb
+
+    fresh("slice 5")
+    params0, batcher, batches, loss, _ = slice_setup("slice5")
+    spec = GossipSpec(topology=T.undirected_ring(M_WORKERS), backend="fused",
+                      time_varying="one_peer_exp")
+    opt = momentum_sgd(warmup_cosine(LR, 2, STEPS), 0.9)
+
+    # 1. train() with worker-sharded asynchronous checkpoints every 2 steps
+    path = os.path.join(ROOT, "build", "chip_smoke", "slice5_ckpt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    for f in os.listdir(os.path.dirname(path)):
+        if f.startswith("slice5_ckpt."):      # files of an earlier run
+            os.remove(os.path.join(os.path.dirname(path), f))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    gossip_mix_2d.launches_by_k = {}
+    state, hist = train(loss, params0, opt, batches(), steps=STEPS, gossip=spec,
+                        log_every=STEPS, ckpt_path=path, ckpt_every=2, ckpt_sharded=True,
+                        device="cuda", verbose=False)
+    launches, by_k = read_launches(), dict(gossip_mix_2d.launches_by_k)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del params0
+    if not all(math.isfinite(x) for x in hist.loss):
+        raise AssertionError(f"non-finite loss: {hist.loss}")
+    if launches != {"gossip_mix": STEPS, "quant_pack": 0, "flash_attention": 0} \
+            or by_k != {1: STEPS}:
+        raise AssertionError(f"one-peer training launched {launches} (by neighbour count "
+                             f"{by_k}) in {STEPS} steps, want one k=1 gossip_mix per step")
+    if ckpt.latest_step(path) != STEPS or len(hist.ckpt_write_s) != 3:
+        raise AssertionError(f"checkpoint at step {ckpt.latest_step(path)}, "
+                             f"{len(hist.ckpt_write_s)} writes; want step {STEPS}, 3 writes")
+    st = [x * 1e3 for x in hist.step_time]
+    log(f"[slice5] one-peer ring: losses {[round(x, 4) for x in hist.loss]}")
+    log(f"[slice5] gossip_mix launches {launches['gossip_mix']} in {STEPS} steps, by neighbour "
+        f"count {by_k}; step 0 (warm-up) {st[0]:.1f} ms; step 1 (no checkpoint in flight) "
+        f"{st[1]:.1f} ms; steps 2-3 (after the step-2 snapshot, its write in flight) "
+        f"{st[2]:.1f} ms/step; step 4 (after the step-4 snapshot) {st[4]:.1f} ms; slice 1 "
+        f"{slice1['step_s'] * 1e3:.1f} ms/step; peak memory {peak_gb:.1f} GB")
+    log(f"[slice5] checkpoints after steps 2, 4, 5: writer-thread seconds "
+        f"{[round(x, 2) for x in hist.ckpt_write_s]} (device-to-host copy of each worker's "
+        f"slice and its npz)")
+
+    t0 = time.perf_counter()
+    back = ckpt.restore_sharded(path, state.params, device="cuda")
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    bad = [i for i, (a, b) in enumerate(zip(_tree.leaves(back), _tree.leaves(state.params)))
+           if a.dtype != b.dtype or not torch.equal(a, b)]
+    del back
+    want = ckpt.consensus_params(state.params)
+    single = _tree.map(lambda x: torch.empty(x.shape[1:], dtype=x.dtype, device="meta"),
+                       state.params)
+    t0 = time.perf_counter()
+    from_shards = ckpt.consensus_from_sharded(path, single, device="cuda")
+    torch.cuda.synchronize()
+    t_cons = time.perf_counter() - t0
+    loaded = load_consensus_params(path, slice_config(), device="cuda")
+    for label, got in (("consensus_from_sharded", from_shards),
+                       ("load_consensus_params", loaded)):
+        pairs = list(zip(_tree.leaves(got), _tree.leaves(want)))
+        if len(pairs) != len(_tree.leaves(want)) or any(
+                a.dtype != b.dtype or not torch.equal(a, b) for a, b in pairs):
+            raise AssertionError(f"{label} of the sharded checkpoint differs from "
+                                 f"consensus_params of the trained params")
+    if bad:
+        raise AssertionError(f"restore_sharded differs from the trained params at leaves {bad}")
+    size = sum(os.path.getsize(f"{path}.shard-w{j}.npz") for j in range(M_WORKERS))
+    for j in range(M_WORKERS):
+        os.remove(f"{path}.shard-w{j}.npz")
+    os.remove(path + ".meta.json")
+    del from_shards, loaded, want
+    log(f"[slice5] latest_step {STEPS}; {M_WORKERS} shards, {size / 1e9:.2f} GB; "
+        f"restore_sharded {t_restore:.1f} s, equal to the trained params bit for bit; "
+        f"consensus_from_sharded {t_cons:.1f} s and load_consensus_params both equal to "
+        f"consensus_params bit for bit")
+
+    # 2. both one-peer rounds against an einsum step on the round's dense matrix
+    batch = to_device({"tokens": batcher.next()[0]}, "cuda")
+    fused = make_train_step(loss, opt, gossip=spec)
+    for step in (STEPS + 1, STEPS):        # an even round, then an odd one
+        at = state._replace(step=step)
+        gossip_mix_2d.launches_by_k = {}
+        s_f, m_f = fused(at, batch)
+        k_f = dict(gossip_mix_2d.launches_by_k)
+        dense = make_train_step(loss, opt, gossip=GossipSpec(
+            topology=T.one_peer_exponential(M_WORKERS, step % 2), backend="einsum"))
+        s_e, m_e = dense(at, batch)
+        err, finite = _params_err(s_f.params, s_e.params)
+        if k_f != {1: 1} or not finite or err > TOL["bfloat16"]:
+            raise AssertionError(f"one-peer step {step}: launches by k {k_f}, vs einsum "
+                                 f"max|err| {err}, finite {finite}")
+        log(f"[slice5] step {step} (round {step % 2}, offset {1 << (step % 2)}): fused "
+            f"one-peer step vs einsum step on one_peer_exponential({M_WORKERS}, {step % 2}).A: "
+            f"params max|err| {err:.3g} (bf16 tol {TOL['bfloat16']}), one k=1 launch; "
+            f"losses {m_f.loss.item():.4f} / {m_e.loss.item():.4f}")
+        del s_f, m_f, s_e, m_e
+    profile_call("one fused one-peer step", lambda: fused(state, batch))
+
+    # 3. gradient accumulation: microbatch=2 against microbatch=1, then Adam
+    # and Adafactor at microbatch=2 (finite losses)
+    base = fresh("the microbatch=1 step")
+    s1, m1 = fused(state, batch)
+    torch.cuda.synchronize()
+    peak1 = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()                     # the step's reference cycles, not s1
+    torch.cuda.reset_peak_memory_stats()
+    base2 = torch.cuda.memory_allocated() / 1e9
+    s2, m2 = make_train_step(loss, opt, gossip=spec, microbatch=2)(state, batch)
+    torch.cuda.synchronize()
+    peak2 = torch.cuda.max_memory_allocated() / 1e9
+    err, finite = _params_err(s2.params, s1.params)
+    if not finite or err > TOL["bfloat16"]:
+        raise AssertionError(f"microbatch=2 vs microbatch=1: max|err| {err}, finite {finite}")
+    log(f"[slice5] momentum step, microbatch=2 vs 1 from the same state and batch: params "
+        f"max|err| {err:.3g} (bf16 tol {TOL['bfloat16']}); losses {m2.loss.item():.4f} / "
+        f"{m1.loss.item():.4f}; peaks {peak1:.1f} GB (microbatch=1, {base:.1f} GB before) "
+        f"and {peak2:.1f} GB (microbatch=2, {base2:.1f} GB before)")
+    params = state.params
+    del s1, m1, s2, m2, state, batch
+    for name, make_opt, n_steps in (
+            ("adam(warmup_cosine(1e-4, 1, 2))", lambda: adam(warmup_cosine(1e-4, 1, 2)), 2),
+            ("adafactor_like(1e-4)", lambda: adafactor_like(1e-4), 1)):
+        base = fresh(name)
+        o = make_opt()
+        step_fn = make_train_step(loss, o, gossip=spec, microbatch=2)
+        st_o = init_state(params, o)
+        losses, t0 = [], time.perf_counter()
+        for _ in range(n_steps):
+            st_o, m = step_fn(st_o, to_device({"tokens": batcher.next()[0]}, "cuda"))
+            losses.append(m.loss.item())
+        dt = (time.perf_counter() - t0) / n_steps
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        finite = all(math.isfinite(x) for x in losses) and all(
+            bool(torch.isfinite(x).all()) for x in _tree.leaves(st_o.params))
+        del st_o, m, step_fn, o
+        if not finite:
+            raise AssertionError(f"{name} at microbatch=2: losses {losses}, params finite "
+                                 f"{finite}")
+        log(f"[slice5] {name}, microbatch=2: {n_steps} steps, losses "
+            f"{[round(x, 4) for x in losses]}, {dt * 1e3:.1f} ms/step (host clock, incl. the "
+            f"first step); peak {peak:.1f} GB ({base:.1f} GB before)")
+
+    # 4. survivor mixing on the trained params
+    fresh("survivor mixing")
+    cases = (("survivor_mix", T.undirected_ring(M_WORKERS), np.array([1, 1, 0, 1], bool)),
+             ("survivor_hierarchical_mix", T.hier(2, 2), np.array([1, 1, 1, 0], bool)))
+    for name, topo, alive in cases:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "survivor_mix":
+            mixed = survivor_mix(params, topo, alive)
+            stages = [T.survivor_matrix(topo.A, alive)]
+        else:
+            mixed = survivor_hierarchical_mix(params, topo, alive)
+            stages = list(T.repair_hier_stages(topo, alive))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        mats = [torch.as_tensor(A, dtype=torch.float32, device="cuda") for A in stages]
+        dead, live = np.nonzero(~alive)[0].tolist(), np.nonzero(alive)[0].tolist()
+        worst = 0.0
+        for x, y in zip(_tree.leaves(params), _tree.leaves(mixed)):
+            if any(not torch.equal(y[j], x[j]) for j in dead):
+                raise AssertionError(f"{name}: a dead worker's slice changed")
+            ref = x.float()
+            for A in mats:
+                ref = torch.einsum("im,i...->m...", A, ref)
+            worst = max(worst, (y[live].float() - ref[live]).abs().max().item())
+            del ref
+        del mixed
+        if worst > TOL["bfloat16"]:
+            raise AssertionError(f"{name}: live workers {worst} off the float32 einsum")
+        log(f"[slice5] {name} on {topo.name}, alive {alive.astype(int).tolist()}: dead slice "
+            f"bit-equal to its input, live workers max|err| {worst:.3g} vs the float32 einsum "
+            f"with the repaired matri{'x' if len(mats) == 1 else 'ces'} (bf16 tol "
+            f"{TOL['bfloat16']}); {ms:.1f} ms")
+    del params
+    return {"launches": launches}
+
+
 def phase_checkpoint(params_M) -> None:
     """export_consensus of slice 1's worker-stacked params, then
     load_consensus_params of the file, bit for bit against
@@ -986,6 +1229,7 @@ def main() -> int:
     phase_checkpoint(slice1.pop("params"))
     by_path = {"slice1_train": slice1["launches"]}
     by_path.update(phase_slice2(slice1))
+    by_path["slice5_train"] = phase_slice5(slice1)["launches"]
     by_path["slice3_serve"] = phase_serve()["launches"]
     for e in entries:
         e["launches_by_path"] = {path: n[e["name"]] for path, n in by_path.items()}

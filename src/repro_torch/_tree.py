@@ -12,7 +12,8 @@ from __future__ import annotations
 import builtins
 from typing import Any, Callable
 
-__all__ = ["flatten", "unflatten", "map", "leaves", "flatten_with_path"]
+__all__ = ["flatten", "unflatten", "flatten_up_to", "map", "leaves",
+           "flatten_with_path"]
 
 
 def _node(tree: Any):
@@ -70,6 +71,26 @@ def unflatten(treedef: Any, leaves: list) -> Any:
 
 
 _END = object()
+
+
+def flatten_up_to(treedef: Any, tree: Any) -> list:
+    """The subtrees of ``tree`` at the leaf positions of ``treedef`` (a
+    prefix of ``tree``'s structure), in leaf order."""
+    out: list = []
+
+    def walk(d, t):
+        if d == "leaf":
+            out.append(t)
+            return
+        node = _node(t)
+        kind, aux, children = d
+        if node is None or node[:2] != (kind, aux) or len(node[2]) != len(children):
+            raise ValueError("tree does not match the treedef")
+        for dc, c in zip(children, node[2]):
+            walk(dc, c)
+
+    walk(treedef, tree)
+    return out
 
 
 def leaves(tree: Any) -> list:

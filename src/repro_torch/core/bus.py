@@ -21,7 +21,9 @@ sends every float group wider than the wire dtype over the wire as a bf16
 cast or as int8 with one float32 scale per row (the ``quant_pack`` kernel),
 with an error-feedback residual carried from call to call.
 
-The model-sharded paths are a later slice (ROADMAP queue 1).
+Under ``time_varying='one_peer_exp'`` the train step's fused pass is
+:func:`mix_and_update_time_varying`, one permutation per step. The
+model-sharded paths are a later slice (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -39,9 +41,9 @@ from repro_torch.kernels.quant_pack import quantize_pack_2d
 PyTree = Any
 
 __all__ = ["BusLayout", "plan_layout", "pack", "unpack", "mix_bus",
-           "mix_bus_compressed", "wire_dtype_for", "quantize_wire",
-           "dequantize_wire", "sublane_rows", "LANE", "DEFAULT_BLOCK_R",
-           "WIRE_DTYPES"]
+           "mix_and_update_time_varying", "mix_bus_compressed",
+           "wire_dtype_for", "quantize_wire", "dequantize_wire",
+           "sublane_rows", "LANE", "DEFAULT_BLOCK_R", "WIRE_DTYPES"]
 
 # Bus rows are exactly one 128-wide lane tile: padding granularity is one
 # sublane tile (sublane(dtype) × 128 elements) per group.
@@ -293,10 +295,17 @@ def _chunk_starts(rows: int, block_r: int, nchunks: int) -> list[tuple[int, int]
 
 
 def _device_index(perm: np.ndarray, device: torch.device) -> torch.Tensor:
-    """``perm`` as an int64 index on ``device``. A CUDA copy goes through
-    pinned memory, asynchronously: a pageable copy would make the host wait
-    for the device in the middle of every step."""
-    ix = torch.from_numpy(np.asarray(perm, np.int64))
+    """``perm`` as an int64 index on ``device``, copied once per permutation
+    and device and then reused, so a step pays no copy."""
+    perm = np.asarray(perm, np.int64)
+    return _index_on(perm.tobytes(), torch.device(device))
+
+
+@functools.lru_cache(maxsize=256)
+def _index_on(perm_bytes: bytes, device: torch.device) -> torch.Tensor:
+    """A CUDA copy goes through pinned memory, asynchronously: a pageable
+    copy would make the host wait for the device."""
+    ix = torch.from_numpy(np.frombuffer(perm_bytes, np.int64).copy())
     if device.type == "cuda":
         return ix.pin_memory().to(device, non_blocking=True)
     return ix
@@ -356,6 +365,17 @@ def mix_bus(params: PyTree, spec, *, updates: PyTree | None = None,
                                eta if updates is not None else None,
                                others, nchunks, layout.groups)
     return unpack(mixed, layout)
+
+
+def mix_and_update_time_varying(params: PyTree, spec, updates: PyTree,
+                                step: int, *, eta: float = -1.0, **kw) -> PyTree:
+    """Fused mix + update under ``time_varying='one_peer_exp'``: the fused
+    bus pass of round ``step % log2(M)``, whose pairwise topology has one
+    non-identity permutation, so each dtype group is one ``gossip_mix``
+    launch with k = 1. ``kw`` forwards to :func:`mix_bus`."""
+    rounds = spec.one_peer_specs
+    return mix_bus(params, rounds[step % len(rounds)], updates=updates,
+                   eta=eta, **kw)
 
 
 # ---------------------------------------------------------------------------

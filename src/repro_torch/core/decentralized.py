@@ -14,9 +14,16 @@ The port of the reference's ``repro/core/decentralized.py``, meshless.
 * allreduce mode: the centralized baseline (one param copy, the whole
   batch), which the paper compares against.
 
-``TrainState.step`` is a Python int, so the step count, the gossip period
-and the learning-rate schedule never wait on the device. ``microbatch`` and
-time-varying topologies come in a later slice (ROADMAP queue 1).
+``microbatch > 1`` accumulates the gradient over that many chunks of the
+per-worker batch in float32 (:func:`_microbatched`). A spec with
+``time_varying='one_peer_exp'`` mixes step k with round ``k % log2 M`` of the
+one-peer graph (fused: one k = 1 ``gossip_mix`` pass per dtype group). As
+in the reference, adapt-then-combine (``mix_first=False``) with
+``period == 1`` mixes with the spec's static topology even then.
+
+``TrainState.step`` is a Python int, so the step count, the gossip period,
+the time-varying round and the learning-rate schedule never wait on the
+device.
 """
 from __future__ import annotations
 
@@ -84,12 +91,45 @@ def _add_updates(params: PyTree, updates: PyTree) -> PyTree:
     return _tree.map(lambda p, u: p + u.to(p.dtype), params, updates)
 
 
+def _microbatched(value_and_grad_fn, microbatch: int, batch_axis: int):
+    """Gradient accumulation: chunk i of ``microbatch`` is rows
+    ``[i·b/mb, (i+1)·b/mb)`` of the batch axis; grads accumulate in float32
+    in chunk order, loss and grads are then scaled by float32 ``1/mb``. The
+    grads stay float32, as in the reference. Returns ``(grads, loss)``, the
+    order of ``torch.func.grad_and_value``."""
+
+    def run(params, batch):
+        def chunk(x, i):
+            b = x.shape[batch_axis]
+            if b % microbatch:
+                raise ValueError(f"batch of {b} does not split into {microbatch} microbatches")
+            n = b // microbatch
+            return x.narrow(batch_axis, i * n, n)
+
+        acc_l = acc_g = None
+        for i in range(microbatch):
+            g, l = value_and_grad_fn(params, _tree.map(lambda x: chunk(x, i), batch))
+            with torch.no_grad():
+                if acc_g is None:
+                    acc_l, acc_g = l.float(), _tree.map(lambda x: x.float(), g)
+                else:
+                    acc_l = acc_l + l
+                    _tree.map(lambda a, x: a.add_(x), acc_g, g)
+            del g
+        inv = 1.0 / microbatch
+        with torch.no_grad():
+            return _tree.map(lambda a: a.mul_(inv), acc_g), acc_l * inv
+
+    return run
+
+
 def make_train_step(
     loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
     optimizer: Optimizer,
     gossip: GossipSpec | None = None,
     mode: str = "gossip",
     mix_first: bool = True,
+    microbatch: int = 1,
 ):
     """Build the train step ``step(state, batch) -> (state, StepMetrics)``.
 
@@ -101,6 +141,7 @@ def make_train_step(
       mix_first: paper's eq. (3) mixes the current params and subtracts the
         gradient taken at the current local params (True). False gives the
         adapt-then-combine variant — mix(w - η g).
+      microbatch: gradient-accumulation factor over the per-worker batch.
     """
     if mode == "gossip":
         if gossip is None:
@@ -111,6 +152,10 @@ def make_train_step(
         fuse_update = (gossip.resolved_backend() == "fused" and mix_first
                        and not gossip.hierarchical)
         vg = torch.func.vmap(torch.func.grad_and_value(loss_fn))
+        if microbatch > 1:
+            vg = _microbatched(vg, microbatch, batch_axis=1)
+        if gossip.time_varying:
+            gossip.one_peer_specs   # build the rounds' specs once, here
 
         def step(state: TrainState, batch: PyTree) -> tuple[TrainState, StepMetrics]:
             # batch leaves: (M, per_worker_batch, ...)
@@ -119,19 +164,33 @@ def make_train_step(
                 updates, opt_state = optimizer.update(
                     grads, state.opt_state, state.params, state.step)
                 mix_now = state.step % gossip.period == 0
+
+                def do_mix(p):
+                    if gossip.time_varying:
+                        return gossip_lib.mix_pytree_time_varying(p, gossip, state.step)
+                    return gossip_lib.mix_pytree(p, gossip)
+
                 if fuse_update:
                     # updates already carry −lr ⇒ eta = −1 gives mix(p) + u
-                    new_params = (bus.mix_bus(state.params, gossip,
-                                              updates=updates, eta=-1.0)
-                                  if mix_now else _add_updates(state.params, updates))
+                    if not mix_now:
+                        new_params = _add_updates(state.params, updates)
+                    elif gossip.time_varying:
+                        new_params = bus.mix_and_update_time_varying(
+                            state.params, gossip, updates, state.step, eta=-1.0)
+                    else:
+                        new_params = bus.mix_bus(state.params, gossip,
+                                                 updates=updates, eta=-1.0)
                 elif mix_first:
-                    mixed = (gossip_lib.mix_pytree(state.params, gossip)
-                             if mix_now else state.params)
+                    mixed = do_mix(state.params) if mix_now else state.params
                     new_params = _add_updates(mixed, updates)
                 else:
                     stepped = _add_updates(state.params, updates)
-                    new_params = (gossip_lib.mix_pytree(stepped, gossip)
-                                  if mix_now else stepped)
+                    if gossip.period == 1:
+                        # the reference's quirk: the static topology, even
+                        # under time_varying (ROADMAP queue 3)
+                        new_params = gossip_lib.mix_pytree(stepped, gossip)
+                    else:
+                        new_params = do_mix(stepped) if mix_now else stepped
                 E, E_sp, H = gradient_stats(grads)
                 spread = param_spread(new_params)
             metrics = StepMetrics(losses.mean(), E, E_sp, H, spread)
@@ -142,6 +201,8 @@ def make_train_step(
     if mode == "allreduce":
         # Centralized equivalent: a single param copy over the whole batch.
         vg = torch.func.grad_and_value(loss_fn)
+        if microbatch > 1:
+            vg = _microbatched(vg, microbatch, batch_axis=0)
 
         def step(state: TrainState, batch: PyTree) -> tuple[TrainState, StepMetrics]:
             grads, loss = vg(state.params, batch)

@@ -11,6 +11,12 @@ Backends (selected via :class:`GossipSpec`):
   the tree packs into one buffer per dtype and the mix (+ optimizer update,
   in the train step) is one pass of the fused ``gossip_mix`` kernel.
 
+``GossipSpec(time_varying='one_peer_exp')`` mixes step k with the one-peer
+exponential graph of round ``k mod log2 M`` (:func:`mix_pytree_time_varying`;
+the train step's fused path is :func:`repro_torch.core.bus.mix_and_update_time_varying`).
+:func:`survivor_mix` and :func:`survivor_hierarchical_mix` mix over a
+partial fleet with the repaired matrices of :mod:`repro_torch.core.topology`.
+
 ``GossipSpec(hierarchical=True)`` runs a Kronecker (multi-pod) topology as
 its two factored stages, intra-pod then cross-pod (:func:`hierarchical_mix`);
 :func:`hierarchical_mix_compressed` sends the cross-pod stage over the
@@ -30,10 +36,18 @@ import torch
 
 from repro_torch import _tree
 from repro_torch.core import bus
-from repro_torch.core.topology import Topology, split_kronecker
+from repro_torch.core.topology import (
+    Topology,
+    one_peer_exponential,
+    repair_hier_stages,
+    split_kronecker,
+    survivor_matrix,
+)
 
 __all__ = ["GossipSpec", "mix_pytree", "mix_reference", "mix_pytree_reference",
-           "split_hierarchical", "hierarchical_mix", "hierarchical_mix_compressed"]
+           "make_mixer", "mix_pytree_time_varying", "split_hierarchical",
+           "hierarchical_mix", "hierarchical_mix_compressed", "survivor_mix",
+           "survivor_hierarchical_mix"]
 
 PyTree = Any
 
@@ -46,6 +60,9 @@ class GossipSpec:
     backend: 'einsum' | 'fused' | 'auto' ('auto' resolves as in the
       reference, to the mesh backends this port does not have yet).
     period: gossip every `period` optimizer steps (1 = the paper's DSM).
+    time_varying: None (static topology) or 'one_peer_exp': the step-k
+      matrix pairs node i with node i + 2^(k mod log2 M) (degree 1, exact
+      consensus every log2 M rounds); M must be a power of two.
     hierarchical: run a kronecker/`hier` topology as its two factored
       stages (:func:`split_hierarchical`), intra-pod then cross-pod, instead
       of one mix with the product matrix: the same consensus matrix.
@@ -54,7 +71,12 @@ class GossipSpec:
     topology: Topology
     backend: str = "auto"
     period: int = 1
+    time_varying: str | None = None
     hierarchical: bool = False
+
+    def __post_init__(self):
+        if self.time_varying not in (None, "one_peer_exp"):
+            raise ValueError(f"unknown time_varying {self.time_varying!r}")
 
     def resolved_backend(self) -> str:
         if self.backend != "auto":
@@ -67,6 +89,19 @@ class GossipSpec:
     @functools.cached_property
     def permutations(self) -> list[tuple[float, np.ndarray]]:
         return self.topology.permutations()
+
+    @functools.cached_property
+    def one_peer_specs(self) -> list["GossipSpec"]:
+        """The log2(M) static specs of the one-peer rounds, built once per
+        spec, so a step pays neither the topology build nor its
+        decomposition (each sub-spec caches its permutations)."""
+        M = self.topology.M
+        tau = int(np.log2(M))
+        if 1 << tau != M:
+            raise ValueError("one_peer_exp needs M a power of two")
+        return [dataclasses.replace(self, topology=one_peer_exponential(M, k),
+                                    time_varying=None)
+                for k in range(tau)]
 
 
 def mix_reference(x: torch.Tensor, A) -> torch.Tensor:
@@ -99,6 +134,22 @@ def mix_pytree(params: PyTree, spec: GossipSpec) -> PyTree:
             "the meshless 'einsum' and 'fused' backends only so far "
             "(ROADMAP queue 1, item 17)")
     raise ValueError(f"unknown gossip backend {backend!r}")
+
+
+def make_mixer(spec: GossipSpec):
+    """Returns a params -> mixed_params closure for the given spec."""
+
+    def mixer(params: PyTree) -> PyTree:
+        return mix_pytree(params, spec)
+
+    return mixer
+
+
+def mix_pytree_time_varying(params: PyTree, spec: GossipSpec, step: int) -> PyTree:
+    """Step-dependent consensus (``spec.time_varying = 'one_peer_exp'``): the
+    normal mix with the pairwise topology of round ``step % log2(M)``."""
+    rounds = spec.one_peer_specs
+    return mix_pytree(params, rounds[step % len(rounds)])
 
 
 # ---------------------------------------------------------------------------
@@ -140,3 +191,30 @@ def hierarchical_mix_compressed(params: PyTree, intra: GossipSpec,
         return hierarchical_mix(params, intra, inter), residual
     return bus.mix_bus_compressed(mix_pytree(params, intra), inter,
                                   wire_dtype=dci_dtype, residual=residual)
+
+
+# ---------------------------------------------------------------------------
+# Survivor-renormalized mixing (fault tolerance: mix over a partial fleet)
+# ---------------------------------------------------------------------------
+
+
+def survivor_mix(params: PyTree, topology: Topology, alive,
+                 mode: str = "reabsorb") -> PyTree:
+    """Consensus step over the survivors only (dense path).
+
+    The matrix is :func:`~repro_torch.core.topology.survivor_matrix`'s repair
+    of A for the live-mask ``alive``: dead workers get zero weight and their
+    slices pass through untouched; a full mask mixes with A itself."""
+    A = survivor_matrix(topology.A, np.asarray(alive, dtype=bool), mode)
+    return mix_pytree_reference(params, A)
+
+
+def survivor_hierarchical_mix(params: PyTree, topology: Topology, alive,
+                              mode: str = "reabsorb") -> PyTree:
+    """Two-stage hierarchical mix with the stages re-planned for the
+    live-mask by :func:`~repro_torch.core.topology.repair_hier_stages`
+    (whole dead pods contracted out of the outer graph), applied
+    back-to-back (dense path)."""
+    intra_A, inter_A = repair_hier_stages(
+        topology, np.asarray(alive, dtype=bool), mode)
+    return mix_pytree_reference(mix_pytree_reference(params, intra_A), inter_A)

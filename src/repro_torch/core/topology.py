@@ -1,10 +1,11 @@
 """Communication topologies and consensus matrices (paper §2, App. B/F/G).
 
-A numpy-only copy of the reference's ``repro/core/topology.py``, cut to what
-the decentralized train step needs: the ``Topology`` container, the weight
-rules, the regular graph builders, the Kronecker (multi-pod) builders and
-their two-stage factorization, the permutation decompositions the gossip bus
-runs on, and the spectral helpers. ``A[i, j]`` is the weight node j
+A numpy-only copy of the reference's ``repro/core/topology.py``: the
+``Topology`` container, the weight rules, the graph builders (regular,
+random and expander), the Kronecker (multi-pod) builders and their two-stage
+factorization, survivor repair for a partial fleet, the one-peer
+time-varying graph, the permutation decompositions the gossip bus runs on,
+and the spectral helpers (incl. the paper's energy fractions and α). ``A[i, j]`` is the weight node j
 gives node i's estimate, so the consensus step is ``W(k+1) = W(k) @ A``.
 """
 from __future__ import annotations
@@ -17,11 +18,14 @@ import numpy as np
 
 __all__ = [
     "Topology", "clique", "undirected_ring", "ring_lattice",
-    "directed_ring_lattice", "torus_2d", "hypercube", "kronecker", "hier",
-    "split_kronecker", "kronecker_factors", "uniform_weights",
+    "directed_ring_lattice", "torus_2d", "hypercube", "star",
+    "random_regular", "expander", "kronecker", "hier", "split_kronecker",
+    "kronecker_factors", "edge_classes", "survivor_matrix", "survivor_column",
+    "repair_hier_stages", "one_peer_exponential", "uniform_weights",
     "metropolis_weights", "circulant_decomposition",
     "permutation_decomposition", "spectral_gap", "second_eigenvalue_modulus",
-    "spectral_projectors", "BY_NAME", "make",
+    "spectral_projectors", "energy_fractions", "alpha_from_fractions",
+    "BY_NAME", "make",
 ]
 
 
@@ -56,6 +60,11 @@ class Topology:
     def M(self) -> int:
         return self.A.shape[0]
 
+    @property
+    def in_degree(self) -> int:
+        """Max in-degree excluding the self loop."""
+        return int(max((np.count_nonzero(self.A[:, j]) - 1) for j in range(self.M)))
+
     @functools.cached_property
     def eigenvalues(self) -> np.ndarray:
         """Eigenvalues sorted by decreasing modulus (λ1 = 1 first)."""
@@ -69,6 +78,15 @@ class Topology:
     @property
     def spectral_gap(self) -> float:
         return 1.0 - self.lambda2
+
+    def neighbors_in(self, j: int) -> np.ndarray:
+        """In-neighborhood N_j (predecessors, excluding j itself)."""
+        (idx,) = np.nonzero(self.A[:, j])
+        return idx[idx != j]
+
+    def neighbors_out(self, i: int) -> np.ndarray:
+        (idx,) = np.nonzero(self.A[i, :])
+        return idx[idx != i]
 
     def permutations(self) -> list[tuple[float, np.ndarray]]:
         """Weighted permutations summing to A: the circulant closed form when
@@ -187,6 +205,63 @@ def hypercube(log2M: int) -> Topology:
     return Topology(name=f"hypercube-{M}", A=uniform_weights(adj), directed=False)
 
 
+def star(M: int) -> Topology:
+    """Star (hub-and-spoke), the PS physical topology; Metropolis weights."""
+    adj = np.zeros((M, M), dtype=bool)
+    adj[0, 1:] = adj[1:, 0] = True
+    return Topology(name=f"star-{M}", A=metropolis_weights(adj), directed=False)
+
+
+def random_regular(M: int, d: int, seed: int = 0, max_tries: int = 2000) -> Topology:
+    """Random d-regular undirected simple graph via the pairing model."""
+    if (M * d) % 2 or d >= M:
+        raise ValueError("need M*d even and d < M")
+    rng = np.random.default_rng(seed)
+    for _ in range(max_tries):
+        stubs = np.repeat(np.arange(M), d)
+        rng.shuffle(stubs)
+        pairs = stubs.reshape(-1, 2)
+        if np.any(pairs[:, 0] == pairs[:, 1]):
+            continue
+        adj = np.zeros((M, M), dtype=bool)
+        key = pairs.min(1) * M + pairs.max(1)
+        if len(np.unique(key)) != len(key):  # multi-edge
+            continue
+        adj[pairs[:, 0], pairs[:, 1]] = True
+        adj |= adj.T
+        if _is_connected(adj):
+            return Topology(name=f"rr-{M}-d{d}-s{seed}", A=uniform_weights(adj), directed=False)
+    raise RuntimeError("failed to sample a connected random regular graph")
+
+
+def expander(M: int, d: int, seed: int = 0, n_candidates: int = 50) -> Topology:
+    """Best-of-N random regular graph by spectral gap (paper App. G)."""
+    if d == 2:
+        return undirected_ring(M)
+    if d >= M - 1:
+        return clique(M)
+    best = None
+    for s in range(n_candidates):
+        t = random_regular(M, d, seed=seed * 10_000 + s)
+        if best is None or t.spectral_gap > best.spectral_gap:
+            best = t
+    return dataclasses.replace(best, name=f"expander-{M}-d{d}")
+
+
+def _is_connected(adj: np.ndarray) -> bool:
+    M = adj.shape[0]
+    seen = np.zeros(M, dtype=bool)
+    stack = [0]
+    seen[0] = True
+    while stack:
+        i = stack.pop()
+        for j in np.nonzero(adj[i])[0]:
+            if not seen[j]:
+                seen[j] = True
+                stack.append(int(j))
+    return bool(seen.all())
+
+
 def kronecker(outer: Topology, inner: Topology, name: str | None = None) -> Topology:
     """Hierarchical topology A_outer ⊗ A_inner (multi-pod): worker (p, i)
     mixes within its pod via A_inner and across pods via A_outer. Node (p, i)
@@ -246,6 +321,153 @@ def kronecker_factors(topo: Topology) -> tuple[np.ndarray, np.ndarray]:
 
 
 # ---------------------------------------------------------------------------
+# Survivor-renormalized mixing (fault tolerance: mix over a partial fleet)
+# ---------------------------------------------------------------------------
+
+
+def survivor_column(col: np.ndarray, j: int, keep: np.ndarray,
+                    mode: str = "reabsorb") -> np.ndarray:
+    """Repair column j of A for a partial set of usable estimates ``keep``.
+
+    Dropped weight goes back to the self loop (``'reabsorb'``) or is spread
+    over the survivors (``'renormalize'``); with everything kept the input
+    column comes back bit-identical."""
+    col = np.asarray(col, np.float64).copy()
+    keep = np.asarray(keep, dtype=bool)
+    drop = ~keep
+    drop[j] = False          # worker j always holds its own estimate
+    if not drop.any():
+        return col
+    lost = float(col[drop].sum())
+    col[drop] = 0.0
+    if mode == "reabsorb":
+        col[j] += lost
+    elif mode == "renormalize":
+        s = col.sum()
+        if s <= 0.0:
+            col[j] = 1.0
+        else:
+            col /= s
+    else:
+        raise ValueError(f"survivor mode must be reabsorb|renormalize, got {mode!r}")
+    return col
+
+
+def survivor_matrix(A: np.ndarray, alive: np.ndarray,
+                    mode: str = "reabsorb") -> np.ndarray:
+    """Repair a consensus matrix for a partial worker fleet (a raw matrix).
+
+    Dead workers are isolated (identity row and column: they hold their last
+    state and feed nobody); every live column is repaired by
+    :func:`survivor_column`. A full live-mask returns a copy of A."""
+    A = np.asarray(A, np.float64)
+    alive = np.asarray(alive, dtype=bool)
+    if alive.shape != (A.shape[0],):
+        raise ValueError(f"live mask covers {alive.shape} workers, "
+                         f"matrix is {A.shape}")
+    if not alive.any():
+        raise ValueError("survivor_matrix needs at least one live worker")
+    out = A.copy()
+    if alive.all():
+        return out
+    M = A.shape[0]
+    for j in range(M):
+        if alive[j]:
+            out[:, j] = survivor_column(A[:, j], j, alive, mode)
+        else:
+            out[:, j] = 0.0
+            out[j, j] = 1.0
+    return out
+
+
+def _bridge_adjacency(adj: np.ndarray, node_alive: np.ndarray) -> np.ndarray:
+    """Contract dead nodes out of an undirected graph: live p and q become
+    adjacent iff a path whose interior is entirely dead joins them."""
+    new = np.zeros_like(adj)
+    for p in np.nonzero(node_alive)[0]:
+        stack = list(np.nonzero(adj[p])[0])
+        seen = {int(p)}
+        while stack:
+            q = int(stack.pop())
+            if q in seen:
+                continue
+            seen.add(q)
+            if node_alive[q]:
+                new[p, q] = new[q, p] = True
+            else:
+                stack.extend(np.nonzero(adj[q])[0])
+    np.fill_diagonal(new, False)
+    return new
+
+
+def repair_hier_stages(topo: Topology, alive: np.ndarray,
+                       mode: str = "reabsorb") -> tuple[np.ndarray, np.ndarray]:
+    """Re-plan the two hierarchical stages for a partial fleet.
+
+    Returns raw ``(intra_A, inter_A)`` with ``inter_A @ intra_A`` the repaired
+    step: each pod's inner block survivor-repaired; pods that lost every
+    member contracted out of the outer graph (neighbours bridged, fresh
+    Metropolis weights), then the per-worker survivor repair. A directed or
+    asymmetric outer factor gets the plain survivor repair. A full live-mask
+    gives exactly :func:`split_kronecker`'s stages."""
+    alive = np.asarray(alive, dtype=bool)
+    intra_t, inter_t = split_kronecker(topo)
+    if alive.all():
+        return intra_t.A.copy(), inter_t.A.copy()
+    intra_A = survivor_matrix(intra_t.A, alive, mode)
+    g = np.asarray(topo.group_of)
+    P_ = int(g.max()) + 1
+    s = topo.M // P_
+    pod_alive = np.array([bool(alive[g == p].any()) for p in range(P_)])
+    if pod_alive.all() or topo.directed:
+        inter_A = survivor_matrix(inter_t.A, alive, mode)
+    else:
+        A_outer, _ = kronecker_factors(topo)
+        adj = A_outer > 1e-12
+        np.fill_diagonal(adj, False)
+        if not np.array_equal(adj, adj.T):
+            inter_A = survivor_matrix(inter_t.A, alive, mode)
+        else:
+            bridged = _bridge_adjacency(adj, pod_alive)
+            A_outer2 = metropolis_weights(bridged)
+            inter_A = survivor_matrix(np.kron(A_outer2, np.eye(s)), alive, mode)
+    return intra_A, inter_A
+
+
+def edge_classes(topo: Topology, group_of: Sequence[int] | None = None
+                 ) -> dict[str, list[tuple[int, int]]]:
+    """Split the directed edges (src i, dst j) into intra-group ``'ici'`` and
+    cross-group ``'dci'`` classes, in row-major order. ``group_of`` defaults
+    to the topology's own; with no grouping every edge is ICI."""
+    g = group_of if group_of is not None else topo.group_of
+    if g is None:
+        g = np.zeros(topo.M, dtype=int)
+    g = np.asarray(g, dtype=int)
+    if len(g) != topo.M:
+        raise ValueError(f"group_of covers {len(g)} nodes, topology has {topo.M}")
+    out: dict[str, list[tuple[int, int]]] = {"ici": [], "dci": []}
+    ii, jj = np.nonzero(topo.A)
+    for i, j in zip(ii.tolist(), jj.tolist()):
+        if i == j:
+            continue
+        out["dci" if g[i] != g[j] else "ici"].append((i, j))
+    return out
+
+
+def one_peer_exponential(M: int, k: int) -> Topology:
+    """Time-varying one-peer exponential graph (Assran et al.): at step k each
+    node averages with the single peer at offset 2^(k mod log2 M)."""
+    if M & (M - 1):
+        raise ValueError("one_peer_exponential needs M a power of two")
+    tau = int(np.log2(M))
+    off = 1 << (k % tau)
+    A = 0.5 * (np.eye(M) + np.roll(np.eye(M), off, axis=1))
+    # roll of identity is a permutation => A normal & doubly stochastic.
+    return Topology(name=f"onepeer-{M}-k{k % tau}", A=A, directed=True,
+                    circulant_offsets=(0, off))
+
+
+# ---------------------------------------------------------------------------
 # Spectral analysis (paper §3, App. B)
 # ---------------------------------------------------------------------------
 
@@ -283,6 +505,32 @@ def spectral_projectors(A: np.ndarray, tol: float = 1e-8):
         lambdas.append(lam[g[0]])
         projectors.append(Q @ Q.conj().T)
     return np.asarray(lambdas), projectors
+
+
+def energy_fractions(G_rows: np.ndarray, A: np.ndarray) -> np.ndarray:
+    """Normalized energy fractions e_q of ΔG in each eigenspace (paper eq. 32):
+    e[0] is the λ1 = 1 subspace (set to 0) and Σ_{q≥1} e[q] = 1."""
+    lam, projs = spectral_projectors(A)
+    G = np.asarray(G_rows, np.float64)
+    energies = np.array([float(np.linalg.norm(G @ P, "fro") ** 2) for P in projs])
+    total = energies[1:].sum()
+    if total <= 0:
+        e = np.zeros_like(energies)
+        if len(e) > 1:
+            e[1] = 1.0
+        return e
+    e = energies / total
+    e[0] = 0.0
+    return e
+
+
+def alpha_from_fractions(e: np.ndarray, lambdas: np.ndarray) -> float:
+    """α (paper eq. 6): effective energy fraction in the λ2 subspace."""
+    lam2 = abs(lambdas[1]) if len(lambdas) > 1 else 0.0
+    if lam2 == 0:
+        return 1.0
+    ratios = np.abs(lambdas[1:]) / lam2
+    return float(np.sqrt(np.sum(e[1:] * ratios**2)))
 
 
 # ---------------------------------------------------------------------------
@@ -359,6 +607,9 @@ BY_NAME: dict[str, Callable[..., Topology]] = {
     "directed_ring_lattice": directed_ring_lattice,
     "torus": torus_2d,
     "hypercube": hypercube,
+    "star": star,
+    "random_regular": random_regular,
+    "expander": expander,
 }
 
 

@@ -5,7 +5,8 @@
 ``repro/kernels/gossip_mix/kernel.py:gossip_mix_2d``. For CPU tensors it
 runs the plain version (:mod:`.ref`); for CUDA tensors it launches the CUDA
 kernel, built at first call, or raises. There is no fallback from one to
-the other. ``gossip_mix_2d.launches`` counts kernel launches.
+the other. ``gossip_mix_2d.launches`` counts kernel launches and
+``gossip_mix_2d.launches_by_k`` counts them by neighbour count k.
 
 The weights and η are host values (Python floats, a numpy array or a CPU
 tensor), passed to the kernel by value; the bus knows them from the
@@ -101,7 +102,9 @@ def gossip_mix_2d(
     if err != 0:
         raise RuntimeError(f"gossip_mix kernel launch failed: cudaError {err}")
     gossip_mix_2d.launches += 1
+    gossip_mix_2d.launches_by_k[k] = gossip_mix_2d.launches_by_k.get(k, 0) + 1
     return out
 
 
 gossip_mix_2d.launches = 0
+gossip_mix_2d.launches_by_k = {}

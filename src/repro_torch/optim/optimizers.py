@@ -1,7 +1,8 @@
 """Minimal tree optimizers (optax-style pure functions).
 
 The port of ``repro/optim/optimizers.py``: plain (sub)gradient descent
-(DSM) and classical momentum, the paper's two optimizers. Updates are
+(DSM) and classical momentum, the paper's two optimizers, plus Adam and a
+factored second-moment optimizer. Updates are
 elementwise over leaves, so they apply unchanged to gossip-mode params that
 carry a leading worker dimension, and they already include −lr: the fused
 gossip step adds them with ``eta = -1``.
@@ -14,6 +15,14 @@ bf16 rounding follows the reference's type promotion, written out:
 * ``mu * u`` there has a weakly typed Python ``mu``, which is rounded to
   ``u``'s dtype first; the product and the ``+ g`` that follows each round
   to that dtype (:func:`_weak`).
+* Adam's bias corrections and Adafactor's ``b2`` are float32 on the device
+  there, from ``t = float32(step) + 1``; here they are computed on the host
+  in ``np.float32``, one operation at a time, so only ``np.power`` against
+  XLA's ``pow`` may differ, by one float32 ulp. The bias corrections divide
+  through :func:`_div_f32`.
+
+Adam and Adafactor walk the leaves one at a time, so only one leaf's float32
+temporaries are alive at once; the state is never updated in place.
 """
 from __future__ import annotations
 
@@ -28,7 +37,9 @@ from repro_torch import _tree
 PyTree = Any
 Schedule = Callable[[int], float]
 
-__all__ = ["Optimizer", "sgd", "momentum_sgd"]
+__all__ = ["Optimizer", "sgd", "momentum_sgd", "adam", "adafactor_like"]
+
+f32 = np.float32
 
 
 def _as_schedule(lr) -> Schedule:
@@ -47,6 +58,13 @@ def _weak(c: float, dtype: torch.dtype) -> float:
     """A Python constant as a weakly typed JAX scalar sees it: rounded to
     ``dtype``."""
     return torch.tensor(c, dtype=dtype).item()
+
+
+def _div_f32(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` as a true float32 division. A Python scalar divisor on CUDA
+    becomes a multiply by its reciprocal; a 0-d device tensor (a fill kernel,
+    no copy, no sync) keeps the division."""
+    return x / torch.full((), c, dtype=torch.float32, device=x.device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,3 +112,87 @@ def momentum_sgd(lr, mu: float = 0.9, nesterov: bool = False) -> Optimizer:
         return upd, new_u
 
     return Optimizer(init, update, f"momentum{mu}")
+
+
+def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+         weight_decay: float = 0.0) -> Optimizer:
+    sched = _as_schedule(lr)
+
+    def init(params):
+        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return {"m": _tree.map(zeros, params), "v": _tree.map(zeros, params)}
+
+    def update(grads, state, params, step):
+        eta = sched(step)
+        t = f32(step) + f32(1.0)
+        c1 = float(f32(1.0) - f32(b1) ** t)
+        c2 = float(f32(1.0) - f32(b2) ** t)
+        flat_g, treedef = _tree.flatten(grads)
+        flat_m, flat_v, flat_p = (_tree.leaves(state["m"]), _tree.leaves(state["v"]),
+                                  _tree.leaves(params))
+        upds, ms, vs = [], [], []
+        for g, m_, v_, p in zip(flat_g, flat_m, flat_v, flat_p):
+            g32 = g.float()
+            m = m_ * b1 + g32 * (1 - b1)
+            v = v_ * b2 + g32.square() * (1 - b2)
+            mh = _div_f32(m, c1)
+            den = _div_f32(v, c2).sqrt_().add_(eps)
+            u = mh.div_(den)
+            del den
+            if weight_decay:
+                u = u.add_(p.float() * weight_decay)
+            upds.append(u.mul_(-eta).to(p.dtype))
+            ms.append(m)
+            vs.append(v)
+        return (_tree.unflatten(treedef, upds),
+                {"m": _tree.unflatten(treedef, ms), "v": _tree.unflatten(treedef, vs)})
+
+    return Optimizer(init, update, "adam")
+
+
+def adafactor_like(lr, eps: float = 1e-30, decay: float = 0.8) -> Optimizer:
+    """Memory-lean second-moment optimizer (row/col factored for 2-D leaves).
+
+    Leaves are factored by their own rank, so a gossip-mode leaf with its
+    leading worker dimension is factored too: a 1-D parameter arrives 2-D
+    and its row/column statistics run across workers, as in the reference.
+    """
+    sched = _as_schedule(lr)
+
+    def init(params):
+        def leaf(p):
+            z = lambda shape: torch.zeros(shape, dtype=torch.float32, device=p.device)
+            if p.ndim >= 2:
+                return {"row": z(p.shape[:-1]), "col": z(p.shape[:-2] + p.shape[-1:])}
+            return {"v": z(p.shape)}
+        return _tree.map(leaf, params)
+
+    def update(grads, state, params, step):
+        eta = sched(step)
+        b2 = f32(1.0) - (f32(step) + f32(1.0)) ** f32(-decay)
+        keep = float(b2)
+        fresh = float(f32(1.0) - b2)
+
+        def leaf(g, s, p):
+            g32 = g.float()
+            g2 = g32.square().add_(eps)
+            if g.ndim >= 2:
+                row = s["row"] * keep + g2.mean(-1) * fresh
+                col = s["col"] * keep + g2.mean(-2) * fresh
+                del g2
+                denom = row[..., :, None] * col[..., None, :]
+                denom = denom.div_(row.mean(-1)[..., None, None] + eps)
+                u = g32 / denom.sqrt_().add_(eps)
+                return u.mul_(-eta).to(p.dtype), {"row": row, "col": col}
+            v = s["v"] * keep + g2 * fresh
+            u = (g32 * -eta).div_(v.sqrt().add_(eps))
+            return u.to(p.dtype), {"v": v}
+
+        flat_g, treedef = _tree.flatten(grads)
+        flat_s = _tree.flatten_up_to(treedef, state)
+        flat_p = _tree.leaves(params)
+        outs = [leaf(g, s, p) for g, s, p in zip(flat_g, flat_s, flat_p)]
+        return (_tree.unflatten(treedef, [o[0] for o in outs]),
+                _tree.unflatten(treedef, [o[1] for o in outs]))
+
+    return Optimizer(init, update, "adafactor")

@@ -42,11 +42,16 @@ def load_consensus_params(path: str, cfg: ModelConfig, *,
     dim the decentralized trainer keeps) or already consensus-averaged; a
     stacked one is collapsed on ``device`` by
     ``checkpoint.consensus_params`` (the paper's output model
-    w̄ = (1/M) Σ_j w_j) before serving."""
+    w̄ = (1/M) Σ_j w_j) before serving. A worker-sharded checkpoint
+    (``checkpoint.save_sharded``) is averaged shard by shard by
+    ``checkpoint.consensus_from_sharded``, one worker replica on the host at
+    a time."""
     dt = dtype or cfg.param_dtype
     dt = getattr(torch, dt) if isinstance(dt, str) else dt
     like = _tree.map(lambda d: torch.empty(d.shape, dtype=dt, device="meta"),
                      M.model_defs(cfg))
+    if ckpt_lib._is_sharded(path):
+        return ckpt_lib.consensus_from_sharded(path, like, device)
     data = np.load(ckpt_lib._npz_path(path))
     # worker-stacked iff a stored leaf has one more dim than its template
     # (bf16 leaves are stored as a same-shape uint16 view)

@@ -8,6 +8,13 @@ reference's bit for bit: both sum the M workers in order in float32 and
 multiply by fl32(1/M) (what XLA makes of ``jnp.mean``'s division), and the
 final cast rounds to nearest even on both sides. M = 3 here, where a true
 division would differ in the last bit of a third of the float32 values.
+
+Worker-sharded checkpoints (one npz per worker) cross between the packages
+bit for bit too, and their consensus (``consensus_from_sharded``, which
+divides the float32 sum by float32(M)) equals the reference's bit for bit
+at M = 3 and M = 4. The asynchronous writer is held to the reference's
+contract: a snapshot at ``save()``, bounded pending writes, retries of
+transient IO errors and a terminal failure that surfaces on the next save.
 """
 import dataclasses
 import os
@@ -155,11 +162,244 @@ def test_load_consensus_params_dtype_override(tmp_path):
 
 
 def test_sharded_checkpoints_are_not_ported_yet(tmp_path):
+    """Kept under its old name: sharded checkpoints are ported now. Files
+    written by either package's save_sharded restore in the other bit for
+    bit (the same shard names, keys and stored arrays, bf16 tags included),
+    and export_consensus of a sharded file equals the reference's."""
     from repro.configs import get_config
 
-    params = JM.init(jax.random.PRNGKey(2), get_config("granite-3-2b", reduced=True))
-    stacked = jax.tree.map(lambda x: jnp.stack([x, x]), params)
-    path = os.path.join(tmp_path, "sharded.npz")
-    JC.save_sharded(path, stacked, step=1)
-    with pytest.raises(NotImplementedError, match="sharded"):
-        TC.export_consensus(path, device="cpu")
+    params = JM.init(jax.random.PRNGKey(2), get_config("granite-3-2b", reduced=True,
+                                                        param_dtype="bfloat16"))
+    stacked = _stacked(params, Mw=2)
+    jpath, tpath = os.path.join(tmp_path, "jax.npz"), os.path.join(tmp_path, "port")
+    JC.save_sharded(jpath, stacked, step=1)
+    tstacked = convert.params_from_jax(jax.tree.map(np.asarray, stacked), device="cpu")
+    TC.save_sharded(tpath, tstacked, step=1)
+    names = sorted(f for f in os.listdir(tmp_path) if ".shard-" in f)
+    assert names == ["jax.shard-w0.npz", "jax.shard-w1.npz",
+                     "port.shard-w0.npz", "port.shard-w1.npz"]
+    for j in range(2):
+        a, b = np.load(f"{tmp_path}/jax.shard-w{j}.npz"), np.load(f"{tmp_path}/port.shard-w{j}.npz")
+        assert a.files == b.files
+        for f in a.files:
+            assert a[f].dtype == b[f].dtype and np.array_equal(a[f], b[f])
+    like = _tree.map(torch.zeros_like, tstacked)
+    for back in (TC.restore(jpath, like, device="cpu"),
+                 TC.restore_sharded(jpath, like, device="cpu")):
+        for t, j in zip(_tree.leaves(back), jax.tree.leaves(stacked), strict=True):
+            assert _bits_equal(t, j)
+    for a, b in zip(jax.tree.leaves(JC.restore(tpath, stacked)), jax.tree.leaves(stacked)):
+        assert a.dtype == b.dtype and np.array_equal(np.asarray(a).view(np.uint8),
+                                                     np.asarray(b).view(np.uint8))
+    assert TC.latest_step(tpath) == JC.latest_step(jpath[:-4]) == 1
+    dst = os.path.join(tmp_path, "serve.npz")
+    got = TC.export_consensus(tpath, dst, device="cpu")
+    want = JC.export_consensus(jpath)
+    for t, j in zip(_tree.leaves(got), jax.tree.leaves(want), strict=True):
+        assert _bits_equal(t, j)
+    assert TC.latest_step(dst) == 1
+
+
+@pytest.mark.parametrize("Mw", [3, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_consensus_from_sharded_matches_jax(tmp_path, Mw, dtype):
+    """Shard by shard, float32 sum in shard order, true division by
+    float32(M): the reference's function bit for bit, at M = 3 too, and the
+    serving loader of a sharded path takes that route on both sides."""
+    jcfg = jget_config("granite-3-2b", reduced=True, param_dtype=dtype)
+    tcfg = tget_config("granite-3-2b", reduced=True, param_dtype=dtype)
+    params = JM.init(jax.random.PRNGKey(3), jcfg)
+    path = os.path.join(tmp_path, "sh.npz")
+    JC.save_sharded(path, _stacked(params, Mw), step=2)
+    want = jax.tree.leaves(JC.consensus_from_sharded(path, params))
+    like = _tree.map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"),
+                     convert.params_from_jax(jax.tree.map(np.asarray, params), device="cpu"))
+    for got in (TC.consensus_from_sharded(path, like, device="cpu"),
+                load_consensus_params(path, tcfg, device="cpu")):
+        got = _tree.leaves(got)
+        assert len(got) == len(want)
+        for t, j in zip(got, want):
+            assert _bits_equal(t, j)
+    for t, j in zip(_tree.leaves(load_consensus_params(path, tcfg, device="cpu")),
+                    jax.tree.leaves(jload_consensus_params(path, jcfg))):
+        assert _bits_equal(t, j)
+
+
+def test_sharded_save_replaces_stale_monolithic_and_one_replica_at_a_time(
+        tmp_path, monkeypatch):
+    path = os.path.join(tmp_path, "ck.npz")
+    TC.save(path, {"w": torch.zeros(4, 3)}, step=1)
+    seen = []
+    real_write = TC._write_npz
+
+    def spy(p, arrs):
+        seen.append(sum(a.nbytes for a in arrs.values()))
+        real_write(p, arrs)
+
+    monkeypatch.setattr(TC, "_write_npz", spy)
+    new = {"w": torch.ones(4, 3), "b": torch.arange(8, dtype=torch.bfloat16).reshape(4, 2)}
+    TC.save_sharded(path, new)                       # same base, no step
+    assert not os.path.exists(path)                  # the stale monolithic file is gone
+    assert seen == [3 * 4 + 2 * 2] * 4               # one worker's slice per file
+    back = TC.restore(path, new, device="cpu")
+    assert all(torch.equal(back[k], new[k]) for k in new)
+    assert TC.latest_step(path[:-len(".npz")]) is None
+    with pytest.raises(ValueError, match="stacked"):
+        TC.save_sharded(path, {"a": torch.ones(4, 2), "b": torch.ones(3)})
+    with pytest.raises(NotImplementedError, match="item 17"):
+        TC.worker_coords(object(), 4)
+    with pytest.raises(FileNotFoundError):
+        TC.restore_sharded(os.path.join(tmp_path, "none"), new, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# The asynchronous writer (mirrors tests/test_checkpoint.py's)
+# ---------------------------------------------------------------------------
+
+
+def test_async_writer_roundtrip_and_sharded_path(tmp_path):
+    tree = {"w": torch.arange(12, dtype=torch.float32).reshape(3, 4),
+            "b": torch.ones(3, 5, dtype=torch.bfloat16)}
+    path, spath = os.path.join(tmp_path, "async.npz"), os.path.join(tmp_path, "sh.npz")
+    with TC.AsyncCheckpointWriter() as w:
+        w.save(path, tree, step=3)
+        w.save(spath, tree, step=4, sharded=True)
+        w.wait()
+        assert len(w.write_seconds) == 2 and min(w.write_seconds) >= 0
+    for p in (path, spath):
+        back = TC.restore(p, tree, device="cpu")
+        assert all(torch.equal(back[k], tree[k]) for k in tree)
+    assert TC.latest_step(path) == 3 and TC.latest_step(spath[:-4]) == 4
+    assert not os.path.exists(spath)
+    with pytest.raises(NotImplementedError, match="item 17"):
+        TC.AsyncCheckpointWriter().save(path, tree, wmesh=object())
+
+
+def test_async_writer_propagates_write_errors(tmp_path):
+    w = TC.AsyncCheckpointWriter()
+    w.save(os.path.join(tmp_path, "no", "such", "dir") + "\0bad", {"x": torch.ones(2)})
+    with pytest.raises(Exception):
+        w.wait()
+    w.close()
+
+
+def test_in_flight_save_holds_the_snapshot(tmp_path, monkeypatch):
+    """save() returns before the write, and the params changed in place
+    afterwards do not reach the file: it holds the values at save()."""
+    import threading
+
+    gate = threading.Event()
+    real_write = TC._write_npz
+
+    def gated_write(p, arrs):
+        assert gate.wait(timeout=60), "test gate never released"
+        real_write(p, arrs)
+
+    monkeypatch.setattr(TC, "_write_npz", gated_write)
+    params = {"w": torch.zeros(64, 33)}
+    path = os.path.join(tmp_path, "inflight.npz")
+    with TC.AsyncCheckpointWriter() as w:
+        w.save(path, params, step=0)
+        assert not gate.is_set()
+        for _ in range(5):
+            params["w"].add_(1.0)
+        gate.set()
+        w.wait()
+    back = TC.restore(path, {"w": torch.empty(64, 33)}, device="cpu")
+    assert torch.equal(back["w"], torch.zeros(64, 33))
+    assert torch.equal(params["w"], torch.full((64, 33), 5.0))
+
+
+def test_async_writer_bounds_pending_saves(tmp_path, monkeypatch):
+    """A third save waits on the oldest write (max_pending=2); the files are
+    written in order."""
+    import threading
+
+    gate = threading.Event()
+    real_write = TC._write_npz
+    written = []
+
+    def gated_write(p, arrs):
+        assert gate.wait(timeout=60)
+        written.append(os.path.basename(p))
+        real_write(p, arrs)
+
+    monkeypatch.setattr(TC, "_write_npz", gated_write)
+    tree = {"x": torch.ones(8)}
+    w = TC.AsyncCheckpointWriter(max_pending=2)
+    w.save(os.path.join(tmp_path, "a.npz"), tree)
+    w.save(os.path.join(tmp_path, "b.npz"), tree)
+    release = threading.Timer(0.2, gate.set)
+    release.start()
+    w.save(os.path.join(tmp_path, "c.npz"), tree)
+    assert gate.is_set()                        # save() had to drain
+    w.close()
+    assert written == ["a.npz", "b.npz", "c.npz"]
+
+
+def test_async_writer_retries_transient_io_errors(tmp_path, monkeypatch):
+    real_write = TC._write_npz
+    fails = {"n": 2}
+    calls = []
+
+    def flaky_write(p, arrs):
+        calls.append(os.path.basename(p))
+        if fails["n"] > 0:
+            fails["n"] -= 1
+            raise OSError("transient NFS hiccup")
+        real_write(p, arrs)
+
+    monkeypatch.setattr(TC, "_write_npz", flaky_write)
+    tree = {"x": torch.arange(6, dtype=torch.float32)}
+    path = os.path.join(tmp_path, "flaky.npz")
+    with TC.AsyncCheckpointWriter(io_retries=3, io_backoff=0.001) as w:
+        w.save(path, tree, step=4)
+        w.wait()
+    assert torch.equal(TC.restore(path, tree, device="cpu")["x"], tree["x"])
+    assert len(calls) == 3                      # 2 failures + 1 success
+    assert TC.latest_step(path) == 4
+
+
+def test_async_writer_terminal_failure_surfaces_on_next_save(tmp_path, monkeypatch):
+    def broken_write(p, arrs):
+        raise OSError("disk gone")
+
+    monkeypatch.setattr(TC, "_write_npz", broken_write)
+    tree = {"x": torch.ones(3)}
+    w = TC.AsyncCheckpointWriter(io_retries=2, io_backoff=0.001)
+    w.save(os.path.join(tmp_path, "dead.npz"), tree)
+    with pytest.raises(OSError, match="disk gone"):
+        w.wait()
+    with pytest.raises(RuntimeError, match="terminally"):
+        w.save(os.path.join(tmp_path, "next.npz"), tree)
+    w.close()
+
+
+def test_train_writer_error_does_not_mask_the_loop_error(tmp_path, monkeypatch):
+    """A failing loop raises its own exception even when every checkpoint
+    write fails too; a loop that ends well raises the writer's error."""
+    from repro_torch.core import topology as TT
+    from repro_torch.core.gossip import GossipSpec
+    from repro_torch.optim import sgd
+    from repro_torch.train import train
+
+    def broken_write(p, arrs):
+        raise OSError("disk gone")
+
+    monkeypatch.setattr(TC, "_write_npz", broken_write)
+    loss = lambda p, b: torch.mean((b @ p["w"]) ** 2)
+    p0 = {"w": torch.ones(4, 3)}
+    kw = dict(gossip=GossipSpec(topology=TT.undirected_ring(4), backend="einsum"),
+              device="cpu", verbose=False, ckpt_path=os.path.join(tmp_path, "ck"),
+              ckpt_every=1)
+
+    def batches(n):
+        for _ in range(n):
+            yield torch.ones(4, 2, 3)
+        raise KeyError("the loop's own failure")
+
+    with pytest.raises(KeyError, match="own failure"):
+        train(loss, p0, sgd(0.1), batches(2), steps=4, **kw)
+    # the first write's OSError, or the terminal failure it leaves behind
+    with pytest.raises((OSError, RuntimeError), match="disk gone"):
+        train(loss, p0, sgd(0.1), batches(2), steps=2, **kw)

@@ -93,6 +93,67 @@ def test_mix_bus_on_card_matches_cpu(cuda):
         torch.testing.assert_close(b.cpu(), a, atol=1e-5, rtol=0)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_fused_time_varying_step_matches_einsum_on_card(cuda, dtype):
+    """One fused one-peer step per round on the card: one k = 1 kernel
+    launch each, equal to the einsum step with the round's dense matrix."""
+    from repro_torch.core.decentralized import init_state, make_train_step, replicate_for_workers
+    from repro_torch.optim import momentum_sgd
+
+    M = 8
+    targets = _randn((M, 3, 130), F32, 9, cuda)
+
+    def loss(p, b):
+        return torch.mean((p["x"].float() - b) ** 2)
+
+    opt = momentum_sgd(0.1, 0.9)
+    states = {}
+    for be in ("fused", "einsum"):
+        spec = GossipSpec(topology=T.undirected_ring(M), backend=be,
+                          time_varying="one_peer_exp")
+        step = make_train_step(loss, opt, gossip=spec)
+        s = init_state(replicate_for_workers({"x": torch.zeros(130, device=cuda, dtype=dtype)}, M), opt)
+        before = dict(gossip_mix_2d.launches_by_k)
+        for _ in range(5):
+            s, _ = step(s, targets)
+        torch.cuda.synchronize()
+        launched = {k: v - before.get(k, 0) for k, v in gossip_mix_2d.launches_by_k.items()}
+        assert launched.get(1, 0) == (5 if be == "fused" else 0)
+        states[be] = s.params["x"]
+    torch.testing.assert_close(states["fused"].float(), states["einsum"].float(),
+                               atol=TOL[dtype], rtol=0)
+
+
+@pytest.mark.gpu
+def test_async_writer_on_card_tensors(cuda, tmp_path):
+    """save() snapshots CUDA tensors without waiting on the device; the
+    params changed in place right after reach neither file, monolithic or
+    sharded, and both restore bit for bit. The values are multiples of 1/8,
+    so the float32 consensus sums are exact in any order and the sharded
+    consensus equals consensus_params bit for bit."""
+    from repro_torch.train import checkpoint as ckpt
+
+    def eighths(shape, dtype, seed):
+        g = np.random.default_rng(seed).integers(-64, 64, size=shape) / 8
+        return torch.from_numpy(g).to(device=cuda, dtype=dtype)
+
+    p = {"w": eighths((4, 257, 129), BF16, 11), "b": [eighths((4, 7), F32, 12)]}
+    want = _tree.map(lambda x: x.clone(), p)
+    path, spath = str(tmp_path / "mono.npz"), str(tmp_path / "sharded")
+    with ckpt.AsyncCheckpointWriter() as w:
+        w.save(path, p, step=1)
+        w.save(spath, p, step=1, sharded=True)
+        _tree.map(lambda x: x.add_(1.0), p)            # the next step, in place
+    for f in (path, spath):
+        back = ckpt.restore(f, want, device=cuda)
+        for a, b in zip(_tree.leaves(back), _tree.leaves(want)):
+            assert a.device.type == "cuda" and torch.equal(a, b)
+    mean = ckpt.consensus_from_sharded(spath, _tree.map(lambda x: x[0], want), device=cuda)
+    for a, b in zip(_tree.leaves(mean), _tree.leaves(ckpt.consensus_params(want))):
+        assert torch.equal(a, b)
+
+
 def _quant_input(kind, dtype, device):
     if kind == "ties":     # amax 127 ⇒ scale exactly 1, entries k + 0.5
         x = np.tile(np.arange(-64, 64) + 0.5, (32, 1)).astype(np.float32)

@@ -144,29 +144,75 @@ def test_train_step_matches_reference(problem, topo, M, backend, mode, mix_first
                                        err_msg=f"{name} at step {k}")
 
 
-def test_train_loop_matches_reference_history():
+def test_train_loop_matches_reference_history(tmp_path, monkeypatch):
+    """The loop's History matches the reference's; with ``ckpt_path``,
+    ``ckpt_every=2`` both loops save after the same steps (2, 4 and the last,
+    5), and the files hold the port's final state bit for bit, restored by
+    either package."""
+    from repro.train import checkpoint as JC
+    from repro_torch.train import checkpoint as TC
+
     arrays, p0, jloss, tloss = _problem("linear")
     M, steps = 4, 5
     parts = pad_to_equal(random_split(len(arrays[0]), M))
-    jb = WorkerBatcher(arrays, parts, batch_size=4, seed=1)
-    tb = WorkerBatcher(arrays, parts, batch_size=4, seed=1)
-    jopt, topt = _optimizers("momentum")
-    _, jh = j_train(jloss, j_replicate(jax.tree.map(jnp.asarray, p0), M), jopt,
-                    (tuple(jnp.asarray(a) for a in jb.next()) for _ in range(steps)),
-                    steps=steps, gossip=JSpec(topology=JT.undirected_ring(M), backend="fused"),
-                    log_every=2, verbose=False)
-    tstate, th = t_train(tloss, t_replicate(convert.params_from_jax(p0, device="cpu"), M),
-                         topt, (tb.next() for _ in range(steps)), steps=steps,
-                         gossip=TSpec(topology=TT.undirected_ring(M), backend="fused"),
-                         log_every=2, device="cpu", verbose=False)
+    saves = {"j": [], "t": []}
+    for side, mod in (("j", JC), ("t", TC)):
+        real = mod.AsyncCheckpointWriter.save
+
+        def spy(self, path, tree, step=None, *, _real=real, _side=side, **kw):
+            saves[_side].append((step, kw.get("sharded", False)))
+            return _real(self, path, tree, step, **kw)
+
+        monkeypatch.setattr(mod.AsyncCheckpointWriter, "save", spy)
+
+    def run(sharded, ckpt_path, port_only=False):
+        jb = WorkerBatcher(arrays, parts, batch_size=4, seed=1)
+        tb = WorkerBatcher(arrays, parts, batch_size=4, seed=1)
+        jopt, topt = _optimizers("momentum")
+        ck = dict(ckpt_every=2, ckpt_sharded=sharded)
+        jh = None
+        if not port_only:
+            _, jh = j_train(jloss, j_replicate(jax.tree.map(jnp.asarray, p0), M), jopt,
+                            (tuple(jnp.asarray(a) for a in jb.next()) for _ in range(steps)),
+                            steps=steps, gossip=JSpec(topology=JT.undirected_ring(M),
+                                                      backend="fused"),
+                            log_every=2, verbose=False,
+                            ckpt_path=os.path.join(tmp_path, "jax"), **ck)
+        tstate, th = t_train(tloss, t_replicate(convert.params_from_jax(p0, device="cpu"), M),
+                             topt, (tb.next() for _ in range(steps)), steps=steps,
+                             gossip=TSpec(topology=TT.undirected_ring(M), backend="fused"),
+                             log_every=2, device="cpu", verbose=False,
+                             ckpt_path=ckpt_path, **ck)
+        return tstate, th, jh
+
+    tpath = os.path.join(tmp_path, "port")
+    tstate, th, jh = run(True, tpath)
     assert tstate.step == steps
     for name in ("loss", "grad_energy", "grad_spread", "mean_grad_norm", "param_spread"):
         np.testing.assert_allclose(getattr(th, name), getattr(jh, name), rtol=RTOL,
                                    atol=ATOL, err_msg=name)
     assert len(th.step_time) == len(jh.step_time) == steps
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        t_train(tloss, tstate.params, topt, iter([]), steps=1, ckpt_path="x",
-                gossip=TSpec(topology=TT.undirected_ring(M), backend="fused"), device="cpu")
+    assert saves["t"] == saves["j"] == [(2, True), (4, True), (5, True)]
+    assert sorted(f for f in os.listdir(tmp_path) if f.startswith("port.shard")) == \
+        [f"port.shard-w{j}.npz" for j in range(M)]
+    assert TC.latest_step(tpath) == steps
+
+    def bit_equal(back):
+        for a, b in zip(_tree.leaves(back), _tree.leaves(tstate.params), strict=True):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+    bit_equal(TC.restore(tpath, tstate.params, device="cpu"))
+    jback = JC.restore(tpath, convert.params_to_numpy(tstate.params))
+    bit_equal(convert.params_from_jax(jback, device="cpu"))
+    # a monolithic checkpoint: the same steps, the same state
+    saves["t"].clear()
+    mpath = os.path.join(tmp_path, "mono.npz")
+    mstate, _, _ = run(False, mpath, port_only=True)
+    assert saves["t"] == [(2, False), (4, False), (5, False)]
+    for a, b in zip(_tree.leaves(mstate.params), _tree.leaves(tstate.params)):
+        assert torch.equal(a, b)
+    bit_equal(TC.restore(mpath, tstate.params, device="cpu"))
+    assert TC.latest_step(mpath) == steps
 
 
 @pytest.mark.parametrize("kind", ["sgd", "momentum", "nesterov"])
