@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--collect]
 
 Drives the port (``src/repro_torch``; nothing of JAX or of the JAX package)
 through these phases, in order, and exits non-zero at the first failure:
@@ -56,7 +56,28 @@ through these phases, in order, and exits non-zero at the first failure:
    its input, the live ones within the bf16 tolerance of a float32 einsum
    with the repaired matrices). Prints ms/step with and without a
    checkpoint in flight, the writer's seconds and each part's peak memory.
-8. slice 3 — serving granite-3-2b at its published widths and full depth
+8. paper — the paper's Fig. 2 (``benchmarks/bench_fig2.py``'s settings):
+   ``problems.run_dsm`` of the classifier (150 steps, lr 0.5) and the LM
+   (60 steps, lr 0.1) at M=8 on degrees 2, 4 and 7, random and by-label
+   splits; prints the 12 tail losses and each one's gap to the clique;
+   every curve finite and within 1e-4 relative of the port's own CPU run of
+   the same seeds. The classifier on the ring (random split) also runs
+   through ``train()`` on the fused bus: one gossip_mix launch per step,
+   per-step losses within 1e-4 relative of ``train()`` on einsum, whose
+   final global loss must be run_dsm's last point exactly.
+9. sim — ``run_simulated`` at slice 1's width and batches (M=4 ring,
+   momentum SGD, heavy-tail compute times): 4 sync rounds with slice
+   commits (einsum) and with full commits (fused bus, one gossip_mix launch
+   per commit), the same event schedule, params and committed losses within
+   the bf16 tolerance; the batched commit's ms at J=1 and J=4; 4 async
+   rounds with finite losses; a sync run whose worker 1 fails round 3 past
+   its retries and is restored from the checkpoint's consensus, bit for bit.
+10. telemetry — the full-commit run again for 2 rounds inside
+   ``telemetry.run`` with health gauges: ``bus.mix_calls`` in
+   telemetry.json equals the fused commits, the gauges are finite,
+   perfetto.json is a valid Chrome trace, and a profiled fused step shows
+   the ``bus.fused_mix`` range around the gossip_mix launch.
+11. slice 3 — serving granite-3-2b at its published widths and full depth
    (40 layers, bf16, seeded random weights): a ``WaveBatcher`` with 4 slots
    serves 8 requests of a 3072-token prompt and 128 new tokens. Checks
    exactly one flash_attention launch per layer in each wave's prefill,
@@ -66,8 +87,13 @@ through these phases, in order, and exits non-zero at the first failure:
    memory and profiles one prefill and one decode step; the profiled
    prefill must run the wgmma kernel once per layer and never the float32
    one.
-9. report — one JSON line of kernels, the nvidia-smi line, and last the
+12. report — one JSON line of kernels, the nvidia-smi line, and last the
    ``{"ok": true, ...}`` line.
+
+``--collect`` runs ``gc.collect()`` before each part (and the microbatch=2
+step), so each part's peak memory can be compared with the default run's,
+which collects nothing: equal peaks mean no reference cycle holds device
+memory between the parts.
 
 The flash_attention kernel check (phase 3) uses the reference's
 kernel-test tolerances, float32 atol 2e-5 and bf16 3e-2, and holds bf16
@@ -106,6 +132,16 @@ SERVE_REQUESTS = 8
 PROMPT_LEN = 3072       # a multiple of blockwise_attention's 1024 chunk
 NEW_TOKENS = 128
 SERVE_MAX_LEN = PROMPT_LEN + NEW_TOKENS   # inside granite's 4096 context
+PAPER_M = 8             # Fig. 2 (benchmarks/bench_fig2.py): M = 8, degrees 2, 4, 7
+PAPER_DEGREES = (2, 4, 7)
+PAPER_RTOL = 1e-4       # card vs CPU curves, fused vs einsum losses (PERF.md §6)
+SIM_ROUNDS = 4          # simulator rounds per run at full width
+TEL_ROUNDS = 2
+SNAP_DEPTH = 4          # snapshot planes of the barrier protocols (2.75 GB each)
+# ``--collect`` runs gc.collect() before each part, as the script did while
+# the tree helpers held leaves in reference cycles: each part's peak with
+# and without it shows whether a cycle holds device memory again.
+COLLECT = "--collect" in sys.argv[1:]
 
 # Device-memory rates (bytes/s) from NVIDIA's data sheets, by card name
 # (first match wins), and the H100's float32 rate outside the tensor cores.
@@ -117,6 +153,24 @@ BF16_PEAK = 989e12      # dense tensor-core rate
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def collect() -> None:
+    if COLLECT:
+        gc.collect()
+
+
+def fresh_gb(label: str, tag: str | None = None) -> float:
+    """Collect (with ``--collect``), release the cache, reset the peak;
+    print and return the GB still allocated before ``label``."""
+    import torch
+
+    collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gb = torch.cuda.memory_allocated() / 1e9
+    log(f"[{tag or label}] {gb:.2f} GB allocated before {label}")
+    return gb
 
 
 def memory_rate(name: str) -> float:
@@ -663,7 +717,7 @@ def phase_slice2(slice1: dict) -> dict:
     from repro_torch.kernels.quant_pack import quantize_pack_2d
     from repro_torch.train import train
 
-    gc.collect()
+    collect()
     torch.cuda.empty_cache()
     log(f"[slice2] {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated after slice 1")
     params0, batcher, batches, loss, opt = slice_setup("slice2")
@@ -707,7 +761,7 @@ def phase_slice2(slice1: dict) -> dict:
     profile_call("one hierarchical step", lambda: hier_step(state, batch))
     params = state.params
     del state, batch
-    gc.collect()
+    collect()
     torch.cuda.empty_cache()
     log(f"[slice2] {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before the "
         f"compressed lane (the trained params are "
@@ -769,14 +823,7 @@ def phase_slice5(slice1: dict) -> dict:
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train import train
 
-    def fresh(label: str) -> float:
-        """Collect, reset the peak, and return the GB still allocated."""
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        gb = torch.cuda.memory_allocated() / 1e9
-        log(f"[slice5] {gb:.2f} GB allocated before {label}")
-        return gb
+    fresh = lambda label: fresh_gb(label, "slice5")
 
     fresh("slice 5")
     params0, batcher, batches, loss, _ = slice_setup("slice5")
@@ -881,7 +928,7 @@ def phase_slice5(slice1: dict) -> dict:
     s1, m1 = fused(state, batch)
     torch.cuda.synchronize()
     peak1 = torch.cuda.max_memory_allocated() / 1e9
-    gc.collect()                     # the step's reference cycles, not s1
+    collect()
     torch.cuda.reset_peak_memory_stats()
     base2 = torch.cuda.memory_allocated() / 1e9
     s2, m2 = make_train_step(loss, opt, gossip=spec, microbatch=2)(state, batch)
@@ -956,6 +1003,414 @@ def phase_slice5(slice1: dict) -> dict:
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# The paper's experiments: Fig. 2, the simulator, telemetry
+# ---------------------------------------------------------------------------
+
+
+def _fig2_topo(d: int):
+    """bench_fig2's graphs at M = 8: ring (d=2), ring_lattice(8, 4), clique (d=7)."""
+    from repro_torch.core import topology as T
+
+    if d >= PAPER_M - 1:
+        return T.clique(PAPER_M)
+    return T.undirected_ring(PAPER_M) if d == 2 else T.ring_lattice(PAPER_M, d)
+
+
+def _rel_diff(a, b) -> float:
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+
+def phase_paper() -> dict:
+    """Fig. 2 on the card: ``problems.run_dsm`` (einsum) for the classifier
+    (150 steps, lr 0.5) and the LM (60 steps, lr 0.1) at M = 8 on degrees 2,
+    4, 7, random and by-label splits; each curve against the port's own CPU
+    run of the same seeds; the classifier on the ring (random split) also
+    through ``train()`` on the fused bus, one gossip_mix launch per step,
+    its per-step losses against ``train()`` on einsum, whose final global
+    loss is run_dsm's last point."""
+    import numpy as np
+    import torch
+
+    from repro_torch import _tree, problems
+    from repro_torch.core.decentralized import replicate_for_workers
+    from repro_torch.core.gossip import GossipSpec
+    from repro_torch.data import WorkerBatcher
+    from repro_torch.optim import sgd
+    from repro_torch.train import train
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    worst, first, card_s = 0.0, 0.0, 0.0
+    rows, gate = [], None
+    for make, steps, lr in ((problems.problem_classifier, 150, 0.5),
+                            (problems.problem_lm, 60, 0.1)):
+        problem = make()
+        for split in ("random", "by_label"):
+            curves = {}
+            for d in PAPER_DEGREES:
+                t1 = time.perf_counter()
+                losses, _, parts = problems.run_dsm(problem, _fig2_topo(d), steps=steps, lr=lr,
+                                                    split=split, device="cuda")
+                card_s += time.perf_counter() - t1
+                cpu, _, _ = problems.run_dsm(problem, _fig2_topo(d), steps=steps, lr=lr,
+                                             split=split, device="cpu")
+                err = _rel_diff(losses, cpu)
+                first = max(first, _rel_diff(losses[:1], cpu[:1]))
+                worst = max(worst, err)
+                if not np.isfinite(losses).all() or err > PAPER_RTOL:
+                    raise AssertionError(f"{problem[4]} {split} d={d}: card curve off the CPU "
+                                         f"run by {err:.3g} relative (tol {PAPER_RTOL}), "
+                                         f"finite {np.isfinite(losses).all()}")
+                curves[d] = losses
+                if make is problems.problem_classifier and split == "random" and d == 2:
+                    gate = (problem, parts, losses, steps, lr)
+            base = curves[PAPER_DEGREES[-1]]
+            drop = float(base[0] - base[-20:].mean())
+            for d in PAPER_DEGREES:
+                tail = float(curves[d][-20:].mean())
+                rows.append((problem[4], split, d, tail,
+                             (tail - float(base[-20:].mean())) / max(drop, 1e-9)))
+    for name, split, d, tail, gap in rows:
+        log(f"[paper] {name:34s} {split:8s} degree {d}: tail loss (mean of the last 20 "
+            f"steps) {tail:.5f}, gap_vs_clique_frac {gap:+.4f}")
+    log(f"[paper] 12 curves finite; card vs the port's CPU run: max relative difference "
+        f"{worst:.3g} (first step {first:.3g}; tol {PAPER_RTOL}); card run_dsm time "
+        f"{card_s:.1f} s for all 12")
+
+    # the gate configuration through train(): fused bus against einsum
+    problem, parts, dsm_losses, steps, lr = gate
+    arrays, _, params0, loss, name = problem
+    spec = lambda backend: GossipSpec(topology=_fig2_topo(2), backend=backend)
+
+    def run(backend):
+        batcher = WorkerBatcher(arrays, parts, batch_size=16, seed=0)
+        return train(loss, replicate_for_workers(params0, PAPER_M),
+                     sgd(lr), (batcher.next() for _ in range(steps)), steps=steps,
+                     gossip=spec(backend), log_every=steps, device="cuda", verbose=False)
+
+    st_e, h_e = run("einsum")
+    reset_launches()
+    t1 = time.perf_counter()
+    st_f, h_f = run("fused")
+    fused_s = time.perf_counter() - t1
+    launches = read_launches()
+    full = _tree.map(lambda a: torch.from_numpy(a).cuda(), arrays)
+    with torch.no_grad():
+        mean_loss = lambda st: float(loss(_tree.map(lambda v: v.mean(0), st.params), full))
+        g_e, g_f = mean_loss(st_e), mean_loss(st_f)
+    step_err = _rel_diff(h_f.loss, h_e.loss)
+    step0 = _rel_diff(h_f.loss[:2], h_e.loss[:2])
+    if launches != {"gossip_mix": steps, "quant_pack": 0, "flash_attention": 0}:
+        raise AssertionError(f"fused train() launched {launches} in {steps} steps, "
+                             f"want one gossip_mix per step")
+    if g_e != float(dsm_losses[-1]):
+        raise AssertionError(f"train() on einsum ends at global loss {g_e}, run_dsm at "
+                             f"{dsm_losses[-1]}: not the same run")
+    if step_err > PAPER_RTOL or _rel_diff([g_f], [g_e]) > PAPER_RTOL:
+        raise AssertionError(f"fused train() off the einsum run: per-step losses "
+                             f"{step_err:.3g}, final global loss {g_f} vs {g_e} "
+                             f"(tol {PAPER_RTOL})")
+    log(f"[paper] {name}, ring, random split through train(): fused bus {steps} steps, "
+        f"gossip_mix launches {launches['gossip_mix']}; per-step losses vs the einsum run max "
+        f"relative difference {step_err:.3g} (steps 0-1: {step0:.3g}; tol {PAPER_RTOL}); "
+        f"final global loss fused {g_f:.6f}, einsum {g_e:.6f} = run_dsm's last point; "
+        f"fused run {fused_s * 1e3 / steps:.2f} ms/step (host clock, incl. warm-up); "
+        f"phase {time.perf_counter() - t0:.1f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    return {"launches": launches}
+
+
+def _sim_inputs(tag: str):
+    """(params0, batches, loss, spec factory) of the simulator phases: the
+    slices' model, batches and seeds; every ``batches()`` starts the same
+    batch sequence from its first batch. params0 is kept in host memory:
+    ``run_simulated`` copies it to the card, and the phase then holds no
+    stacked copy of its own there."""
+    import dataclasses
+
+    from repro_torch import _tree
+    from repro_torch.core import topology as T
+    from repro_torch.core.gossip import GossipSpec
+
+    params0, batcher, _, loss, _ = slice_setup(tag)
+    params0 = _tree.map(lambda x: x.cpu(), params0)
+    topo = T.undirected_ring(M_WORKERS)
+
+    def batches():
+        fresh = dataclasses.replace(batcher)       # its own generator, reseeded
+        while True:
+            yield {"tokens": fresh.next()[0]}
+
+    return params0, batches, loss, lambda backend: GossipSpec(topology=topo, backend=backend)
+
+
+def _schedule(trace) -> list:
+    """A trace's event schedule: its signature without the recorded losses."""
+    return [r[:6] for r in trace.signature()]
+
+
+def phase_sim() -> dict:
+    """The simulator at full width: granite-3-2b (4 layers), M = 4 on the
+    ring, momentum SGD, per-worker batch 8 x 512, heavy-tail compute times.
+    Sync for SIM_ROUNDS rounds with slice commits (einsum) and with full
+    commits (fused bus); then async; then a sync run whose worker 1 fails
+    past its retries at round 3 and is restored from the checkpoint's
+    consensus. Returns each run's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.optim import momentum_sgd
+    from repro_torch.sim import TrainExecutor, scenarios
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import loop
+    from repro_torch.train.loop import RecoveryPolicy, run_simulated
+
+    gb0 = fresh_gb("sim")
+    params0, batches, loss, spec = _sim_inputs("sim")
+    opt = momentum_sgd(LR, 0.9)
+    scen = lambda: scenarios.heavy_tail("spark", seed=7)
+    out, runs = {}, {}
+    for label, kw in (("slice", dict(commit="slice", commit_batch=True, gossip=spec("einsum"))),
+                      ("full", dict(commit="full", gossip=spec("fused")))):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        run = run_simulated(loss, params0, opt, batches(), protocol="sync", scenario=scen(),
+                            rounds=SIM_ROUNDS, snap_depth=SNAP_DEPTH, device="cuda", **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[f"sim_{label}_commit"] = read_launches()
+        commits = sum(1 for r in run.trace.records if r.kind == "compute_done")
+        log(f"[sim] sync, {label} commits: {commits} commits in {SIM_ROUNDS} rounds, virtual "
+            f"time {run.virtual_time:.3f}; {wall:.2f} s host, {wall / SIM_ROUNDS:.2f} s per "
+            f"virtual round; launches {out[f'sim_{label}_commit']}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB (snap_depth {SNAP_DEPTH}, "
+            f"{gb0:.1f} GB before)")
+        runs[label] = run
+        del run
+    s, f = runs["slice"], runs["full"]
+    n_full = sum(1 for r in f.trace.records if r.kind == "compute_done")
+    if out["sim_full_commit"] != {"gossip_mix": n_full, "quant_pack": 0, "flash_attention": 0}:
+        raise AssertionError(f"full commits launched {out['sim_full_commit']}, want one "
+                             f"gossip_mix per commit ({n_full})")
+    if out["sim_slice_commit"]["gossip_mix"] != 0:
+        raise AssertionError(f"einsum slice commits launched {out['sim_slice_commit']}")
+    if _schedule(s.trace) != _schedule(f.trace):
+        raise AssertionError("slice and full commits ran different event schedules")
+    ls = np.array([r[6] for r in s.trace.signature() if r[6] is not None])
+    lf = np.array([r[6] for r in f.trace.signature() if r[6] is not None])
+    err, finite = _params_err(f.params, s.params)
+    loss_err = float(np.abs(ls - lf).max())
+    if not finite or err > TOL["bfloat16"] or loss_err > TOL["bfloat16"] \
+            or not np.isfinite(ls).all():
+        raise AssertionError(f"full vs slice commits: params max|err| {err} (finite {finite}),"
+                             f" losses max|err| {loss_err} (tol {TOL['bfloat16']})")
+    log(f"[sim] full (fused) vs slice (einsum) commits: schedules equal ({len(_schedule(s.trace))} "
+        f"events), params max|err| {err:.3g}, committed losses max|err| {loss_err:.3g} (bf16 "
+        f"tol {TOL['bfloat16']}); round-1 losses {[round(float(x), 4) for x in ls[:M_WORKERS]]}")
+    del runs, s, f
+
+    # per-commit time of the batched step: J = 1 (padded to [j, j]) and J = 4
+    fresh_gb("sim commit timing")
+    ex = TrainExecutor(loss, opt, _tree.map(lambda x: x.cuda(), params0), batches(),
+                       spec("einsum"))
+    A = np.asarray(spec("einsum").topology.A)
+    per = {}
+    for js in (np.array([0]), np.arange(M_WORKERS)):
+        ex.commit_batch(js, 1, A, ex.W)           # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            ex.commit_batch(js, 1, A, ex.W)
+        torch.cuda.synchronize()
+        per[len(js)] = (time.perf_counter() - t0) / 3 * 1e3
+    del ex
+    log(f"[sim] batched per-slice commit: J=1 (padded to [j, j]) {per[1]:.1f} ms, J={M_WORKERS} "
+        f"{per[M_WORKERS]:.1f} ms ({per[M_WORKERS] / M_WORKERS:.1f} ms per worker)")
+
+    # async
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    run = run_simulated(loss, params0, opt, batches(), gossip=spec("einsum"), protocol="async",
+                        scenario=scen(), rounds=SIM_ROUNDS, device="cuda")
+    wall = time.perf_counter() - t0
+    out["sim_async"] = read_launches()
+    la = [r.loss for r in run.trace.records if r.loss is not None]
+    if len(la) != SIM_ROUNDS * M_WORKERS or not np.isfinite(la).all():
+        raise AssertionError(f"async: {len(la)} losses, finite {np.isfinite(la).all()}")
+    log(f"[sim] async: {len(la)} computations, losses finite ({min(la):.4f}-{max(la):.4f}), "
+        f"virtual time {run.virtual_time:.3f}; {wall:.2f} s host; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    del run
+
+    # recovery: worker 1 fails round 3 past max_retries, restored from the checkpoint
+    path = os.path.join(ROOT, "build", "chip_smoke", "sim_ckpt")
+    clean_ckpt(path)
+    checked = {}
+    real = loop._RecoveryManager._restore
+
+    def restore_and_check(self, j):
+        real(self, j)
+        torch.cuda.synchronize()
+        like = _tree.map(lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta"),
+                         self.executor.W)
+        want = ckpt.consensus_params(ckpt.restore(self.policy.ckpt_path, like, device="cuda"))
+        checked[j] = all(torch.equal(a[j], b) for a, b in
+                         zip(_tree.leaves(self.executor.W), _tree.leaves(want)))
+        del want
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    loop._RecoveryManager._restore = restore_and_check
+    t0 = time.perf_counter()
+    try:
+        run = run_simulated(
+            loss, params0, opt, batches(), gossip=spec("einsum"), protocol="sync",
+            scenario=scen(), rounds=SIM_ROUNDS, snap_depth=SNAP_DEPTH, device="cuda",
+            recovery=RecoveryPolicy(max_retries=1, backoff_base=0.1, ckpt_path=path,
+                                    ckpt_every=2),
+            fault_inject=lambda j, k, attempt: j == 1 and k == 3)
+    finally:
+        loop._RecoveryManager._restore = real
+    wall = time.perf_counter() - t0
+    out["sim_recovery"] = read_launches()
+    stats = run.trace.meta["recovery"]
+    flagged = sum(1 for r in run.trace.records if r.retried and r.kind == "compute_done")
+    if checked != {1: True} or stats["restores"] != 1 or stats["retries"] != 1 or flagged != 1:
+        raise AssertionError(f"recovery: restore checks {checked}, stats {stats}, "
+                             f"{flagged} failed attempts traced")
+    if not np.all(run.trace.rounds_completed() == SIM_ROUNDS):
+        raise AssertionError(f"recovery run completed rounds {run.trace.rounds_completed()}")
+    log(f"[sim] recovery: worker 1 fails round 3 past max_retries 1: stats {stats}, "
+        f"{flagged} failed attempt in the trace; right after the restore worker 1's slice "
+        f"equals the consensus of the checkpoint on disk bit for bit; {wall:.2f} s host; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    del run
+    clean_ckpt(path)
+    return out
+
+
+def clean_ckpt(path: str) -> None:
+    """Remove a checkpoint base's files (sharded or not) under build/."""
+    d, base = os.path.split(path)
+    os.makedirs(d, exist_ok=True)
+    for f in os.listdir(d):
+        if f.startswith(base + "."):
+            os.remove(os.path.join(d, f))
+
+
+def phase_telemetry() -> dict:
+    """The full-commit simulator run again for TEL_ROUNDS rounds inside
+    ``telemetry.run`` with health gauges; bus.mix_calls, the profiler range
+    around the gossip_mix launch, the gauges, the Perfetto file."""
+    import numpy as np
+    import torch
+
+    from repro_torch import telemetry
+    from repro_torch.core.decentralized import init_state, make_train_step
+    from repro_torch.convert import to_device
+    from repro_torch.optim import momentum_sgd
+    from repro_torch.sim import scenarios
+    from repro_torch.train.loop import run_simulated
+
+    fresh_gb("telemetry")
+    params0, batches, loss, spec = _sim_inputs("telemetry")
+    opt = momentum_sgd(LR, 0.9)
+    run_dir = os.path.join(ROOT, "build", "chip_smoke", "telemetry_run")
+    os.makedirs(run_dir, exist_ok=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    with telemetry.run(run_dir):
+        run = run_simulated(loss, params0, opt, batches(), gossip=spec("fused"),
+                            protocol="sync", scenario=scenarios.heavy_tail("spark", seed=7),
+                            rounds=TEL_ROUNDS, commit="full", snap_depth=SNAP_DEPTH,
+                            health=True, run_dir=run_dir, device="cuda")
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    commits = sum(1 for r in run.trace.records if r.kind == "compute_done")
+    with open(os.path.join(run_dir, "telemetry.json")) as fh:
+        counters = json.load(fh)["counters"]
+    with open(os.path.join(run_dir, "perfetto.json")) as fh:
+        perfetto = json.load(fh)
+    gauges = [(g.name, g.value) for g in run.trace.gauges]
+    if counters.get("bus.mix_calls") != commits or launches["gossip_mix"] != commits:
+        raise AssertionError(f"telemetry counted bus.mix_calls {counters.get('bus.mix_calls')}"
+                             f", gossip_mix launched {launches['gossip_mix']}, for {commits} "
+                             f"fused commits")
+    if len(gauges) < 3 or not all(np.isfinite(v) for _, v in gauges):
+        raise AssertionError(f"health gauges {gauges}")
+    if telemetry.validate_chrome_trace(perfetto):
+        raise AssertionError(f"perfetto.json: {telemetry.validate_chrome_trace(perfetto)[:3]}")
+    log(f"[telemetry] {TEL_ROUNDS} rounds of full (fused) commits in telemetry.run: "
+        f"telemetry.json counters {counters}; gossip_mix launches {launches['gossip_mix']}; "
+        f"health gauges {[(n, round(v, 4)) for n, v in gauges]}; perfetto.json "
+        f"{len(perfetto['traceEvents'])} events, valid; {wall:.2f} s host")
+    del run
+
+    # one fused step under the profiler, telemetry on: the bus.fused_mix
+    # range must enclose the gossip_mix launch
+    step = make_train_step(loss, opt, gossip=spec("fused"))
+    state = init_state(to_device(params0, "cuda"), opt)
+    batch = to_device(next(batches()), "cuda")
+    with telemetry.run():
+        reset_launches()
+        trace_file = os.path.join(run_dir, "step_profile.json")
+        around = _profiled_range_around(lambda: step(state, batch), "bus.fused_mix",
+                                        "gossip_mix", trace_file)
+        step_launches = read_launches()
+    if step_launches["gossip_mix"] != 1:
+        raise AssertionError(f"the profiled step launched {step_launches}")
+    log(f"[telemetry] profiled fused step: {around}")
+    del state, batch
+    return {"telemetry_full_commit": launches, "telemetry_profiled_step": step_launches}
+
+
+def _profiled_range_around(fn, range_name: str, kernel: str, trace_file: str) -> str:
+    """Profile one call of ``fn`` and check that the ``range_name`` range
+    encloses the launch of the kernel whose name holds ``kernel``: the CPU
+    call that launched it (matched by correlation id) lies inside the range
+    on the host timeline, or else the kernel lies inside the range's
+    projection on the device timeline. Returns what was found; raises when
+    neither holds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    del out
+    prof.export_chrome_trace(trace_file)
+    with open(trace_file) as fh:
+        evs = json.load(fh)["traceEvents"]
+    ranges = [e for e in evs if e.get("name") == range_name and e.get("ph") == "X"
+              and e.get("cat") == "user_annotation"]
+    gpu_ranges = [e for e in evs if e.get("name") == range_name and e.get("ph") == "X"
+                  and e.get("cat") == "gpu_user_annotation"]
+    kernels = [e for e in evs if e.get("cat") == "kernel" and kernel in e.get("name", "")]
+    if not ranges or not kernels:
+        raise AssertionError(f"profile has {len(ranges)} {range_name!r} ranges and "
+                             f"{len(kernels)} {kernel!r} kernels")
+    inside = lambda t, r: r["ts"] <= t <= r["ts"] + r["dur"]
+    corr = {k.get("args", {}).get("correlation") for k in kernels}
+    launch = [e for e in evs if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and e.get("args", {}).get("correlation") in corr]
+    if launch and all(any(inside(e["ts"], r) for r in ranges) for e in launch):
+        return (f"{len(launch)} launch call(s) {sorted({e['name'] for e in launch})} of "
+                f"{kernels[0]['name'][:50]} inside the {range_name!r} host range")
+    if gpu_ranges and all(any(inside(k["ts"], r) and inside(k["ts"] + k["dur"], r)
+                              for r in gpu_ranges) for k in kernels):
+        return (f"{kernels[0]['name'][:50]} inside the {range_name!r} range on the device "
+                f"timeline")
+    raise AssertionError(f"{kernel!r} launched outside the {range_name!r} range")
+
+
 def phase_checkpoint(params_M) -> None:
     """export_consensus of slice 1's worker-stacked params, then
     load_consensus_params of the file, bit for bit against
@@ -1000,7 +1455,7 @@ def phase_serve() -> dict:
     from repro_torch.models.params import count_params
     from repro_torch.serving import WaveBatcher, generate, make_serve_step
 
-    gc.collect()
+    collect()
     torch.cuda.empty_cache()
     log(f"[serve] {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated before slice 3")
     cfg = serve_config()
@@ -1230,6 +1685,9 @@ def main() -> int:
     by_path = {"slice1_train": slice1["launches"]}
     by_path.update(phase_slice2(slice1))
     by_path["slice5_train"] = phase_slice5(slice1)["launches"]
+    by_path["paper_fused_train"] = phase_paper()["launches"]
+    by_path.update(phase_sim())
+    by_path.update(phase_telemetry())
     by_path["slice3_serve"] = phase_serve()["launches"]
     for e in entries:
         e["launches_by_path"] = {path: n[e["name"]] for path, n in by_path.items()}

@@ -6,6 +6,10 @@ buffer offsets by leaf order, so everything in this package that walks a
 tree goes through these helpers: dicts by sorted key, lists and tuples
 (NamedTuples included) in order, ``None`` as an empty node, anything else a
 leaf.
+
+Every walk recurses through a module-level function that is handed its
+output list: a nested function that calls itself would form a reference
+cycle with its closure, holding every leaf until the cyclic collector runs.
 """
 from __future__ import annotations
 
@@ -30,41 +34,44 @@ def _node(tree: Any):
     return None
 
 
+def _flatten_into(t: Any, out: list):
+    """Append ``t``'s leaves to ``out``; return its treedef. Module-level
+    recursion, so no closure cell ties ``out`` (and every leaf in it) into a
+    reference cycle that only the cyclic collector would free."""
+    node = _node(t)
+    if node is None:
+        out.append(t)
+        return "leaf"
+    kind, aux, children = node
+    return kind, aux, tuple(_flatten_into(c, out) for c in children)
+
+
 def flatten(tree: Any) -> tuple[list, Any]:
     """(leaves, treedef); the treedef is hashable and feeds :func:`unflatten`."""
     out: list = []
-
-    def walk(t):
-        node = _node(t)
-        if node is None:
-            out.append(t)
-            return "leaf"
-        kind, aux, children = node
-        return kind, aux, tuple(walk(c) for c in children)
-
-    treedef = walk(tree)
+    treedef = _flatten_into(tree, out)
     return out, treedef
+
+
+def _build(d: Any, it) -> Any:
+    if d == "leaf":
+        return next(it)
+    kind, aux, children = d
+    vals = [_build(c, it) for c in children]
+    if kind == "dict":
+        return dict(zip(aux, vals))
+    if kind == "list":
+        return vals
+    if kind == "none":
+        return None
+    if hasattr(aux, "_fields"):          # NamedTuple
+        return aux(*vals)
+    return aux(vals)
 
 
 def unflatten(treedef: Any, leaves: list) -> Any:
     it = iter(leaves)
-
-    def build(d):
-        if d == "leaf":
-            return next(it)
-        kind, aux, children = d
-        vals = [build(c) for c in children]
-        if kind == "dict":
-            return dict(zip(aux, vals))
-        if kind == "list":
-            return vals
-        if kind == "none":
-            return None
-        if hasattr(aux, "_fields"):          # NamedTuple
-            return aux(*vals)
-        return aux(vals)
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, _END) is not _END:
         raise ValueError("more leaves than the treedef holds")
     return out
@@ -73,23 +80,23 @@ def unflatten(treedef: Any, leaves: list) -> Any:
 _END = object()
 
 
+def _up_to_into(d: Any, t: Any, out: list) -> None:
+    if d == "leaf":
+        out.append(t)
+        return
+    node = _node(t)
+    kind, aux, children = d
+    if node is None or node[:2] != (kind, aux) or len(node[2]) != len(children):
+        raise ValueError("tree does not match the treedef")
+    for dc, c in zip(children, node[2]):
+        _up_to_into(dc, c, out)
+
+
 def flatten_up_to(treedef: Any, tree: Any) -> list:
     """The subtrees of ``tree`` at the leaf positions of ``treedef`` (a
     prefix of ``tree``'s structure), in leaf order."""
     out: list = []
-
-    def walk(d, t):
-        if d == "leaf":
-            out.append(t)
-            return
-        node = _node(t)
-        kind, aux, children = d
-        if node is None or node[:2] != (kind, aux) or len(node[2]) != len(children):
-            raise ValueError("tree does not match the treedef")
-        for dc, c in zip(children, node[2]):
-            walk(dc, c)
-
-    walk(treedef, tree)
+    _up_to_into(treedef, tree, out)
     return out
 
 
@@ -109,19 +116,19 @@ def map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return unflatten(treedef, [fn(*xs) for xs in zip(flat, *others)])
 
 
+def _with_path_into(t: Any, path: tuple, out: list) -> None:
+    node = _node(t)
+    if node is None:
+        out.append((path, t))
+        return
+    kind, aux, children = node
+    names = aux if kind == "dict" else builtins.range(len(children))
+    for name, c in zip(names, children):
+        _with_path_into(c, path + (name,), out)
+
+
 def flatten_with_path(tree: Any) -> list[tuple[tuple, Any]]:
     """[(path, leaf)] in leaf order; a path holds dict keys and list indices."""
     out: list = []
-
-    def walk(t, path):
-        node = _node(t)
-        if node is None:
-            out.append((path, t))
-            return
-        kind, aux, children = node
-        names = aux if kind == "dict" else builtins.range(len(children))
-        for name, c in zip(names, children):
-            walk(c, path + (name,))
-
-    walk(tree, ())
+    _with_path_into(tree, (), out)
     return out

@@ -34,13 +34,14 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from repro_torch import _tree
+from repro_torch import _tree, telemetry
 from repro_torch.kernels.gossip_mix import gossip_mix_2d
 from repro_torch.kernels.quant_pack import quantize_pack_2d
 
 PyTree = Any
 
 __all__ = ["BusLayout", "plan_layout", "pack", "unpack", "mix_bus",
+           "bulk_collectives_per_step",
            "mix_and_update_time_varying", "mix_bus_compressed",
            "wire_dtype_for", "quantize_wire", "dequantize_wire",
            "sublane_rows", "LANE", "DEFAULT_BLOCK_R", "WIRE_DTYPES"]
@@ -281,6 +282,13 @@ def _split_perms(spec) -> tuple[float, list[tuple[float, np.ndarray]]]:
     return a0, others
 
 
+def bulk_collectives_per_step(spec, nchunks: int = 1) -> int:
+    """Bulk neighbour exchanges one bus gossip step issues: one per
+    non-identity permutation and chunk (one gather each on one device)."""
+    _, others = _split_perms(spec)
+    return len(others) * max(nchunks, 1)
+
+
 def _chunk_starts(rows: int, block_r: int, nchunks: int) -> list[tuple[int, int]]:
     """Split ``rows`` into ≤ nchunks (start, size) tiles of whole blocks."""
     nblocks = rows // block_r
@@ -349,8 +357,17 @@ def mix_bus(params: PyTree, spec, *, updates: PyTree | None = None,
     fused pass per dtype group. The train step passes the optimizer deltas
     (which already include −lr) with ``eta=-1.0``, so the pass lands on
     ``mix(params) + update``. Leaves carry the leading worker dim M.
+
+    With a telemetry sink active, each call counts ``bus.mix_calls`` and
+    ``bus.collectives``, gauges ``bus.padded_bytes`` (the per-worker payload
+    one exchange moves) and runs its gathers and kernel launches inside a
+    ``bus.fused_mix`` profiler range.
     """
     a0, others = _split_perms(spec)
+    tel = telemetry.get()
+    if tel.active:
+        tel.counter("bus.mix_calls")
+        tel.counter("bus.collectives", bulk_collectives_per_step(spec, nchunks))
     weights = np.asarray([a0] + [w for w, _ in others], np.float32)
     if not others:  # degenerate (M == 1): no communication at all
         if updates is None:
@@ -359,11 +376,14 @@ def mix_bus(params: PyTree, spec, *, updates: PyTree | None = None,
         return _tree.map(lambda b, u: (b.float() * w0 - e * u.float()).to(b.dtype),
                          params, updates)
     layout = plan_layout(params, lead_ndim=1, block_r=block_r)
+    if tel.active:
+        tel.gauge("bus.padded_bytes", layout.padded_bytes())
     bufs = pack(params, layout)
     upd_bufs = pack(updates, layout) if updates is not None else None
-    mixed = _mix_buffers_local(bufs, upd_bufs, weights,
-                               eta if updates is not None else None,
-                               others, nchunks, layout.groups)
+    with tel.annotate("bus.fused_mix"):
+        mixed = _mix_buffers_local(bufs, upd_bufs, weights,
+                                   eta if updates is not None else None,
+                                   others, nchunks, layout.groups)
     return unpack(mixed, layout)
 
 
@@ -445,7 +465,10 @@ def mix_bus_compressed(params: PyTree, spec, *, wire_dtype,
     per-dtype-group list (``None`` on the first call → zeros; ``None``
     entries for exact groups); thread it through successive calls.
     ``wire_dtype=None`` delegates to :func:`mix_bus` bit-identically and
-    passes ``residual`` through untouched.
+    passes ``residual`` through untouched. With a telemetry sink active it
+    counts ``bus.mix_calls`` and ``bus.collectives``, gauges
+    ``bus.dci_padded_bytes`` and ``bus.dci_bytes_ratio`` and runs inside a
+    ``bus.compressed_mix`` profiler range.
     """
     if wire_dtype is None:
         return mix_bus(params, spec, block_r=block_r), residual
@@ -453,6 +476,15 @@ def mix_bus_compressed(params: PyTree, spec, *, wire_dtype,
     weights = [float(w) for w in np.asarray([a0] + [w for w, _ in others], np.float32)]
     layout = plan_layout(params, lead_ndim=1, block_r=block_r)
     wts = [wire_dtype_for(g.dtype, wire_dtype) for g in layout.groups]
+    tel = telemetry.get()
+    if tel.active:
+        wire_b = layout.padded_bytes(wire_dtype)
+        tel.counter("bus.mix_calls")
+        # int8 groups ship values + scales: two exchanges per permutation
+        tel.counter("bus.collectives", len(others) * sum(
+            1 if wt is None else (2 if wt == torch.int8 else 1) for wt in wts))
+        tel.gauge("bus.dci_padded_bytes", wire_b)
+        tel.gauge("bus.dci_bytes_ratio", layout.padded_bytes() / max(wire_b, 1))
     if not others:   # degenerate (M == 1): nothing rides the wire
         return params, residual
     bufs = pack(params, layout)
@@ -463,6 +495,7 @@ def mix_bus_compressed(params: PyTree, spec, *, wire_dtype,
                     for b, wt in zip(bufs, wts)]
     if len(res_bufs) != len(bufs):
         raise ValueError("residual does not match the bus layout")
-    mixed, new_res = _mix_buffers_local_compressed(bufs, res_bufs, weights, others,
-                                                   layout.groups, wire_dtype)
+    with tel.annotate("bus.compressed_mix"):
+        mixed, new_res = _mix_buffers_local_compressed(bufs, res_bufs, weights, others,
+                                                       layout.groups, wire_dtype)
     return unpack(mixed, layout), new_res

@@ -143,6 +143,12 @@ def make_train_step(
         adapt-then-combine variant — mix(w - η g).
       microbatch: gradient-accumulation factor over the per-worker batch.
     """
+    # torch.func imports torch._dynamo inside the first gradient; an
+    # exception caught during that import leaves a traceback cycle that holds
+    # the first step's tensors until the cyclic collector runs. Importing it
+    # here, before any step, keeps the first step free of cycles.
+    import torch._dynamo  # noqa: F401
+
     if mode == "gossip":
         if gossip is None:
             raise ValueError("gossip mode requires a GossipSpec")

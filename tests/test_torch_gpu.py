@@ -350,3 +350,131 @@ def test_generate_on_card_matches_cpu(cuda):
     assert flash_attention.launches == before + cfg.n_layers
     assert np.array_equal(on_cpu.tokens, on_card.tokens)
     np.testing.assert_allclose(on_card.logprobs, on_cpu.logprobs, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The paper's problems, the simulator and telemetry on the card
+# ---------------------------------------------------------------------------
+
+
+def _sim_linear(cuda, M=4, n=8):
+    from repro_torch.data import WorkerBatcher, pad_to_equal, random_split
+
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(256, n)).astype(np.float32)
+    y = (X @ rng.normal(size=n)).astype(np.float32)
+
+    def loss(p, b):
+        return torch.mean((b[0] @ p["w"] - b[1]) ** 2)
+
+    def batches():
+        bt = WorkerBatcher((X, y), pad_to_equal(random_split(256, M)), batch_size=16, seed=0)
+        while True:
+            yield bt.next()
+
+    return loss, batches, {"w": torch.zeros(n, device=cuda)}
+
+
+@pytest.mark.gpu
+def test_paper_problem_fused_train_launches_once_per_step(cuda):
+    """The classifier through train() on the fused bus: one gossip_mix launch
+    per step, per-step losses within 1e-4 relative of the einsum run."""
+    from repro_torch import problems
+    from repro_torch.core.decentralized import replicate_for_workers
+    from repro_torch.data import WorkerBatcher, pad_to_equal, random_split
+    from repro_torch.optim import sgd
+    from repro_torch.train import train
+
+    arrays, _, p0, loss, _ = problems.problem_classifier(S=256, n=16)
+    parts = pad_to_equal(random_split(256, 4))
+    hist = {}
+    for be in ("einsum", "fused"):
+        bt = WorkerBatcher(arrays, parts, batch_size=8, seed=0)
+        before = gossip_mix_2d.launches
+        _, h = train(loss, replicate_for_workers(p0, 4), sgd(0.5), (bt.next() for _ in range(6)),
+                     steps=6, gossip=GossipSpec(topology=T.undirected_ring(4), backend=be),
+                     device=cuda, verbose=False)
+        assert gossip_mix_2d.launches - before == (6 if be == "fused" else 0)
+        hist[be] = h.loss
+    np.testing.assert_allclose(hist["fused"], hist["einsum"], rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_sim_full_commit_launches_once_per_commit(cuda):
+    from repro_torch.optim import momentum_sgd
+    from repro_torch.sim import scenarios
+    from repro_torch.train.loop import run_simulated
+
+    loss, batches, p0 = _sim_linear(cuda)
+    from repro_torch.core.decentralized import replicate_for_workers
+
+    runs = {}
+    for commit, be in (("slice", "einsum"), ("full", "fused")):
+        before = gossip_mix_2d.launches
+        runs[commit] = run_simulated(
+            loss, replicate_for_workers(p0, 4), momentum_sgd(0.05, 0.9), batches(),
+            gossip=GossipSpec(topology=T.undirected_ring(4), backend=be), commit=commit,
+            scenario=scenarios.heavy_tail("spark", seed=7), rounds=4, device=cuda)
+        commits = sum(1 for r in runs[commit].trace.records if r.kind == "compute_done")
+        assert gossip_mix_2d.launches - before == (commits if be == "fused" else 0)
+    s, f = runs["slice"], runs["full"]
+    assert [r[:6] for r in s.trace.signature()] == [r[:6] for r in f.trace.signature()]
+    torch.testing.assert_close(f.params["w"], s.params["w"], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_sim_commits_write_rows_in_place_on_card(cuda):
+    """W, opt and the snapshot planes keep their storage across commits."""
+    from repro_torch.core.decentralized import replicate_for_workers
+    from repro_torch.optim import momentum_sgd
+    from repro_torch.sim import Engine, SyncGossip, TrainExecutor, scenarios
+
+    loss, batches, p0 = _sim_linear(cuda)
+    topo = T.undirected_ring(4)
+    ex = TrainExecutor(loss, momentum_sgd(0.05, 0.9), replicate_for_workers(p0, 4), batches(),
+                       GossipSpec(topology=topo, backend="einsum"))
+    proto = SyncGossip(executor=ex)
+    ptrs = lambda: [x.data_ptr() for x in _tree.leaves((ex.W, ex.opt, proto._snaps.planes))]
+    seen = []
+    bind = proto.bind
+
+    def bind_and_record(engine, stop_round=None):
+        bind(engine, stop_round)
+        seen.append(ptrs())
+
+    proto.bind = bind_and_record
+    Engine(topo, scenarios.heavy_tail("spark", seed=1)).run(proto, until_round=6)
+    assert proto.rounds.min() == 6
+    assert ptrs() == seen[0]
+    assert ex.W["w"].is_cuda and proto._snaps.planes[0]["w"].is_cuda
+
+
+@pytest.mark.gpu
+def test_fused_mix_range_encloses_the_kernel_in_a_profile(cuda, tmp_path):
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import telemetry
+
+    params = {"w": _randn((4, 1000), F32, 3, cuda)}
+    spec = GossipSpec(topology=T.undirected_ring(4), backend="fused")
+    with telemetry.run() as tel:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            bus.mix_bus(params, spec)
+            torch.cuda.synchronize()
+    assert tel.counters["bus.mix_calls"] == 1
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    evs = json.load(open(path))["traceEvents"]
+    ranges = [e for e in evs if e.get("name") == "bus.fused_mix" and e.get("ph") == "X"]
+    kernels = [e for e in evs if e.get("cat") == "kernel" and "gossip_mix" in e.get("name", "")]
+    assert ranges and len(kernels) == 1
+    corr = kernels[0].get("args", {}).get("correlation")
+    launch = [e for e in evs if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and e.get("args", {}).get("correlation") == corr]
+    host = [r for r in ranges if r.get("cat") == "user_annotation"]
+    device = [r for r in ranges if r.get("cat") == "gpu_user_annotation"]
+    inside = lambda t, r: r["ts"] <= t <= r["ts"] + r["dur"]
+    assert (launch and any(inside(launch[0]["ts"], r) for r in host)) or \
+        any(inside(kernels[0]["ts"], r) for r in device)
