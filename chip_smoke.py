@@ -87,7 +87,25 @@ through these phases, in order, and exits non-zero at the first failure:
    memory and profiles one prefill and one decode step; the profiled
    prefill must run the wgmma kernel once per layer and never the float32
    one.
-12. report — one JSON line of kernels, the nvidia-smi line, and last the
+12. slice 7 — continuous batching of granite-3-2b at its published widths
+   and full depth: a ``ContinuousBatcher`` (8 slots, pages of 16 tokens,
+   ``max_len`` 2048, buckets ``default_buckets(16, 2048)``, ``warmup()``
+   first) serves a 32-request trace (``benchmarks/bench_serving.py``'s
+   Poisson day/night arrivals, prompts of 3-1024 tokens, 24 or 192 new
+   tokens, replayed at saturation), then ``WaveBatcher`` (8 slots) the same
+   trace. Checks every request served in full, ``decode_traces == 1``,
+   ``bucket_misses == 0`` and ``retire_traces == 1`` after the pass, no
+   gossip_mix or quant_pack launch; one decode step through the CUDA graph
+   equal bit for bit to the same step run eagerly on a copy of the state;
+   one request admitted alone and stepped 4 times, its next logits against
+   the dense-cache route (``prefill`` + ``decode_step``) within twice the
+   dense route's distance from a float32 forward plus 1e-5. Prints tokens/s
+   and time to first token of both batchers, decode ms/step through the
+   graph and eagerly against its byte bound, occupancy, peak memory, a
+   profiled graph step by kernel kind, and the greedy tokens' agreement
+   with one-at-a-time ``generate()`` (first 16 of each request; not gated:
+   random bf16 weights give near-flat logits).
+13. report — one JSON line of kernels, the nvidia-smi line, and last the
    ``{"ok": true, ...}`` line.
 
 ``--collect`` runs ``gc.collect()`` before each part (and the microbatch=2
@@ -132,6 +150,15 @@ SERVE_REQUESTS = 8
 PROMPT_LEN = 3072       # a multiple of blockwise_attention's 1024 chunk
 NEW_TOKENS = 128
 SERVE_MAX_LEN = PROMPT_LEN + NEW_TOKENS   # inside granite's 4096 context
+CB_SLOTS = 8            # slice 7: ContinuousBatcher (and WaveBatcher) slots
+CB_PAGE = 16
+CB_MAX_LEN = 2048       # inside granite's 4096 context
+CB_REQUESTS = 32        # the trace (benchmarks/bench_serving.py::make_trace)
+# synthetic lengths, from no measured population of users: prompts spread
+# over the admission buckets up to 1024, a bimodal output length
+CB_MAX_PROMPT = 1024
+CB_SHORT_NEW, CB_LONG_NEW, CB_LONG_FRAC = 24, 192, 0.22
+CB_AGREE_TOKENS = 16    # tokens per request held against one-at-a-time generate()
 PAPER_M = 8             # Fig. 2 (benchmarks/bench_fig2.py): M = 8, degrees 2, 4, 7
 PAPER_DEGREES = (2, 4, 7)
 PAPER_RTOL = 1e-4       # card vs CPU curves, fused vs einsum losses (PERF.md §6)
@@ -1540,6 +1567,238 @@ def phase_serve() -> dict:
     return {"launches": launches}
 
 
+def serving_trace(n_requests: int, *, max_prompt: int, short_new: int, long_new: int,
+                  long_frac: float, seed: int = 0, steps_per_day: float = 40.0) -> list[dict]:
+    """``benchmarks/bench_serving.py::make_trace`` (whose module imports
+    JAX): Poisson arrivals thinned by a day/night rate curve, prompt lengths
+    uniform over [3, max_prompt], ``long_new`` new tokens with probability
+    ``long_frac``, else ``short_new``. The arrival process is the
+    reference's; the lengths are synthetic (the reference's own trace uses
+    3-7-token prompts and 2 or 48 new tokens)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    base = 1.2                     # mean arrivals per decode step
+    peak = base * (1 + 0.85)
+    t, reqs = 0.0, []
+    while len(reqs) < n_requests:
+        t += rng.exponential(1.0 / peak)
+        rate = base * (1 + 0.85 * np.sin(2 * np.pi * t / steps_per_day))
+        if rng.uniform() * peak > max(rate, 1e-9):
+            continue               # thinned: off-peak arrival rejected
+        n_new = long_new if rng.uniform() < long_frac else short_new
+        reqs.append({"arrival_step": t, "prompt_len": int(rng.integers(3, max_prompt + 1)),
+                     "n_new": int(n_new)})
+    return reqs
+
+
+def phase_continuous(card: str) -> dict:
+    """Slice 7: the trace through ContinuousBatcher (the main path, its
+    launches counted) and WaveBatcher, then the graph, paged-attention and
+    agreement checks, timings and a profile of the graph step."""
+    import numpy as np
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.models import model as Mo
+    from repro_torch.models.params import count_params
+    from repro_torch.serving import ContinuousBatcher, WaveBatcher, generate
+    from repro_torch.serving.batcher import default_buckets
+
+    fresh_gb("slice 7", "continuous")
+    cfg = serve_config()
+    t0 = time.perf_counter()
+    params = Mo.init(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    trace = serving_trace(CB_REQUESTS, max_prompt=CB_MAX_PROMPT, short_new=CB_SHORT_NEW,
+                          long_new=CB_LONG_NEW, long_frac=CB_LONG_FRAC, seed=0)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=r["prompt_len"]).astype(np.int32)
+               for r in trace]
+    n_news = [r["n_new"] for r in trace]
+    buckets = default_buckets(CB_PAGE, CB_MAX_LEN)
+    lens = [r["prompt_len"] for r in trace]
+    log(f"[continuous] {cfg.name} layers={cfg.n_layers} {cfg.param_dtype}: "
+        f"{count_params(Mo.model_defs(cfg)):,} params; synthetic trace of {CB_REQUESTS} requests, "
+        f"prompts {min(lens)}-{max(lens)} tokens (mean {np.mean(lens):.1f}), "
+        f"{sum(n == CB_LONG_NEW for n in n_news)} of {CB_LONG_NEW} new tokens and "
+        f"{sum(n == CB_SHORT_NEW for n in n_news)} of {CB_SHORT_NEW}, {sum(n_news)} in all; "
+        f"{CB_SLOTS} slots, page {CB_PAGE}, max_len {CB_MAX_LEN}, buckets {buckets}; "
+        f"set-up {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    cb = ContinuousBatcher(params, cfg, CB_SLOTS, CB_MAX_LEN, page_size=CB_PAGE,
+                           max_new=CB_LONG_NEW, buckets=buckets)
+    t_build = time.perf_counter() - t0
+    pool_gb = sum(c.k_pages.nbytes + c.v_pages.nbytes for c in cb.caches) / 1e9
+    t0 = time.perf_counter()
+    cb.warmup()
+    t_warm = time.perf_counter() - t0
+    st = cb.stats()
+    log(f"[continuous] built (pools {pool_gb:.2f} GB, {cb.pool.n_pages} pages; the decode "
+        f"step captured) in {t_build:.1f} s; warmup of {len(st['admit_traces'])} admission "
+        f"shapes in {t_warm:.1f} s, peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        f"GB; decode: {st['decode']}, decode_traces {st['decode_traces']}")
+
+    # the main path, saturation replay: every request queued at once, the
+    # trace fixing the queue's order, as bench_serving's run_continuous
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [cb.submit(p, n) for p, n in zip(prompts, n_news)]
+    cb.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats = cb.stats()
+    done = {r: cb.done[r] for r in rids}
+    if sorted(cb.done) != rids or any(len(done[r]) != n for r, n in zip(rids, n_news)):
+        raise AssertionError("ContinuousBatcher did not serve every request in full")
+    steps = len(cb._occupancy)
+    # decode_traces and retire_traces are 1 by construction (the reference's
+    # gate); what shows the pass went through the graph is one replay per
+    # decode and no eager decode
+    if ((stats["decode_traces"], stats["bucket_misses"], stats["retire_traces"]) != (1, 0, 1)
+            or stats["decode"] != "cuda graph"
+            or (stats["decode_replays"], stats["eager_decodes"]) != (steps, 0)):
+        raise AssertionError(f"after the timed pass ({steps} decodes): {stats}")
+    if launches["gossip_mix"] or launches["quant_pack"]:
+        raise AssertionError(f"continuous serving launched {launches}")
+    if not all(np.isfinite(cb.done_logprobs[r]).all() for r in rids):
+        raise AssertionError("non-finite logprobs")
+    cont_tps = sum(n_news) / wall
+    # both batchers' TTFT: submit to the first token ready on the device
+    cont_ttft = float(np.mean([cb.ttft[r] for r in rids]))
+    log(f"[continuous] ContinuousBatcher: {sum(n_news)} tokens in {wall:.3f} s = "
+        f"{cont_tps:,.1f} generated tokens/s; mean time to first token (ready on the device) "
+        f"{cont_ttft * 1e3:.1f} ms; {steps} decode steps, {stats['decode_replays']} graph "
+        f"replays, {stats['eager_decodes']} eager, {wall / steps * 1e3:.2f} ms per step() with "
+        f"admissions; mean occupancy {stats['mean_occupancy']:.3f}; bucket hits "
+        f"{stats['bucket_hits']}, misses {stats['bucket_misses']}; launches {launches}; "
+        f"peak memory {peak_gb:.2f} GB")
+
+    # the baseline: the same trace through lock-step waves
+    wb = WaveBatcher(params, cfg, CB_SLOTS, CB_MAX_LEN)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wave_rids = [wb.submit(p, n) for p, n in zip(prompts, n_news)]
+    wb.run_until_done()
+    wave_wall = time.perf_counter() - t0
+    if any(len(wb.done[r]) != n for r, n in zip(wave_rids, n_news)):
+        raise AssertionError("WaveBatcher did not serve every request in full")
+    wave_tps = sum(n_news) / wave_wall
+    wave_ttft = float(np.mean([wb.ttft[r] for r in wave_rids]))
+    log(f"[continuous] WaveBatcher: {wave_wall:.3f} s = {wave_tps:,.1f} generated tokens/s; mean "
+        f"time to first token (ready on the device) {wave_ttft * 1e3:.1f} ms; continuous / wave "
+        f"tokens/s {cont_tps / wave_tps:.2f}x, mean TTFT {cont_ttft / wave_ttft:.3f}x "
+        f"(not gated)")
+    del wb
+
+    with torch.no_grad():
+        # decode timings on the empty state: every shape is the pool's, so
+        # a step does the same work whether or not its slots are active
+        graph_ms = time_cuda(cb._decode, 20)
+        eager_ms = time_cuda(lambda: cb.decode_eager(*cb.state()), 5, warmup=1)
+        param_bytes = sum(t.nbytes for t in _tree.leaves(params))
+        bound_ms, _ = _bound(param_bytes + pool_gb * 1e9, 0.0, card)
+        log(f"[continuous] decode step ({CB_SLOTS} slots): CUDA graph replay {graph_ms:.3f} ms, "
+            f"the same step eagerly {eager_ms:.3f} ms; bound {bound_ms:.3f} ms (the weights' "
+            f"{param_bytes / 1e9:.2f} GB and the pools' {pool_gb:.2f} GB read once at "
+            f"{memory_rate(card) / 1e12:.2f} TB/s)")
+        profile_call("one graph decode step", cb._decode)
+        profile_call("one eager paged decode step", lambda: cb.decode_eager(*cb.state()))
+
+        check_paged_vs_dense(params, cfg, cb, prompts[0])
+        check_graph_vs_eager(cb, prompts[1:CB_SLOTS + 1])
+
+        agree = total = 0
+        for rid, p, n in zip(rids, prompts, n_news):
+            k = min(n, CB_AGREE_TOKENS)
+            res = generate(params, cfg, p[None], n_new=k)
+            agree += int((res.tokens[0] == done[rid][:k]).sum())
+            total += k
+        log(f"[continuous] greedy tokens vs one-at-a-time generate(): {agree}/{total} agree "
+            f"(first {CB_AGREE_TOKENS} of each request; not gated)")
+    del cb, params
+    return {"launches": launches}
+
+
+def check_paged_vs_dense(params, cfg, cb, prompt) -> None:
+    """One request admitted alone and stepped 4 times; its next logits from
+    the paged caches against the dense-cache route (prefill + decode_step of
+    the same tokens), both bf16. Tolerance as check_prefill: twice the dense
+    route's distance from a float32 forward of the same weights, plus 1e-5."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.models import model as Mo
+
+    rid = cb.submit(prompt, 16)
+    for _ in range(4):
+        cb.step()
+    slot = next(s for s, f in enumerate(cb.slots) if f is not None and f.rid == rid)
+    caches = _tree.map(torch.clone, cb.caches)
+    paged = Mo.decode_step(params, cfg, caches, cb.cur[:, None].clone())[0][slot, -1]
+    del caches
+    fed = cb.out_toks[slot, :5].clone()   # the first token, then the 4 steps' tokens
+    tok = torch.from_numpy(prompt[None]).cuda()
+
+    def dense_route(p, c):
+        logits, caches = Mo.prefill(p, c, tok, max_len=len(prompt) + 8)
+        for t in range(5):
+            logits, caches = Mo.decode_step(p, c, caches, fed[None, t:t + 1])
+        return logits[0, -1]
+
+    dense = dense_route(params, cfg)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    p32 = _tree.map(lambda x: x.float(), params)
+    exact = dense_route(p32, cfg32)
+    del p32
+    e_pd = (paged - dense).abs().max().item()
+    e_df = (dense - exact).abs().max().item()
+    tol = 2 * e_df + 1e-5
+    log(f"[continuous] paged vs dense decode ({len(prompt)}-token prompt, 4 steps, |logit| ≤ "
+        f"{exact.abs().max().item():.3f}): max|err| {e_pd:.4g} (tol {tol:.4g}); vs float32: "
+        f"paged {(paged - exact).abs().max().item():.4g}, dense {e_df:.4g}; argmax "
+        f"{'agrees' if int(paged.argmax()) == int(dense.argmax()) else 'differs'}")
+    if not bool(torch.isfinite(paged).all()) or e_pd > tol:
+        raise AssertionError(f"paged decode off the dense route: {e_pd} > {tol}")
+    cb.run_until_done()
+
+
+def check_graph_vs_eager(cb, prompts) -> None:
+    """Fill every slot, then one decode step through the graph against the
+    same step run eagerly on a copy of the state: equal bit for bit (the
+    pools' dump page, garbage by design, left out)."""
+    import torch
+
+    from repro_torch import _tree
+
+    for p in prompts:
+        cb.submit(p, 8)
+    cb.step()                                     # admits them, one decode
+    active = sum(f is not None for f in cb.slots)
+    twin = _tree.map(torch.clone, cb.state())
+    cb.step()                                     # the graph
+    cb.decode_eager(*twin)
+    torch.cuda.synchronize()
+    dump, n = cb.pool.dump, 0
+    for got, want in zip(_tree.leaves(cb.state()), _tree.leaves(twin)):
+        if got.is_floating_point() and got.dim() >= 4:
+            keep = [i for i in range(got.shape[-4]) if i != dump]
+            got, want = got[..., keep, :, :, :], want[..., keep, :, :, :]
+        if not torch.equal(got, want):
+            raise AssertionError(f"graph and eager decode differ in a state tensor of shape "
+                                 f"{tuple(got.shape)}")
+        n += got.numel()
+    log(f"[continuous] one graph decode step with {active} active slots equals the eager step "
+        f"bit for bit ({n:,} state elements, the dump page left out)")
+    cb.run_until_done()
+
+
 def check_prefill(params, cfg, tok) -> None:
     """The wave's last-position prefill logits through the kernel (the
     serving route) against the same prefill through the training path's
@@ -1660,8 +1919,10 @@ def _kernel_kind(name: str) -> str:
         return "flash_attention kernel (prefill attention)"
     if "quant_pack" in n:
         return "quant_pack kernel (int8 wire)"
+    if "scatter_gather" in n:
+        return "gather / scatter along a dim (paged attention's block tables)"
     if "indexselect" in n or "index_elementwise" in n:
-        return "neighbour gather x[perm] (bus)"
+        return "indexed gathers and writes (bus x[perm]; embedding, cache writes)"
     if any(s in n for s in ("gemm", "nvjet", "cutlass", "xmma")):
         return "matrix products"
     if "copy" in n:
@@ -1689,6 +1950,7 @@ def main() -> int:
     by_path.update(phase_sim())
     by_path.update(phase_telemetry())
     by_path["slice3_serve"] = phase_serve()["launches"]
+    by_path["slice7_continuous"] = phase_continuous(card)["launches"]
     for e in entries:
         e["launches_by_path"] = {path: n[e["name"]] for path, n in by_path.items()}
         e["launches"] = sum(e["launches_by_path"].values())

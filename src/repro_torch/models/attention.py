@@ -4,10 +4,21 @@ The port of the reference's ``repro/models/attention.py`` for the dense GQA
 family: ``dense_attention`` (with ``kv_valid``), ``blockwise_attention``
 (the online-softmax algorithm in plain PyTorch), ``attention_any``,
 ``KVCache``/``init_kv_cache``, ``slot_decode_attention``,
-``_ragged_kv_valid``, and ``gqa_apply`` with its cache-free (training),
-prefill and cached-decode branches. Tensors keep the reference's
-``(B, L, H, hd)`` layout. Ring and paged caches, MLA, cross-attention and
-the mesh decode come with later slices.
+``_ragged_kv_valid``, the paged cache of the continuous batcher
+(``PagedKVCache``, ``_paged_write``, ``paged_decode_attention``), and
+``gqa_apply`` with its cache-free (training), prefill, cached-decode and
+paged-decode branches. Tensors keep the reference's ``(B, L, H, hd)``
+layout. Ring caches, MLA (and its paged cache), cross-attention and the
+mesh decode come with later slices.
+
+Paged decode keeps the reference's formulation: q is scored against the
+whole page pool, the block table gathers each slot's (NB, page) scores, and
+the probabilities scatter back into a pool-shaped buffer for the value
+product. Every shape is static (the pool, not a slot's length, sets them),
+so the decode step can be captured once as a CUDA graph; each pool is read
+once per step, in place, with no per-slot context copy and no
+``repeat_kv`` (q is grouped (Kh, G) instead). A block-table gather of each
+slot's pages would copy the context before reading it again.
 
 A long unmasked prefill goes through the hand-written flash kernel
 (``repro_torch.kernels.flash_attention.ops.attention``); training keeps
@@ -37,8 +48,9 @@ NEG_INF = -1e30   # finite: a fully masked row recovers where -inf gives NaN
 BLOCK_THRESHOLD = 1024   # kv length above which attention goes blockwise
 
 __all__ = ["NEG_INF", "repeat_kv", "dense_attention", "blockwise_attention",
-           "attention_any", "KVCache", "init_kv_cache", "slot_decode_attention",
-           "gqa_defs", "gqa_apply", "f32_product"]
+           "attention_any", "KVCache", "init_kv_cache", "PagedKVCache",
+           "paged_decode_attention", "slot_decode_attention", "gqa_defs",
+           "gqa_apply", "f32_product"]
 
 
 def f32_product(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -191,6 +203,69 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype
                    torch.zeros(shape, dtype=dtype, device=device), 0)
 
 
+class PagedKVCache(NamedTuple):
+    """Block-table paged KV cache: decode slots admit and retire independently.
+
+    Every slot carries its own length, so the continuous batcher can refill
+    a freed slot while the others keep decoding. Slot ``s``'s logical block
+    ``b`` lives in page ``block_tables[s, b]`` of the pools; retired slots
+    point their whole row at a reserved dump page, so their in-flight writes
+    never touch a reassigned page. A scanned segment stacks all four on a
+    leading layer dim.
+
+    ``gqa_apply`` writes each new token into the pools in place and never
+    advances ``lengths``: all layers share one position per slot, so the
+    batcher bumps it once per decode step (``kvcache.bump_lengths``)."""
+
+    k_pages: torch.Tensor       # (P, page, Kh, hd)
+    v_pages: torch.Tensor       # (P, page, Kh, hd)
+    block_tables: torch.Tensor  # (S, NB) int32: physical page per logical block
+    lengths: torch.Tensor       # (S,) int32: tokens cached per slot
+
+
+def _paged_write(pages: torch.Tensor, block_tables: torch.Tensor,
+                 lengths: torch.Tensor, new: torch.Tensor) -> None:
+    """Write one new token per slot at its logical position ``lengths[s]``,
+    in place. new: (S, 1, ...). Live slots own distinct pages (the PagePool
+    invariant), so the writes never collide; retired slots all land on the
+    dump page, whose content is never read."""
+    page = pages.shape[1]
+    pos = lengths.long()
+    pid = torch.gather(block_tables.long(), 1, (pos // page)[:, None])[:, 0]
+    pages.index_put_((pid, pos % page), new[:, 0])
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths,
+                           scale=None) -> torch.Tensor:
+    """Paged decode attention, GQA-grouped, without ``repeat_kv``.
+
+    q: (S, 1, H, hd); pools (P, page, Kh, hd); block_tables (S, NB);
+    lengths (S,). Scores go against the entire pool (one product per kv
+    head); the block table gathers each slot's (NB, page) scores, the mask
+    keeps positions ``<= lengths[s]`` (the token just written included),
+    and the probabilities scatter back into a pool-shaped buffer for the
+    value product. Pages outside a slot's table get exact zeros; masked
+    probabilities that land on the shared dump page are zeros as well.
+    """
+    S, _, H, hd = q.shape
+    Pn, page, Kh, _ = k_pages.shape
+    NB = block_tables.shape[1]
+    G = H // Kh
+    scale = float(scale if scale is not None else 1.0 / np.sqrt(hd))
+    qg = q[:, 0].reshape(S, Kh, G, hd).transpose(0, 1)             # (Kh, S, G, hd)
+    # f32_product of the module note, cast after the gather it commutes with
+    s_all = torch.einsum("ksgd,cpkd->ksgcp", qg, k_pages)           # (Kh, S, G, P, page)
+    idx = block_tables.long()[None, :, None, :, None].expand(Kh, S, G, NB, page)
+    s = torch.gather(s_all, 3, idx).float().reshape(Kh, S, G, NB * page) * scale
+    valid = torch.arange(NB * page, device=q.device)[None, :] <= lengths[:, None]
+    s = s + torch.where(valid, 0.0, NEG_INF)[None, :, None, :]
+    p = torch.softmax(s, dim=-1).to(v_pages.dtype).reshape(Kh, S, G, NB, page)
+    p_pool = torch.zeros((Kh, S, G, Pn, page), dtype=v_pages.dtype, device=q.device)
+    p_pool.scatter_(3, idx, p)
+    o = torch.einsum("ksgcp,cpkd->ksgd", p_pool, v_pages)            # (Kh, S, G, hd)
+    return o.transpose(0, 1).reshape(S, 1, H, hd)
+
+
 def slot_decode_attention(q, k_ctx, v_ctx, kv_valid, scale=None) -> torch.Tensor:
     """One-token-per-slot decode attention with per-slot validity.
 
@@ -214,7 +289,8 @@ def _ragged_kv_valid(S: int, lengths: torch.Tensor, prompt_len: int,
     return ((idx < lengths[:, None]) | (idx >= prompt_len)) & (idx < pos + 1)
 
 
-def gqa_apply(params, cfg: ModelConfig, x, *, cache: KVCache | None = None,
+def gqa_apply(params, cfg: ModelConfig, x, *,
+              cache: KVCache | PagedKVCache | None = None,
               lengths: torch.Tensor | None = None, prompt_len: int | None = None):
     """Causal self-attention over (B, L, D) → (out, new cache or None).
 
@@ -224,13 +300,18 @@ def gqa_apply(params, cfg: ModelConfig, x, *, cache: KVCache | None = None,
     step. lengths: (B,) true prompt lengths of RIGHT-padded ragged batches:
     in prefill pad keys are masked out; in decode (with ``prompt_len``, the
     padded prompt width) rope positions are per row (len_b + t) and the pad
-    columns stay masked, so batched ragged decode matches unbatched.
+    columns stay masked, so batched ragged decode matches unbatched. With a
+    :class:`PagedKVCache` (decode only): one token per slot at the slot's
+    own position ``cache.lengths[s]``.
     """
     B, L, _ = x.shape
+    paged = isinstance(cache, PagedKVCache)
     q = torch.einsum("bld,dhk->blhk", x, params["wq"])
     k = torch.einsum("bld,dhk->blhk", x, params["wk"])
     v = torch.einsum("bld,dhk->blhk", x, params["wv"])
-    if cache is not None and lengths is not None and L == 1:
+    if paged:
+        q_pos = cache.lengths[:, None]          # (S, 1) per-slot positions
+    elif cache is not None and lengths is not None and L == 1:
         # token t of row b sits at column prompt_len + t, position len_b + t
         q_pos = (cache.pos - (prompt_len - lengths))[:, None]
     else:
@@ -242,6 +323,16 @@ def gqa_apply(params, cfg: ModelConfig, x, *, cache: KVCache | None = None,
     if cache is None:
         o = attention_any(q, k, v, 0, causal=True)
         return torch.einsum("blhk,hkd->bld", o, params["wo"]), None
+
+    if paged:
+        if L != 1:
+            raise ValueError("a paged KV cache is decode-only (admission scatters "
+                             "a dense prefill into it)")
+        _paged_write(cache.k_pages, cache.block_tables, cache.lengths, k)
+        _paged_write(cache.v_pages, cache.block_tables, cache.lengths, v)
+        o = paged_decode_attention(q, cache.k_pages, cache.v_pages, cache.block_tables,
+                                   cache.lengths)
+        return torch.einsum("blhk,hkd->bld", o, params["wo"]), cache
 
     if L > 1:
         # prefill: the cache is empty (pos 0); right-padded ragged prompts

@@ -4,7 +4,8 @@ The port of the reference's ``repro/models/model.py`` for the dense family
 (granite): ``model_defs``, ``init``, ``forward`` (with or without KV
 caches), ``logits_from_hidden``, ``cross_entropy_chunked``, ``loss_fn``,
 ``init_cache``, ``prefill`` and ``decode_step``, all functions over a params
-tree. KV caches are written in place (``attention.KVCache``).
+tree. KV caches are written in place (``attention.KVCache``, and for decode
+the continuous batcher's ``attention.PagedKVCache``).
 
 Layers are grouped into segments as in the reference. A scanned segment
 (``cfg.scan_layers``, what the full configs use) stacks its leaves on a
@@ -119,10 +120,19 @@ def _embed(params, cfg: ModelConfig, tokens):
     return params["embed"][tokens.long()].to(getattr(torch, cfg.compute_dtype))
 
 
+def _layer_view(cache, li: int):
+    """Layer ``li`` of a stacked cache: views into its storage."""
+    if isinstance(cache, attn_lib.PagedKVCache):
+        return attn_lib.PagedKVCache(cache.k_pages[li], cache.v_pages[li],
+                                     cache.block_tables[li], cache.lengths[li])
+    return attn_lib.KVCache(cache.k[li], cache.v[li], cache.pos)
+
+
 def forward(params, cfg: ModelConfig, tokens, *, caches: list | None = None,
             lengths=None, prompt_len: int | None = None):
     """Decoder forward over (B, L) tokens → (final-norm hidden (B, L, D),
-    new caches or None). ``caches`` (from :func:`init_cache`) are written in
+    new caches or None). ``caches`` (from :func:`init_cache`, or paged ones
+    from ``serving.kvcache.init_paged_caches`` for decode) are written in
     place; lengths/prompt_len as in ``attention.gqa_apply``."""
     _check_supported(cfg)
     x = _embed(params, cfg, tokens)
@@ -134,12 +144,12 @@ def forward(params, cfg: ModelConfig, tokens, *, caches: list | None = None,
             bp = _tree.map(lambda a: a[li], sp) if seg.scanned else sp[li]
             c = None
             if cache_s is not None:   # a layer of a stacked cache is a view into it
-                c = (attn_lib.KVCache(cache_s.k[li], cache_s.v[li], cache_s.pos)
-                     if seg.scanned else cache_s[li])
+                c = _layer_view(cache_s, li) if seg.scanned else cache_s[li]
             x, nc = _block_apply(bp, cfg, x, c, lengths, prompt_len)
             seg_new.append(nc)
         if cache_s is not None and seg.scanned:
-            seg_new = attn_lib.KVCache(cache_s.k, cache_s.v, seg_new[-1].pos)
+            seg_new = (cache_s if isinstance(cache_s, attn_lib.PagedKVCache)
+                       else attn_lib.KVCache(cache_s.k, cache_s.v, seg_new[-1].pos))
         new_caches.append(seg_new)
     h = L.rmsnorm_apply(params["out_norm"], x, cfg.norm_eps)
     return h, (new_caches if caches is not None else None)
@@ -227,6 +237,8 @@ def decode_step(params, cfg: ModelConfig, caches, token, *, lengths=None,
 
     lengths/prompt_len continue a ragged prefill: rope positions per row run
     lengths[b], lengths[b]+1, ... and the original pad columns stay masked.
+    Omit both when decoding against paged caches: per-slot positions come
+    from the caches' own lengths.
     """
     h, new_caches = forward(params, cfg, token, caches=caches, lengths=lengths,
                             prompt_len=prompt_len)

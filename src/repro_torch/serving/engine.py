@@ -10,13 +10,17 @@ host at the end, as in the reference. The KV caches are written in place.
 Greedy decoding is ``argmax`` (the first maximum, as in JAX). With
 ``temperature > 0`` tokens are drawn from a ``torch.Generator`` seeded by
 ``seed``: deterministic for a seed, but not the numbers ``jax.random``
-draws. ``ContinuousBatcher`` and the paged caches are not ported yet
-(ROADMAP queue 1, item 15).
+draws. The continuous batcher over paged caches is
+``repro_torch.serving.batcher.ContinuousBatcher``; ``WaveBatcher`` stays as
+its baseline. Both batchers take a request's time to first token (``ttft``)
+at the same point, when its first token is ready on the device
+(:class:`FirstTokenClock`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+import time
+from typing import Any, Callable, Iterable
 
 import numpy as np
 import torch
@@ -30,7 +34,7 @@ from repro_torch.train import checkpoint as ckpt_lib
 PyTree = Any
 
 __all__ = ["load_consensus_params", "make_serve_step", "GenerationResult",
-           "generate", "WaveBatcher"]
+           "generate", "WaveBatcher", "FirstTokenClock"]
 
 
 def load_consensus_params(path: str, cfg: ModelConfig, *,
@@ -85,7 +89,8 @@ class GenerationResult:
 @torch.no_grad()
 def generate(params, cfg: ModelConfig, prompt, *, n_new: int,
              max_len: int | None = None, temperature: float = 0.0,
-             seed: int = 0, lengths=None) -> GenerationResult:
+             seed: int = 0, lengths=None,
+             on_first_token: Callable[[], None] | None = None) -> GenerationResult:
     """Prefill the prompt and decode n_new tokens (greedy or sampled).
 
     ``prompt`` (B, Lp) and ``lengths`` may be numpy arrays or tensors; they
@@ -93,7 +98,8 @@ def generate(params, cfg: ModelConfig, prompt, *, n_new: int,
     ragged prompts: pad keys are masked out of prefill attention, per-row
     rope positions continue from each row's real length, and decoding starts
     from each row's last real token. The decode step after the last token
-    is not run: its logits would be discarded.
+    is not run: its logits would be discarded. ``on_first_token`` is called
+    once the first tokens are queued on the device (a batcher's TTFT mark).
     """
     dev = params["embed"].device
     prompt = to_device(prompt, dev)
@@ -114,6 +120,8 @@ def generate(params, cfg: ModelConfig, prompt, *, n_new: int,
             nxt = torch.argmax(logits, dim=-1)
         toks.append(nxt)
         lps.append(torch.gather(lp, -1, nxt[:, None])[:, 0])
+        if t == 0 and on_first_token is not None:
+            on_first_token()
         if t + 1 < n_new:
             logits, caches = M.decode_step(
                 params, cfg, caches, nxt[:, None], lengths=lengths,
@@ -123,11 +131,56 @@ def generate(params, cfg: ModelConfig, prompt, *, n_new: int,
                             torch.stack(lps, dim=1).cpu().numpy())
 
 
+class FirstTokenClock:
+    """When each request's first token is ready on the device, on the host's
+    ``time.perf_counter`` clock, with no sync on the serving path.
+
+    ``mark`` records one CUDA event behind the work that makes a group's
+    first tokens; ``read``, called once the host has synced past it (a
+    batcher's transfer of finished tokens), turns the event into host time
+    through an anchor event recorded on an idle device. On the CPU the work
+    is done when ``mark`` runs, so ``mark`` reads the host clock."""
+
+    def __init__(self, dev: torch.device):
+        self.dev = torch.device(dev)
+        self._marks: dict[int, Any] = {}
+        self.anchor()
+
+    def anchor(self) -> None:
+        """Tie the device's event clock to the host's (one sync)."""
+        if self.dev.type != "cuda":
+            return
+        torch.cuda.synchronize(self.dev)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self.dev))
+        ev.synchronize()
+        self._anchor = (ev, time.perf_counter())
+
+    def mark(self, rids: Iterable[int]) -> None:
+        if self.dev.type == "cuda":
+            at = torch.cuda.Event(enable_timing=True)
+            at.record(torch.cuda.current_stream(self.dev))
+        else:
+            at = time.perf_counter()
+        for rid in rids:
+            self._marks[rid] = at
+
+    def read(self, rid: int) -> float:
+        """The host time at which ``rid``'s mark was reached (drops it)."""
+        at = self._marks.pop(rid)
+        if isinstance(at, float):
+            return at
+        at.synchronize()                  # already past: returns at once
+        ev, t = self._anchor
+        return t + ev.elapsed_time(at) / 1e3
+
+
 @dataclasses.dataclass
 class _Request:
     rid: int
     prompt: np.ndarray
     n_new: int
+    t_submit: float
 
 
 class WaveBatcher:
@@ -135,6 +188,8 @@ class WaveBatcher:
     waves, RIGHT-padded to the wave's longest prompt, prefilled together and
     decoded in lock-step (one shared cache position per wave). Ragged waves
     pass per-row ``lengths`` so pad positions never leak into attention.
+    ``ttft[rid]``: seconds from submit until the wave's prefill has made the
+    request's first token on the device.
     """
 
     def __init__(self, params, cfg: ModelConfig, batch_slots: int, max_len: int,
@@ -143,11 +198,14 @@ class WaveBatcher:
         self.B, self.max_len, self.pad_id = batch_slots, max_len, pad_id
         self.queue: list[_Request] = []
         self.done: dict[int, np.ndarray] = {}
+        self.ttft: dict[int, float] = {}
+        self._clock = FirstTokenClock(params["embed"].device)
         self._rid = 0
 
     def submit(self, prompt: np.ndarray, n_new: int) -> int:
         self._rid += 1
-        self.queue.append(_Request(self._rid, np.asarray(prompt), n_new))
+        self.queue.append(_Request(self._rid, np.asarray(prompt), n_new,
+                                   time.perf_counter()))
         return self._rid
 
     def _next_wave(self) -> list[_Request]:
@@ -167,9 +225,11 @@ class WaveBatcher:
         ragged = bool((lens != Lp).any())
         res = generate(self.params, self.cfg, prompts, n_new=n_new,
                        max_len=min(self.max_len, Lp + n_new),
-                       lengths=lens if ragged else None)
+                       lengths=lens if ragged else None,
+                       on_first_token=lambda: self._clock.mark(r.rid for r in wave))
         for i, r in enumerate(wave):
             self.done[r.rid] = res.tokens[i, : r.n_new]
+            self.ttft[r.rid] = self._clock.read(r.rid) - r.t_submit
 
     def run_until_done(self) -> dict[int, np.ndarray]:
         while self.queue:

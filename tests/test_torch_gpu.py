@@ -14,6 +14,8 @@ and bf16 besides to one bf16 ulp of the plain value plus 1e-4 element by
 element, as ``chip_smoke.py`` holds it (both sides round a float32 result
 once to bf16).
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -478,3 +480,120 @@ def test_fused_mix_range_encloses_the_kernel_in_a_profile(cuda, tmp_path):
     inside = lambda t, r: r["ts"] <= t <= r["ts"] + r["dur"]
     assert (launch and any(inside(launch[0]["ts"], r) for r in host)) or \
         any(inside(kernels[0]["ts"], r) for r in device)
+
+
+# ---------------------------------------------------------------------------
+# Continuous batching: the decode step as one CUDA graph
+# ---------------------------------------------------------------------------
+
+
+def _continuous(cuda, dtype, temperature=0.0):
+    """A reduced granite (2 scanned layers) ContinuousBatcher on the card
+    with 4 requests in flight after one step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as Mo
+    from repro_torch.serving import ContinuousBatcher
+
+    cfg = get_config("granite-3-2b", reduced=True, scan_layers=True,
+                     param_dtype=dtype, compute_dtype=dtype)
+    params = Mo.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    cb = ContinuousBatcher(_tree.map(lambda x: x.to(cuda), params), cfg, 4, 32, page_size=4,
+                           max_new=8, temperature=temperature, seed=1)
+    rng = np.random.default_rng(0)
+    for n in (3, 9, 5, 12):
+        cb.submit(rng.integers(0, cfg.vocab_size, size=n).astype(np.int32), 8)
+    cb.step()
+    return cb
+
+
+def _equal_but_dump(a, b, dump):
+    """Leaf by leaf bit equality of two decode states; the pools' dump page
+    (garbage by design, written by every inactive slot) is left out."""
+    for x, y in zip(_tree.leaves(a), _tree.leaves(b)):
+        if x.is_floating_point() and x.dim() >= 4:
+            keep = [i for i in range(x.shape[-4]) if i != dump]
+            x, y = x[..., keep, :, :, :], y[..., keep, :, :, :]
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("temperature", [0.0, 1.0])
+def test_continuous_graph_step_equals_eager_step(cuda, dtype, temperature):
+    """One graph replay against the same step run eagerly on a copy of the
+    state (for sampling, from the same generator state): bit for bit."""
+    cb = _continuous(cuda, dtype, temperature)
+    st = cb.stats()
+    assert st["decode"] == "cuda graph" and st["decode_traces"] == 1
+    twin = _tree.map(torch.clone, cb.state())
+    gen_state = cb._gen.get_state()
+    cb.step()                                   # graph replay
+    cb._gen.set_state(gen_state)
+    cb.decode_eager(*twin)
+    torch.cuda.synchronize()
+    _equal_but_dump(cb.state(), twin, cb.pool.dump)
+    assert int(cb.n_gen.sum()) == 4 * 3         # the four slots advanced
+
+
+@pytest.mark.gpu
+def test_continuous_reset_keeps_the_captured_storage(cuda):
+    """warmup() resets the state in place: the tensors the graph captured
+    keep their storage, and the graph still decodes what eager decodes."""
+    cb = _continuous(cuda, "float32")
+    ptrs = [t.data_ptr() for t in _tree.leaves(cb.state())]
+    cb.run_until_done()
+    cb.warmup()
+    assert [t.data_ptr() for t in _tree.leaves(cb.state())] == ptrs
+    assert cb.stats()["decode_traces"] == 1
+    cb.submit(np.arange(1, 7, dtype=np.int32), 8)
+    cb.step()
+    twin = _tree.map(torch.clone, cb.state())
+    cb.step()
+    cb.decode_eager(*twin)
+    _equal_but_dump(cb.state(), twin, cb.pool.dump)
+    st = cb.stats()
+    assert (st["decode_replays"], st["eager_decodes"]) == (2, 0)
+
+
+@pytest.mark.gpu
+def test_first_token_clock_reads_the_device_time(cuda):
+    """FirstTokenClock puts a mark queued behind ~50 ms of device work at
+    the host time that work ended: after the host queued it, before the
+    host's sync returned, and not at the time of the mark's launch."""
+    from repro_torch.serving.engine import FirstTokenClock
+
+    clock = FirstTokenClock(cuda)
+    t0 = time.perf_counter()
+    torch.cuda._sleep(100_000_000)          # ~50 ms at the H100's clock
+    t_launch = time.perf_counter()
+    clock.mark([7])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    at = clock.read(7)
+    assert t0 < at <= t1 + 1e-3
+    assert at - t_launch > 0.5 * (t1 - t_launch)
+
+
+@pytest.mark.gpu
+def test_continuous_on_card_matches_cpu(cuda):
+    """The same requests through a batcher on the card and one on the CPU:
+    the same greedy tokens, logprobs within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as Mo
+    from repro_torch.serving import ContinuousBatcher
+
+    cfg = get_config("granite-3-2b", reduced=True)
+    params = Mo.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    rng = np.random.default_rng(3)
+    reqs = [(rng.integers(0, cfg.vocab_size, size=int(rng.integers(2, 11))).astype(np.int32),
+             int(rng.integers(1, 9))) for _ in range(6)]
+    out = []
+    for p in (params, _tree.map(lambda x: x.to(cuda), params)):
+        cb = ContinuousBatcher(p, cfg, 4, 32, page_size=4, max_new=8)
+        cb.warmup()
+        rids = [cb.submit(t, n) for t, n in reqs]
+        cb.run_until_done()
+        out.append([(cb.done[r], cb.done_logprobs[r]) for r in rids])
+    for (t_cpu, l_cpu), (t_gpu, l_gpu) in zip(*out):
+        assert np.array_equal(t_cpu, t_gpu)
+        np.testing.assert_allclose(l_gpu, l_cpu, atol=1e-4)
