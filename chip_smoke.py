@@ -105,8 +105,29 @@ through these phases, in order, and exits non-zero at the first failure:
    profiled graph step by kernel kind, and the greedy tokens' agreement
    with one-at-a-time ``generate()`` (first 16 of each request; not gated:
    random bf16 weights give near-flat logits).
-13. report — one JSON line of kernels, the nvidia-smi line, and last the
-   ``{"ok": true, ...}`` line.
+13. slice 8 — the other model families at their published widths, bf16,
+   random weights drawn on the card, one model at a time: a
+   ``WaveBatcher`` wave each whose prompt takes the flash kernel (gemma-2b
+   4 x 3072 + 32 and deepseek-7b 2 x 3072 + 32 at full depth;
+   chameleon-34b at 8 layers and nemotron-4-340b at 2, 2 x 2048 + 16;
+   mixtral-8x7b at 8 layers, 2 x 6144 + 64 over its 4096-token window).
+   Checks one flash_attention launch per layer and nothing else, every
+   request in full, the same tokens and finite logprobs through
+   ``generate()``, the last-position prefill logits through the kernel
+   against the blockwise route within twice the blockwise route's distance
+   from a float32 forward (each layer upcast only while it runs) plus
+   1e-5, a profiled prefill running the wgmma kernel once per layer and
+   never the float32 one, and for mixtral 8 decode steps through the ring
+   cache against a full-length cache with the window mask, within twice
+   the full route's float32 distance plus 1e-5. Then gemma-2b through a
+   ``ContinuousBatcher`` (4 slots, ``max_len`` 512, buckets up to 256, 8
+   requests): every request in full, one graph replay per decode,
+   ``bucket_misses == 0``, graph step = eager step bit for bit. Last, 5
+   ``train()`` steps each of reduced mixtral and gemma in bf16 on a ring
+   of 4 (fused bus): finite losses, one gossip_mix launch per step, a
+   fused step against an einsum step within the bf16 tolerance.
+14. report — the run's time, one JSON line of kernels, the nvidia-smi line,
+   and last the ``{"ok": true, ...}`` line.
 
 ``--collect`` runs ``gc.collect()`` before each part (and the microbatch=2
 step), so each part's peak memory can be compared with the default run's,
@@ -118,7 +139,11 @@ kernel-test tolerances, float32 atol 2e-5 and bf16 3e-2, and holds bf16
 besides to one bf16 ulp of the plain value plus 1e-4, element by element;
 at the serving prefill's shape it runs both dtypes, each on its own kernel
 (bf16: wgmma tensor cores and TMA; float32: CUDA cores), and prints each
-one's time and TFLOP/s.
+one's time and TFLOP/s. Its cases cover head dims 16 to 256; it also times
+the bf16 kernel at slice 8's prefill shapes (gemma-2b's, nemotron's and
+mixtral's windowed one) beside its bound, its plain version and
+``scaled_dot_product_attention`` (with an explicit boolean mask for the
+window, which that call has no argument for).
 """
 from __future__ import annotations
 
@@ -165,6 +190,21 @@ PAPER_RTOL = 1e-4       # card vs CPU curves, fused vs einsum losses (PERF.md §
 SIM_ROUNDS = 4          # simulator rounds per run at full width
 TEL_ROUNDS = 2
 SNAP_DEPTH = 4          # snapshot planes of the barrier protocols (2.75 GB each)
+# Slice 8 (PERF.md, Cells): the families at their published widths, cut in
+# depth so each model and its wave stay well inside 80 GB and the time limit:
+# (config, layers kept (None: all), wave of requests = slots, prompt, new tokens)
+S8_SERVE = [
+    ("gemma-2b", None, 4, 3072, 32),
+    ("deepseek-7b", None, 2, 3072, 32),
+    ("chameleon-34b", 8, 2, 2048, 16),
+    ("nemotron-4-340b", 2, 2, 2048, 16),
+    ("mixtral-8x7b", 8, 2, 6144, 64),
+]
+S8_RING_STEPS = 8       # mixtral decode steps past the window: ring vs full-length cache
+S8_CB_SLOTS, S8_CB_MAX_LEN, S8_CB_PAGE, S8_CB_BUCKET = 4, 512, 16, 256
+S8_CB_REQUESTS = 8
+S8_TRAIN = ("mixtral-8x7b", "gemma-2b")   # reduced widths: a correctness check
+S8_TRAIN_BATCH, S8_TRAIN_SEQ = 4, 64
 # ``--collect`` runs gc.collect() before each part, as the script did while
 # the tree helpers held leaves in reference cycles: each part's peak with
 # and without it shows whether a cycle holds device memory again.
@@ -514,6 +554,23 @@ FLASH_CASES = [
     (1, 130, 130, 4, 1, 128, False, 17),
     (1, 150, 70, 4, 2, 32, True, 5),      # rows no key reaches: the mean of v
     (1, 200, 130, 2, 1, 64, False, 40),
+    # head dims 192 and 256 (nemotron, gemma): MQA, GQA, windows, lengths off
+    # the 64-row kv tile, Lq != Lkv both ways, rows no key reaches
+    (1, 200, 200, 8, 1, 256, True, None),
+    (2, 333, 333, 4, 2, 192, True, 100),
+    (1, 150, 300, 4, 1, 256, True, 64),
+    (1, 300, 150, 4, 2, 192, False, None),
+    (1, 129, 129, 2, 1, 192, True, None),
+    (1, 385, 385, 2, 2, 256, True, 200),
+    (1, 150, 70, 4, 2, 256, True, 5),
+    (1, 200, 130, 2, 1, 192, False, 40),
+]
+# The flash kernel's shapes on slice 8's prefill paths (B, L, H, Hkv, hd,
+# window): gemma-2b's wave, nemotron-4-340b's, mixtral-8x7b's windowed one.
+FLASH_PATHS = [
+    ("gemma-2b", 4, 3072, 8, 1, 256, None),
+    ("nemotron-4-340b", 2, 2048, 96, 8, 192, None),
+    ("mixtral-8x7b", 2, 6144, 32, 8, 128, 4096),
 ]
 
 
@@ -603,12 +660,66 @@ def phase_flash_check(card: str) -> dict:
         f"scaled_dot_product_attention {library_ms:.3f} ms")
     del q, k, v
     torch.cuda.empty_cache()
+    paths = [_flash_path(card, gen, *shape) for shape in FLASH_PATHS]
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bf16.cuh",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-            "float32_ms": ms32}
+            "float32_ms": ms32, "path_shapes": paths}
+
+
+def _causal_pairs(L: int, window: int | None) -> int:
+    """(q, k) pairs a causal (windowed) mask keeps over L positions."""
+    if window is None:
+        return L * (L + 1) // 2
+    w = min(window, L)
+    return w * (w + 1) // 2 + (L - w) * w
+
+
+def _flash_path(card: str, gen, name, B, L, H, Hkv, hd, window) -> dict:
+    """The bf16 kernel at one path shape of slice 8: held to its plain
+    version, timed beside it, its bound and one library call. The library
+    has no window argument, so the windowed shape's library time is
+    scaled_dot_product_attention with an explicit boolean mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import attention_reference, flash_attention
+
+    q, k, v = _attn_inputs(B, L, L, H, Hkv, hd, torch.bfloat16, gen)
+    shape = (B, L, L, H, Hkv, hd, True, window)
+    ref = attention_reference(q, k, v, causal=True, window=window)
+    err = _flash_err(flash_attention(q, k, v, causal=True, window=window), ref,
+                     torch.bfloat16, shape)
+    del ref
+    torch.cuda.empty_cache()
+    ms = time_cuda(lambda: flash_attention(q, k, v, causal=True, window=window), iters=10)
+    plain_ms = time_cuda(lambda: attention_reference(q, k, v, causal=True, window=window),
+                         iters=1, warmup=1)
+    if window is None:
+        library = "scaled_dot_product_attention(is_causal, enable_gqa)"
+        library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), iters=10)
+    else:
+        library = "scaled_dot_product_attention(attn_mask=boolean causal window mask, enable_gqa)"
+        i = torch.arange(L, device="cuda")
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True), iters=10)
+        del mask
+    ops = 4 * B * H * hd * _causal_pairs(L, window)
+    moved = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
+    bound_ms, bound_by = _bound(moved, ops, card, peak=BF16_PEAK)
+    log(f"[kernel] flash_attention bf16 at {name}'s prefill q {(B, L, H, hd)} k/v "
+        f"{(B, L, Hkv, hd)} causal window {window}: max|err| {err:.3g} vs plain; "
+        f"{ms:.3f} ms, {ops / ms / 1e9:.1f} TFLOP/s (bound {bound_ms:.3f} ms by {bound_by}); "
+        f"plain version {plain_ms:.3f} ms; {library} {library_ms:.3f} ms")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return {"path": name, "shape": [B, L, H, Hkv, hd], "window": window, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "library": library}
 
 
 def slice_config():
@@ -1559,7 +1670,7 @@ def phase_serve() -> dict:
             f"{step_s * 1e3:.2f} ms/step ((run - prefill) / {NEW_TOKENS - 1} over "
             f"{len(runs)} generate() runs), {SERVE_SLOTS / step_s:,.1f} generated tokens/s")
 
-        check_prefill(params, cfg, tok)
+        check_prefill(params, cfg, tok, SERVE_MAX_LEN, "serve")
         rows = profile_call("one prefill wave", lambda: Mo.prefill(params, cfg, tok,
                                                                    max_len=SERVE_MAX_LEN))
         check_flash_route(rows, cfg.n_layers)
@@ -1724,6 +1835,287 @@ def phase_continuous(card: str) -> dict:
     return {"launches": launches}
 
 
+def phase_slice8() -> dict:
+    """Slice 8: the dense variants, sliding windows and MoE. A: each family at
+    its published widths served through a WaveBatcher wave whose prompt takes
+    the flash kernel; B: gemma-2b through ContinuousBatcher; C: reduced-width
+    training of mixtral and gemma on the fused bus. Returns launches by path."""
+    t0 = time.perf_counter()
+    by_path = {}
+    for name, layers, slots, prompt_len, n_new in S8_SERVE:
+        by_path[f"slice8_serve_{name}"] = _s8_serve(name, layers, slots, prompt_len, n_new)
+    by_path["slice8_continuous_gemma-2b"] = _s8_continuous()
+    for name in S8_TRAIN:
+        by_path[f"slice8_train_{name}"] = _s8_train(name)
+    log(f"[slice8] the phase took {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
+def _s8_serve(name, layers, slots, prompt_len, n_new) -> dict:
+    """One WaveBatcher wave of ``slots`` requests (the main path, its
+    launches counted), then generate() of the same wave (same tokens, finite
+    logprobs), the kernel-vs-blockwise prefill check, a profiled prefill
+    (the wgmma kernel once per layer, no float32 one) and, for a windowed
+    config, the ring cache against a full-length cache."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import token_stream
+    from repro_torch.models import model as Mo
+    from repro_torch.models.params import count_params
+    from repro_torch.serving import WaveBatcher, generate
+
+    tag = f"slice8 {name}"
+    fresh_gb(f"{name}", tag)
+    cfg = get_config(name) if layers is None else get_config(name, n_layers=layers)
+    t0 = time.perf_counter()
+    params = Mo.init(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_gb = torch.cuda.max_memory_allocated() / 1e9
+    prompts, _ = token_stream(S=slots, seq_len=prompt_len - 1, vocab=cfg.vocab_size, seed=1)
+    log(f"[{tag}] layers {cfg.n_layers} of {get_config(name).n_layers}, d_model={cfg.d_model} "
+        f"heads={cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim} {cfg.mlp_type} d_ff={cfg.d_ff} "
+        f"experts={cfg.n_experts} window={cfg.window} vocab={cfg.vocab_size} "
+        f"{cfg.param_dtype}: {count_params(Mo.model_defs(cfg)):,} params, initialised on the "
+        f"card in {init_s:.1f} s (peak {init_gb:.2f} GB); a wave of {slots} x {prompt_len} "
+        f"prompt + {n_new} new tokens")
+
+    wb = WaveBatcher(params, cfg, slots, prompt_len + n_new)
+    rids = [wb.submit(p, n_new) for p in prompts]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    wb.run_wave()
+    wave_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches != {"gossip_mix": 0, "quant_pack": 0, "flash_attention": cfg.n_layers}:
+        raise AssertionError(f"{name}'s wave launched {launches}, want one flash_attention "
+                             f"per layer ({cfg.n_layers}) and nothing else")
+    if sorted(wb.done) != rids or any(len(wb.done[r]) != n_new for r in rids):
+        raise AssertionError(f"{name}: WaveBatcher did not serve every request in full")
+    log(f"[{tag}] wave: {wave_s * 1e3:.1f} ms, {slots * n_new / wave_s:,.1f} generated tokens/s "
+        f"end to end, flash_attention launches {launches['flash_attention']} (one per layer), "
+        f"peak memory {peak_gb:.2f} GB")
+
+    tok = torch.from_numpy(prompts).cuda()
+    with torch.no_grad():
+        res = generate(params, cfg, prompts, n_new=n_new)
+        if not np.isfinite(res.logprobs).all():
+            raise AssertionError(f"{name}: non-finite logprobs")
+        if not all(np.array_equal(res.tokens[i], wb.done[r]) for i, r in enumerate(rids)):
+            raise AssertionError(f"{name}: generate() and WaveBatcher disagree")
+        log(f"[{tag}] the wave again through generate(): the same tokens, logprobs finite "
+            f"(mean {res.logprobs.mean():.4f})")
+        check_prefill(params, cfg, tok, prompt_len + n_new, tag)
+        rows = profile_call(f"{name} prefill wave",
+                            lambda: Mo.prefill(params, cfg, tok, max_len=prompt_len + n_new))
+        check_flash_route(rows, cfg.n_layers, tag)
+        if cfg.window:
+            fed = torch.from_numpy(res.tokens[:, :S8_RING_STEPS]).cuda()
+            _s8_check_ring(params, cfg, tok, fed, tag)
+    del params, wb, res
+    return launches
+
+
+def _f32_forward(params, cfg, tok, caches=None):
+    """(float32 logits of the last position, new per-layer caches or None):
+    the bf16 weights run in float32, each layer's weights upcast only while
+    it runs, the vocab in chunks (a float32 copy of nemotron's or mixtral's
+    cut model would not fit beside the bf16 one). ``caches``: one float32
+    KVCache per layer, in layer order."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as Ly
+    from repro_torch.models import model as Mo
+
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    x = Mo._embed(params, cfg32, tok)
+    new, i = [], 0
+    for seg, sp in zip(Mo.plan_segments(cfg), params["segments"]):
+        for li in range(seg.length):
+            layer = _tree.map(lambda a: a[li], sp) if seg.scanned else sp[li]
+            bp = _tree.map(lambda a: a.float(), layer)
+            x, c, _ = Mo._block_apply(bp, cfg32, seg, x, caches[i] if caches else None)
+            new.append(c)
+            i += 1
+            del bp
+    h = Ly.rmsnorm_apply({"scale": params["out_norm"]["scale"].float()}, x[:, -1:],
+                         cfg.norm_eps)
+    W = Mo._unembed(params, cfg)
+    logits = torch.cat([A.f32_product("bld,dv->blv", h, W[:, j:j + 32768].float())
+                        for j in range(0, W.shape[1], 32768)], dim=-1)
+    return logits[:, -1], (new if caches else None)
+
+
+def _s8_check_ring(params, cfg, tok, fed, tag) -> None:
+    """A windowed model's prompt (longer than the window: the ring wraps in
+    the prefill) and ``fed``'s decode steps (wrapping it again) through the
+    ring cache, against the same steps through a full-length cache with the
+    window mask (the reference's non-ring branch), both bf16. Tolerance:
+    twice the full route's distance from a float32 run of the same steps,
+    plus 1e-5."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.models import attention as A
+    from repro_torch.models import model as Mo
+
+    B, Lp = tok.shape
+    steps = fed.shape[1]
+    max_len = Lp + steps
+    logits, ring = Mo.prefill(params, cfg, tok, max_len=max_len)
+    if _tree.leaves(ring)[0].shape[-3] != cfg.window or Lp < cfg.window:   # k: ..., S, Kh, hd
+        raise AssertionError(f"{tag}: the check wants a ring cache that wraps in the prefill")
+    for t in range(steps):
+        logits, ring = Mo.decode_step(params, cfg, ring, fed[:, t:t + 1])
+    got = logits[:, -1]
+    del ring
+    full = Mo.init_cache(params, dataclasses.replace(cfg, window=None), B, max_len)
+    h, full = Mo.forward(params, cfg, tok, caches=full)
+    for t in range(steps):
+        logits, full = Mo.decode_step(params, cfg, full, fed[:, t:t + 1])
+    want = logits[:, -1]
+    del full, h
+    n_layers = cfg.n_layers
+    c32 = [A.init_kv_cache(cfg, B, max_len, torch.float32, tok.device) for _ in range(n_layers)]
+    exact, c32 = _f32_forward(params, cfg, tok, c32)
+    for t in range(steps):
+        exact, c32 = _f32_forward(params, cfg, fed[:, t:t + 1], c32)
+    del c32
+    e_rf = (got - want).abs().max().item()
+    e_ff = (want - exact).abs().max().item()
+    tol = 2 * e_ff + 1e-5
+    log(f"[{tag}] {Lp}-token prompt (window {cfg.window}) + {steps} decode steps: ring cache "
+        f"({cfg.window} slots) vs full-length cache max|err| {e_rf:.4g} (tol {tol:.4g}); vs "
+        f"float32: ring {(got - exact).abs().max().item():.4g}, full {e_ff:.4g}")
+    if not bool(torch.isfinite(got).all()) or e_rf > tol:
+        raise AssertionError(f"{tag}: ring decode off the full-length cache: {e_rf} > {tol}")
+
+
+def _s8_continuous() -> dict:
+    """gemma-2b (MQA at hd 256, scaled embeddings) through ContinuousBatcher:
+    the paged path and its CUDA graph. Gates: every request in full, one
+    graph replay per decode, bucket_misses == 0, graph step = eager step bit
+    for bit."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as Mo
+    from repro_torch.serving import ContinuousBatcher
+    from repro_torch.serving.batcher import default_buckets
+
+    tag = "slice8 continuous"
+    fresh_gb("gemma-2b continuous", tag)
+    cfg = get_config("gemma-2b")
+    params = Mo.init(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in rng.integers(20, S8_CB_BUCKET + 1, size=S8_CB_REQUESTS)]
+    n_news = [int(n) for n in rng.choice([16, 48], size=S8_CB_REQUESTS)]
+    buckets = default_buckets(S8_CB_PAGE, S8_CB_BUCKET)
+    cb = ContinuousBatcher(params, cfg, S8_CB_SLOTS, S8_CB_MAX_LEN, page_size=S8_CB_PAGE,
+                           max_new=max(n_news), buckets=buckets)
+    cb.warmup()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    rids = [cb.submit(p, n) for p, n in zip(prompts, n_news)]
+    cb.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    stats = cb.stats()
+    steps = len(cb._occupancy)
+    if sorted(cb.done) != rids or any(len(cb.done[r]) != n for r, n in zip(rids, n_news)):
+        raise AssertionError("gemma ContinuousBatcher did not serve every request in full")
+    if (stats["bucket_misses"], stats["decode"]) != (0, "cuda graph") or \
+            (stats["decode_replays"], stats["eager_decodes"]) != (steps, 0):
+        raise AssertionError(f"gemma ContinuousBatcher after the pass ({steps} decodes): {stats}")
+    if any(launches.values()):
+        raise AssertionError(f"gemma continuous serving launched {launches}")
+    if not all(np.isfinite(cb.done_logprobs[r]).all() for r in rids):
+        raise AssertionError("gemma continuous: non-finite logprobs")
+    log(f"[{tag}] gemma-2b, {S8_CB_SLOTS} slots, max_len {S8_CB_MAX_LEN}, buckets {buckets}: "
+        f"{S8_CB_REQUESTS} requests ({sum(n_news)} tokens) in {wall:.3f} s, {steps} decode "
+        f"steps, {stats['decode_replays']} graph replays, {stats['eager_decodes']} eager, "
+        f"bucket misses {stats['bucket_misses']}; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    with torch.no_grad():
+        check_graph_vs_eager(cb, prompts[:S8_CB_SLOTS])
+    del cb, params
+    return launches
+
+
+def _s8_train(name) -> dict:
+    """Five train() steps of the reduced config in bf16 on a ring of
+    M_WORKERS (fused bus): finite losses, one gossip_mix launch per step,
+    and a fused step against an einsum step within the bf16 tolerance."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import to_device
+    from repro_torch.core import topology as T
+    from repro_torch.core.decentralized import make_train_step, replicate_for_workers
+    from repro_torch.core.gossip import GossipSpec
+    from repro_torch.data import WorkerBatcher, pad_to_equal, random_split, token_stream
+    from repro_torch.models import model as Mo
+    from repro_torch.optim import momentum_sgd
+    from repro_torch.train import train
+
+    tag = f"slice8 train {name}"
+    fresh_gb(f"{name} training", tag)
+    cfg = get_config(name, reduced=True, param_dtype="bfloat16", compute_dtype="bfloat16")
+    params0 = replicate_for_workers(
+        Mo.init(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda"), M_WORKERS)
+    toks, _ = token_stream(S=M_WORKERS * S8_TRAIN_BATCH * 8, seq_len=S8_TRAIN_SEQ,
+                           vocab=cfg.vocab_size, seed=0)
+    batcher = WorkerBatcher((toks,), pad_to_equal(random_split(len(toks), M_WORKERS)),
+                            batch_size=S8_TRAIN_BATCH, seed=0)
+
+    def batches():
+        while True:
+            yield {"tokens": batcher.next()[0]}
+
+    def loss(p, b):
+        return Mo.loss_fn(p, cfg, b)
+
+    opt = momentum_sgd(LR, 0.9)
+    topo = T.undirected_ring(M_WORKERS)
+    spec = GossipSpec(topology=topo, backend="fused")
+    reset_launches()
+    state, hist = train(loss, params0, opt, batches(), steps=STEPS, gossip=spec,
+                        log_every=STEPS, device="cuda", verbose=False)
+    launches = read_launches()
+    if not all(math.isfinite(x) for x in hist.loss):
+        raise AssertionError(f"{tag}: non-finite loss {hist.loss}")
+    if launches != {"gossip_mix": STEPS, "quant_pack": 0, "flash_attention": 0}:
+        raise AssertionError(f"{tag}: {launches} in {STEPS} steps, want 1 gossip_mix per step")
+    batch = to_device({"tokens": batcher.next()[0]}, "cuda")
+    s_f, m_f = make_train_step(loss, opt, gossip=spec)(state, batch)
+    s_e, m_e = make_train_step(loss, opt, gossip=GossipSpec(topology=topo,
+                                                            backend="einsum"))(state, batch)
+    err, finite = _params_err(s_f.params, s_e.params)
+    if not finite or err > TOL["bfloat16"]:
+        raise AssertionError(f"{tag}: fused step vs einsum step max|err| {err}, finite {finite}")
+    log(f"[{tag}] {cfg.name} (d_model {cfg.d_model}, {cfg.n_layers} layers, experts "
+        f"{cfg.n_experts}, window {cfg.window}) bf16, M={M_WORKERS} ring, fused bus: losses "
+        f"{[round(x, 4) for x in hist.loss]}, gossip_mix launches {launches['gossip_mix']} in "
+        f"{STEPS} steps; fused vs einsum step params max|err| {err:.3g} (tol {TOL['bfloat16']}), "
+        f"losses {m_f.loss.item():.4f} / {m_e.loss.item():.4f}")
+    del state, s_f, s_e, params0
+    return launches
+
+
 def check_paged_vs_dense(params, cfg, cb, prompt) -> None:
     """One request admitted alone and stepped 4 times; its next logits from
     the paged caches against the dense-cache route (prefill + decode_step of
@@ -1799,7 +2191,7 @@ def check_graph_vs_eager(cb, prompts) -> None:
     cb.run_until_done()
 
 
-def check_prefill(params, cfg, tok) -> None:
+def check_prefill(params, cfg, tok, max_len: int, tag: str) -> None:
     """The wave's last-position prefill logits through the kernel (the
     serving route) against the same prefill through the training path's
     blockwise_attention, both bf16 on the card. Tolerance: twice the
@@ -1808,51 +2200,44 @@ def check_prefill(params, cfg, tok) -> None:
     routes round differently only inside attention, so a kernel as accurate
     as the blockwise route stays within it; a wrong kernel (mask, GQA head,
     tile edge) moves the logits by far more."""
-    import dataclasses
-
     import torch
 
-    from repro_torch import _tree
     from repro_torch.models import model as Mo
 
-    kernel = Mo.prefill(params, cfg, tok, max_len=SERVE_MAX_LEN)[0][:, -1]
+    kernel = Mo.prefill(params, cfg, tok, max_len=max_len)[0][:, -1]
     before = read_launches()["flash_attention"]
     h, _ = Mo.forward(params, cfg, tok)
     if read_launches()["flash_attention"] != before:
         raise AssertionError("the training path launched flash_attention")
     block = Mo.logits_from_hidden(params, cfg, h[:, -1:])[:, -1]
     del h
-    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
-    p32 = _tree.map(lambda x: x.float(), params)
-    h, _ = Mo.forward(p32, cfg32, tok)
-    exact = Mo.logits_from_hidden(p32, cfg32, h[:, -1:])[:, -1]
-    del h, p32
+    exact = _f32_forward(params, cfg, tok)[0]
     e_kb = (kernel - block).abs().max().item()
     e_bf = (block - exact).abs().max().item()
     e_kf = (kernel - exact).abs().max().item()
     finite = bool(torch.isfinite(kernel).all())
     tol = 2 * e_bf + 1e-5
-    log(f"[serve] last-position prefill logits (|logit| ≤ {exact.abs().max().item():.3f}): "
+    log(f"[{tag}] last-position prefill logits (|logit| ≤ {exact.abs().max().item():.3f}): "
         f"kernel vs blockwise max|err| {e_kb:.4g} (tol {tol:.4g}); vs float32: "
         f"kernel {e_kf:.4g}, blockwise {e_bf:.4g}; argmax agree "
         f"{int((kernel.argmax(-1) == block.argmax(-1)).sum())}/{kernel.shape[0]}")
     if not finite or e_kb > tol:
-        raise AssertionError(f"prefill through the kernel off the blockwise route: "
+        raise AssertionError(f"{tag}: prefill through the kernel off the blockwise route: "
                              f"{e_kb} > {tol} (finite {finite})")
 
 
-def check_flash_route(rows, n_layers: int) -> None:
+def check_flash_route(rows, n_layers: int, tag: str = "serve") -> None:
     """The profiled bf16 prefill ran the wgmma kernel once per layer and
     never the float32 CUDA-core kernel."""
     flash = [(name, count) for name, _, count in rows if "flash_attention_fwd" in name]
     if not rows:
-        log("[serve] flash_attention route of the prefill: not measured (no profile)")
+        log(f"[{tag}] flash_attention route of the prefill: not measured (no profile)")
         return
     launches = sum(count for _, count in flash)
     if launches != n_layers or any("wgmma" not in name for name, _ in flash):
         raise AssertionError(f"the bf16 prefill ran {flash}, want {n_layers} launches of "
                              f"the wgmma kernel and nothing else")
-    log(f"[serve] the profiled prefill ran {launches} launches of {flash[0][0][:60]} and "
+    log(f"[{tag}] the profiled prefill ran {launches} launches of {flash[0][0][:60]} and "
         f"none of the float32 kernel")
 
 
@@ -1937,6 +2322,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+    t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
     card = torch.cuda.get_device_name(0)
@@ -1951,11 +2337,13 @@ def main() -> int:
     by_path.update(phase_telemetry())
     by_path["slice3_serve"] = phase_serve()["launches"]
     by_path["slice7_continuous"] = phase_continuous(card)["launches"]
+    by_path.update(phase_slice8())
     for e in entries:
         e["launches_by_path"] = {path: n[e["name"]] for path, n in by_path.items()}
         e["launches"] = sum(e["launches_by_path"].values())
         if e["launches"] == 0:
             raise AssertionError(f"{e['name']} was never launched on the paths")
+    log(f"[report] every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": entries}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

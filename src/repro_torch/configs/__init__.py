@@ -1,6 +1,10 @@
-"""Architecture registry. Only the dense GQA family runs in the port so far,
-so only granite-3-2b is registered; the reference's other nine configs come
-with their model families (ROADMAP queue 1)."""
+"""Architecture registry: the configs whose model families the port runs.
+
+granite-3-2b, deepseek-7b and chameleon-34b (dense SwiGLU GQA/MHA, the
+last with qk-norm), gemma-2b (GeGLU, MQA at head dim 256, scaled
+embeddings), nemotron-4-340b (squared ReLU, head dim 192) and mixtral-8x7b
+(capacity-routed MoE with sliding-window attention). The reference's other
+four configs come with their model families (ROADMAP queue 1, item 2)."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,6 +14,11 @@ from repro_torch.configs.base import ModelConfig
 
 ARCH_MODULES = {
     "granite-3-2b": "granite_3_2b",
+    "deepseek-7b": "deepseek_7b",
+    "gemma-2b": "gemma_2b",
+    "nemotron-4-340b": "nemotron_4_340b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "chameleon-34b": "chameleon_34b",
 }
 
 ARCH_NAMES = tuple(ARCH_MODULES)

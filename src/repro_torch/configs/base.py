@@ -3,8 +3,8 @@
 A copy of the reference's ``repro/configs/base.py`` (a plain dataclass), so
 a config and its ``reduced()`` smoke variant carry the same numbers in both
 packages. configs/<id>.py instantiate it with the exact assignment numbers.
-The port's model runs the dense GQA family so far; the other fields are kept
-so the later families' configs need no schema change.
+Fields of families the port does not run yet (MLA, SSM, RG-LRU,
+encoder-decoder) are kept, so their configs will need no schema change.
 """
 from __future__ import annotations
 

@@ -39,7 +39,10 @@
 //   * GQA reads kv head h / G straight from k and v; no repeated heads;
 //   * every operand is addressed through (batch, head, row) strides with a
 //     contiguous head dim, so the (B, L, H, hd) model layout needs no
-//     transposed copy; hd is a template parameter (16, 32, 64, 128).
+//     transposed copy; hd is a template parameter (16, 32, 64, 128, 192,
+//     256). The three staged tiles and p take 3·64·(hd + 4)·4 + 64·68·4
+//     bytes of shared memory: 164 KB at hd 192 and 212 KB at hd 256, inside
+//     the 227 KB a block may use, so the tile stays 64 by 64 at every hd.
 // It is bound by the CUDA cores' float32 rate (67 TFLOP/s), not by bytes.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -105,6 +108,7 @@ template <int HD>
 constexpr size_t smem_bytes() {
     return (size_t)(3 * 64 * (HD + 4) + BQ * LDP) * sizeof(float);
 }
+static_assert(smem_bytes<256>() <= 232448, "the float32 tiles exceed a block's shared memory");
 
 template <int HD>
 __global__ void __launch_bounds__(THREADS) flash_attention_fwd_f32_kernel(const Params p) {
@@ -258,6 +262,8 @@ cudaError_t dispatch_hd(const Params& p, int B, int H, int hd, cudaStream_t s) {
         case 32: return launch<32>(p, B, H, s);
         case 64: return launch<64>(p, B, H, s);
         case 128: return launch<128>(p, B, H, s);
+        case 192: return launch<192>(p, B, H, s);
+        case 256: return launch<256>(p, B, H, s);
         default: return cudaErrorInvalidValue;
     }
 }

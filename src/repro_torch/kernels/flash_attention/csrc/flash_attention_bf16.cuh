@@ -13,8 +13,11 @@
 //   * one block of 384 threads per (128-row q tile, q head, batch); grid
 //     (H, B, q tiles) with the q tiles last-first, so every head's longest
 //     causal rows are issued before any short ones; the TPU's sequential kv
-//     grid axis is a loop over the kv tiles of 128 rows that the tile's mask
+//     grid axis is a loop over the kv tiles of BKV rows that the tile's mask
 //     can reach (a tile holding a row that no key reaches visits them all);
+//     BKV is 128 up to hd 128 and 64 at hd 192 and 256, where the q tile
+//     and two stages of 128-row K and V tiles (240 and 320 KB) would not fit
+//     the 227 KB a block may use (Tile::SMEM: 144 and 192 KB with 64 rows);
 //   * warpgroup 0 is the producer: after `setmaxnreg` drops it to 24
 //     registers, one thread issues TMA copies (cp.async.bulk.tensor.4d) of
 //     the q tile once and of each K and V tile into a ring of 2 stages, each
@@ -24,12 +27,16 @@
 //     strides, so the transposed (B, L, H, hd) views that ops.attention
 //     passes go in without a copy; TMA zero-fills rows past L; shared tiles
 //     carry TMA's 128/64/32-byte swizzle (one row of hd, at most 64 columns
-//     per swizzled sub-tile) that the wgmma descriptors name;
+//     per swizzled sub-tile: 3 and 4 sub-tiles for the 384- and 512-byte
+//     rows of hd 192 and 256) that the wgmma descriptors name;
 //   * warpgroups 1 and 2 (240 registers each) own 64 q rows each:
-//     S = Q·Kᵀ is wgmma m64n128k16 with both operands K-major in shared
+//     S = Q·Kᵀ is wgmma m64n{BKV}k16 with both operands K-major in shared
 //     memory; P stays in registers in the S accumulator's fragment layout,
 //     which is the register layout of wgmma's A operand, and O += P·V is
 //     wgmma m64n{hd}k16 with V MN-major (the descriptor's transpose bit);
+//     at hd 256 a consumer thread holds o (128 floats), S (32) and the
+//     split P (32 registers), within its 240 (the build prints ptxas's
+//     spills);
 //   * numerics of the plain version: the online softmax in float32 in the
 //     log2 domain (scale · log2 e folded into exp2), row max and sum reduced
 //     over the quad of lanes that shares a row; the finite NEG_INF = −1e30,
@@ -63,7 +70,6 @@
 namespace flash_bf16 {
 
 constexpr int BQ = 128;      // q rows per block: 64 per consumer warpgroup
-constexpr int BKV = 128;     // kv rows per tile
 constexpr int STAGES = 2;    // K/V ring
 constexpr int THREADS = 384; // warpgroup 0 producer, 1 and 2 consumers
 constexpr int PRODUCER_REGS = 24;
@@ -72,8 +78,10 @@ constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Shared-memory layout of a (rows, HD) bf16 tile: SUB column sub-tiles of
-// SW bytes per row, each (rows, SW) with TMA's SW-byte swizzle.
+// SW bytes per row, each (rows, SW) with TMA's SW-byte swizzle; BKV kv rows
+// per tile.
 template <int HD> struct Tile {
+    static constexpr int BKV = HD > 128 ? 64 : 128;
     static constexpr int SW = HD * 2 < 128 ? HD * 2 : 128;
     static constexpr int SUB = HD * 2 / SW;
     static constexpr int BOX = SW / 2;  // TMA box width in elements
@@ -119,15 +127,24 @@ __device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a, uint64_t d
     if constexpr (HD == 16) hopper::wgmma_rs_n16(o, a, desc_v);
     else if constexpr (HD == 32) hopper::wgmma_rs_n32(o, a, desc_v);
     else if constexpr (HD == 64) hopper::wgmma_rs_n64(o, a, desc_v);
-    else hopper::wgmma_rs_n128(o, a, desc_v);
+    else if constexpr (HD == 128) hopper::wgmma_rs_n128(o, a, desc_v);
+    else if constexpr (HD == 192) hopper::wgmma_rs_n192(o, a, desc_v);
+    else hopper::wgmma_rs_n256(o, a, desc_v);
 }
 
-// Online softmax of one S tile held in the m64n128 accumulator layout:
+// S (+)= Q·Kᵀ for one 16-wide slice of hd: m64n{BKV}k16, both from shared memory.
+template <int BKV>
+__device__ __forceinline__ void wgmma_qk(float* s, uint64_t desc_q, uint64_t desc_k, int acc) {
+    if constexpr (BKV == 64) hopper::wgmma_ss_n64(s, desc_q, desc_k, acc);
+    else hopper::wgmma_ss_n128(s, desc_q, desc_k, acc);
+}
+
+// Online softmax of one S tile held in the m64n{BKV} accumulator layout:
 // element i of a thread is row r[(i >> 1) & 1], key k0 + 8 (i / 4) +
 // 2 (lane % 4) + (i & 1). Turns s into P split into packed bf16 pairs
 // (p_hi, p_lo: pair j holds elements 2j, 2j + 1), and updates m, l and the
 // per-row corrections. MASK: apply the causal/window masks and Lkv.
-template <bool MASK>
+template <int BKV, bool MASK>
 __device__ __forceinline__ void softmax_tile(float* s, uint32_t* p_hi, uint32_t* p_lo, float* m,
                                              float* l, float* corr, const Params& p,
                                              const int* row, int k0, int lane) {
@@ -186,6 +203,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                                      __grid_constant__ const CUtensorMap tv, const Params p) {
     using T = Tile<HD>;
     constexpr int SW = T::SW;
+    constexpr int BKV = T::BKV;
     extern __shared__ uint8_t smem_raw[];
     uint8_t* smem = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
     uint8_t* Qs = smem;
@@ -269,7 +287,7 @@ __global__ void __launch_bounds__(THREADS, 1)
             const uint32_t phase = (i / STAGES) & 1;
             const int k0 = kt * BKV;
 
-            // S = Q·Kᵀ: (64, hd) x (hd, 128), both K-major
+            // S = Q·Kᵀ: (64, hd) x (hd, BKV), both K-major
             float sc[BKV / 2];
             const uint32_t k_base = hopper::smem_addr(Ks + s * T::KV_BYTES);
             hopper::mbar_wait(k_full + s, phase);
@@ -279,8 +297,8 @@ __global__ void __launch_bounds__(THREADS, 1)
             for (int kk = 0; kk < HD / 16; ++kk) {
                 const uint32_t off_q = (kk * 32 / SW) * BQ * SW + (kk * 32) % SW;
                 const uint32_t off_k = (kk * 32 / SW) * BKV * SW + (kk * 32) % SW;
-                hopper::wgmma_ss_n128(sc, hopper::make_desc(q_base + off_q, 1, SBO, T::MODE),
-                                      hopper::make_desc(k_base + off_k, 1, SBO, T::MODE), kk > 0);
+                wgmma_qk<BKV>(sc, hopper::make_desc(q_base + off_q, 1, SBO, T::MODE),
+                              hopper::make_desc(k_base + off_k, 1, SBO, T::MODE), kk > 0);
             }
             hopper::wgmma_commit();
             hopper::wgmma_wait_all();
@@ -291,13 +309,13 @@ __global__ void __launch_bounds__(THREADS, 1)
             const bool mask = k0 + BKV > p.Lkv || (p.causal && k0 + BKV - 1 > qa) ||
                               (p.window > 0 && k0 <= qa + 63 - p.window);
             if (mask)
-                softmax_tile<true>(sc, p_hi, p_lo, m, l, corr, p, row, k0, lane);
+                softmax_tile<BKV, true>(sc, p_hi, p_lo, m, l, corr, p, row, k0, lane);
             else
-                softmax_tile<false>(sc, p_hi, p_lo, m, l, corr, p, row, k0, lane);
+                softmax_tile<BKV, false>(sc, p_hi, p_lo, m, l, corr, p, row, k0, lane);
 #pragma unroll
             for (int e = 0; e < HD / 2; ++e) o[e] *= corr[(e >> 1) & 1];
 
-            // O += P_hi·V + P_lo·V: (64, 128) x (128, hd), V MN-major
+            // O += P_hi·V + P_lo·V: (64, BKV) x (BKV, hd), V MN-major
             const uint32_t v_base = hopper::smem_addr(Vs + s * T::KV_BYTES);
             constexpr uint32_t LBO = BKV * SW / 16;  // next 64 columns of hd
             hopper::mbar_wait(v_full + s, phase);
@@ -387,8 +405,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
     if (B > 65535 || n_q > 65535) return cudaErrorInvalidValue;
     CUtensorMap tq, tk, tv;
     if (!make_map<HD>(&tq, q, Lq, H, B, st[2], st[1], st[0], BQ) ||
-        !make_map<HD>(&tk, k, Lkv, Hkv, B, st[5], st[4], st[3], BKV) ||
-        !make_map<HD>(&tv, v, Lkv, Hkv, B, st[8], st[7], st[6], BKV))
+        !make_map<HD>(&tk, k, Lkv, Hkv, B, st[5], st[4], st[3], T::BKV) ||
+        !make_map<HD>(&tv, v, Lkv, Hkv, B, st[8], st[7], st[6], T::BKV))
         return cudaErrorInvalidValue;
     Params p;
     p.o = o;
@@ -418,6 +436,8 @@ inline cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void
         case 32: return launch<32>(q, k, v, o, B, H, Hkv, Lq, Lkv, st, scale, causal, window, s);
         case 64: return launch<64>(q, k, v, o, B, H, Hkv, Lq, Lkv, st, scale, causal, window, s);
         case 128: return launch<128>(q, k, v, o, B, H, Hkv, Lq, Lkv, st, scale, causal, window, s);
+        case 192: return launch<192>(q, k, v, o, B, H, Hkv, Lq, Lkv, st, scale, causal, window, s);
+        case 256: return launch<256>(q, k, v, o, B, H, Hkv, Lq, Lkv, st, scale, causal, window, s);
         default: return cudaErrorInvalidValue;
     }
 }

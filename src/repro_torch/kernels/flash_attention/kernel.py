@@ -8,9 +8,14 @@ version (:mod:`.ref`); for CUDA tensors it launches a CUDA kernel, built at
 first call, or raises. The dtype picks the kernel, one for each:
 
 * bfloat16: ``csrc/flash_attention_bf16.cuh``, wgmma tensor cores on bf16
-  tiles that TMA copies into shared memory, 128 q rows by 128 kv rows;
+  tiles that TMA copies into shared memory, 128 q rows by 128 kv rows (64
+  kv rows at head dims 192 and 256, so that the tiles fit shared memory);
 * float32: the CUDA-core kernel in ``csrc/flash_attention.cu``, 64 by 64
   (the reference's float32 tolerance, 2e-5, rules out TF32 tensor cores).
+
+Both take the head dims in ``HEAD_DIMS``: those of granite (64), the
+dense variants and mixtral (128), nemotron (192) and gemma (256), and the
+smaller ones of the reduced test configs.
 
 Nothing falls back from one route to another: a failed build or launch
 raises. ``flash_attention.launches`` counts kernel launches.
@@ -36,7 +41,7 @@ from repro_torch.kernels.flash_attention.ref import attention_reference
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 192, 256)
 MAX_GRID_YZ = 65535   # the bf16 kernel's grid (H, B, Lq / 128): y and z at most this
 BF16_BLOCK_Q = 128
 

@@ -1,15 +1,18 @@
-"""Attention: dense and blockwise GQA, and the full KV cache for serving.
+"""Attention: dense and blockwise GQA/MQA/MHA, sliding windows, and the KV
+caches for serving.
 
-The port of the reference's ``repro/models/attention.py`` for the dense GQA
-family: ``dense_attention`` (with ``kv_valid``), ``blockwise_attention``
+The port of the reference's ``repro/models/attention.py`` for the GQA
+families: ``dense_attention`` (with ``kv_valid``), ``blockwise_attention``
 (the online-softmax algorithm in plain PyTorch), ``attention_any``,
-``KVCache``/``init_kv_cache``, ``slot_decode_attention``,
-``_ragged_kv_valid``, the paged cache of the continuous batcher
-(``PagedKVCache``, ``_paged_write``, ``paged_decode_attention``), and
-``gqa_apply`` with its cache-free (training), prefill, cached-decode and
-paged-decode branches. Tensors keep the reference's ``(B, L, H, hd)``
-layout. Ring caches, MLA (and its paged cache), cross-attention and the
-mesh decode come with later slices.
+``KVCache``/``init_kv_cache`` (a full cache, or a ring buffer of ``window``
+slots for sliding-window attention, ``_is_ring``),
+``slot_decode_attention``, ``_ragged_kv_valid``, the paged cache of the
+continuous batcher (``PagedKVCache``, ``_paged_write``,
+``paged_decode_attention``), and ``gqa_defs``/``gqa_apply`` (with
+``qk_norm`` and ``window``) with its cache-free (training), prefill,
+cached-decode (full or ring) and paged-decode branches. Tensors keep the
+reference's ``(B, L, H, hd)`` layout. MLA (and its paged cache),
+cross-attention and the mesh decode come with later slices.
 
 Paged decode keeps the reference's formulation: q is scored against the
 whole page pool, the block table gathers each slot's (NB, page) scores, and
@@ -21,7 +24,8 @@ once per step, in place, with no per-slot context copy and no
 slot's pages would copy the context before reading it again.
 
 A long unmasked prefill goes through the hand-written flash kernel
-(``repro_torch.kernels.flash_attention.ops.attention``); training keeps
+(``repro_torch.kernels.flash_attention.ops.attention``), with the layer's
+window where it has one; training keeps
 ``blockwise_attention``, as the reference's model does, because the kernel
 is forward only.
 
@@ -39,7 +43,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.models.layers import rope
+from repro_torch.models.layers import rmsnorm_apply, rmsnorm_defs, rope
 from repro_torch.models.params import ParamDef
 
 PyTree = Any
@@ -169,17 +173,23 @@ def gqa_defs(cfg: ModelConfig) -> PyTree:
     # or heads*head_dim (wo), not over the ParamDef default dim
     s_in = float(D) ** -0.5
     s_out = float(H * hd) ** -0.5
-    return {
+    defs = {
         "wq": ParamDef((D, H, hd), ("embed", "q_heads", None), scale=s_in),
         "wk": ParamDef((D, K, hd), ("embed", "kv_heads", None), scale=s_in),
         "wv": ParamDef((D, K, hd), ("embed", "kv_heads", None), scale=s_in),
         "wo": ParamDef((H, hd, D), ("q_heads", None, "embed"), scale=s_out),
     }
+    if cfg.qk_norm:
+        defs["q_norm"] = rmsnorm_defs(hd, axis=None)
+        defs["k_norm"] = rmsnorm_defs(hd, axis=None)
+    return defs
 
 
 class KVCache(NamedTuple):
-    """A full KV cache. ``k``/``v``: (B, S, Kh, hd), S = max_len (with a
-    leading layer dim for a scanned segment); ``pos``: tokens written so far.
+    """A KV cache. ``k``/``v``: (B, S, Kh, hd), S = max_len, or the window
+    for a ring buffer (with a leading layer dim for a scanned segment);
+    ``pos``: tokens written so far. A ring buffer keeps position p in slot
+    p % S.
 
     ``gqa_apply`` writes new keys and values into ``k``/``v`` in place (an
     eager copy would move the whole cache at every decode step) and returns
@@ -193,10 +203,14 @@ class KVCache(NamedTuple):
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype,
-                  device: torch.device, layers: int | None = None) -> KVCache:
-    """An empty cache; ``layers`` stacks one per layer of a scanned segment
-    (each layer its own storage, not a broadcast view)."""
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+                  device: torch.device, layers: int | None = None,
+                  window: int | None = None) -> KVCache:
+    """An empty cache of ``min(window, max_len)`` slots with a window (a ring
+    buffer once max_len reaches it), else ``max_len``; ``layers`` stacks one
+    per layer of a scanned segment (each layer its own storage, not a
+    broadcast view)."""
+    S = min(window, max_len) if window else max_len
+    shape = (batch, S, cfg.n_kv_heads, cfg.head_dim)
     if layers is not None:
         shape = (layers,) + shape
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
@@ -289,16 +303,45 @@ def _ragged_kv_valid(S: int, lengths: torch.Tensor, prompt_len: int,
     return ((idx < lengths[:, None]) | (idx >= prompt_len)) & (idx < pos + 1)
 
 
-def gqa_apply(params, cfg: ModelConfig, x, *,
+def _is_ring(cache: KVCache, window: int | None) -> bool:
+    """The cache is a ring buffer iff it is exactly window-sized."""
+    return window is not None and cache.k.shape[1] == window
+
+
+def _ring_decode_attention(q, ck, cv, pos: int, window: int) -> torch.Tensor:
+    """Decode attention over a ring cache that already holds the new token
+    (q: (B, 1, H, hd), written at slot pos % W): each slot's absolute
+    position, masked to the window and to positions written, scores scaled
+    by 1/sqrt(hd), GQA by repeated kv heads, as the reference's ring
+    branch."""
+    B, L, H, hd = q.shape
+    W = ck.shape[1]
+    slot = pos % W
+    idx = torch.arange(W, device=q.device)
+    slot_pos = torch.where(idx <= slot, pos - slot + idx, pos - slot - W + idx)
+    valid = (slot_pos >= 0) & (slot_pos > pos - window)
+    qp = pos + torch.arange(L, device=q.device)
+    s = f32_product("bqhd,bshd->bhqs", q, repeat_kv(ck, H)) / float(np.sqrt(hd))
+    ok = (slot_pos[None, :] <= qp[:, None]) & valid[None, :]
+    s = s + torch.where(ok, 0.0, NEG_INF)[None, None]
+    p = torch.softmax(s, dim=-1).to(cv.dtype)
+    return torch.einsum("bhqs,bshd->bqhd", p, repeat_kv(cv, H))
+
+
+def gqa_apply(params, cfg: ModelConfig, x, *, window: int | None = None,
               cache: KVCache | PagedKVCache | None = None,
               lengths: torch.Tensor | None = None, prompt_len: int | None = None):
-    """Causal self-attention over (B, L, D) → (out, new cache or None).
+    """Causal self-attention over (B, L, D) → (out, new cache or None);
+    ``window``: sliding-window attention (a key within ``window`` positions
+    of the query, itself included).
 
     Without a cache: whole sequences from position 0 (training). With a
     cache and L > 1: prefill of an empty cache; a long unmasked prompt goes
-    through the flash kernel. With a cache and L == 1: one cached decode
-    step. lengths: (B,) true prompt lengths of RIGHT-padded ragged batches:
-    in prefill pad keys are masked out; in decode (with ``prompt_len``, the
+    through the flash kernel; a ring cache keeps the prompt's last W
+    positions. With a cache and L == 1: one cached decode step (a ring
+    cache writes at pos % W; ragged ``lengths`` with a ring raise, as in
+    the reference). lengths: (B,) true prompt lengths of RIGHT-padded
+    ragged batches: in prefill pad keys are masked out; in decode (with ``prompt_len``, the
     padded prompt width) rope positions are per row (len_b + t) and the pad
     columns stay masked, so batched ragged decode matches unbatched. With a
     :class:`PagedKVCache` (decode only): one token per slot at the slot's
@@ -309,6 +352,9 @@ def gqa_apply(params, cfg: ModelConfig, x, *,
     q = torch.einsum("bld,dhk->blhk", x, params["wq"])
     k = torch.einsum("bld,dhk->blhk", x, params["wk"])
     v = torch.einsum("bld,dhk->blhk", x, params["wv"])
+    if cfg.qk_norm:
+        q = rmsnorm_apply(params["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm_apply(params["k_norm"], k, cfg.norm_eps)
     if paged:
         q_pos = cache.lengths[:, None]          # (S, 1) per-slot positions
     elif cache is not None and lengths is not None and L == 1:
@@ -321,7 +367,7 @@ def gqa_apply(params, cfg: ModelConfig, x, *,
     k = rope(k, q_pos, cfg.rope_theta)
 
     if cache is None:
-        o = attention_any(q, k, v, 0, causal=True)
+        o = attention_any(q, k, v, 0, causal=True, window=window)
         return torch.einsum("blhk,hkd->bld", o, params["wo"]), None
 
     if paged:
@@ -341,15 +387,33 @@ def gqa_apply(params, cfg: ModelConfig, x, *,
         if lengths is not None:
             kv_valid = torch.arange(L, device=x.device)[None, :] < lengths[:, None]
         if kv_valid is None and L > BLOCK_THRESHOLD:
-            o = flash_ops.attention(q, k, v, causal=True)
+            o = flash_ops.attention(q, k, v, causal=True, window=window)
         else:
-            o = attention_any(q, k, v, 0, causal=True, kv_valid=kv_valid)
-        cache.k[:, :L] = k
-        cache.v[:, :L] = v
+            o = attention_any(q, k, v, 0, causal=True, window=window, kv_valid=kv_valid)
+        W = cache.k.shape[1]
+        if _is_ring(cache, window) and L >= W:
+            # the last W positions, rolled so position p sits at slot p % W
+            cache.k.copy_(torch.roll(k[:, -W:], L % W, dims=1))
+            cache.v.copy_(torch.roll(v[:, -W:], L % W, dims=1))
+        else:
+            cache.k[:, :L] = k
+            cache.v[:, :L] = v
         new_cache = KVCache(cache.k, cache.v, cache.pos + L)
         return torch.einsum("blhk,hkd->bld", o, params["wo"]), new_cache
 
     pos = cache.pos
+    if _is_ring(cache, window):
+        if lengths is not None:
+            raise NotImplementedError(
+                "ragged prompt lengths with a sliding-window ring cache: "
+                "batch equal-length prompts instead (WaveBatcher only "
+                "passes lengths when a wave is actually ragged)")
+        slot = pos % cache.k.shape[1]
+        cache.k[:, slot:slot + L] = k
+        cache.v[:, slot:slot + L] = v
+        o = _ring_decode_attention(q, cache.k, cache.v, pos, window)
+        new_cache = KVCache(cache.k, cache.v, pos + L)
+        return torch.einsum("blhk,hkd->bld", o, params["wo"]), new_cache
     cache.k[:, pos:pos + L] = k
     cache.v[:, pos:pos + L] = v
     new_cache = KVCache(cache.k, cache.v, pos + L)
@@ -361,5 +425,5 @@ def gqa_apply(params, cfg: ModelConfig, x, *,
         arange_s = torch.arange(S, device=x.device)
         kv_valid = (arange_s < pos + L)[None, :].expand(B, S)
         o = dense_attention(q, cache.k, cache.v, pos + torch.arange(L, device=x.device),
-                            arange_s, causal=True, kv_valid=kv_valid)
+                            arange_s, causal=True, window=window, kv_valid=kv_valid)
     return torch.einsum("blhk,hkd->bld", o, params["wo"]), new_cache

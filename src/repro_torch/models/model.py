@@ -1,25 +1,30 @@
-"""Model assembly: the dense GQA decoder, for training and serving.
+"""Model assembly: the GQA decoders, dense and MoE, for training and serving.
 
-The port of the reference's ``repro/models/model.py`` for the dense family
-(granite): ``model_defs``, ``init``, ``forward`` (with or without KV
-caches), ``logits_from_hidden``, ``cross_entropy_chunked``, ``loss_fn``,
-``init_cache``, ``prefill`` and ``decode_step``, all functions over a params
-tree. KV caches are written in place (``attention.KVCache``, and for decode
-the continuous batcher's ``attention.PagedKVCache``).
+The port of the reference's ``repro/models/model.py`` for the attention-only
+decoders (granite, deepseek-7b, gemma-2b, nemotron-4-340b, chameleon-34b,
+mixtral-8x7b): ``model_defs``, ``init``, ``forward`` (with or without KV
+caches), ``logits_from_hidden``, ``cross_entropy_chunked``, ``loss_fn`` (the
+MoE layers' aux loss added), ``init_cache``, ``prefill`` and
+``decode_step``, all functions over a params tree. Blocks take every MLP
+variant or capacity-routed MoE, optional qk-norm, scaled embeddings, the
+opt-in parallel block, and sliding windows (ring KV caches). KV caches are
+written in place (``attention.KVCache``, and for decode the continuous
+batcher's ``attention.PagedKVCache``).
 
 Layers are grouped into segments as in the reference. A scanned segment
 (``cfg.scan_layers``, what the full configs use) stacks its leaves on a
 leading layer dim and runs as a Python loop over it, its cache stacked the
 same way; a list segment (what ``reduced()`` gives) is a list of per-layer
 trees and caches. ``cfg.remat`` only trades memory for recompute in the
-reference and is ignored here (ROADMAP). Other layer kinds, MoE, MLA and
-encoder-decoder come with their families.
+reference and is ignored here (ROADMAP). MLA, the recurrent layer kinds
+(Mamba-2, RG-LRU) and encoder-decoder come with their families.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch import _tree
@@ -37,20 +42,19 @@ __all__ = ["Segment", "plan_segments", "model_defs", "init", "forward",
 
 @dataclasses.dataclass(frozen=True)
 class Segment:
-    kind: str          # attn
+    kind: str          # attn (the recurrent kinds come later)
     moe: bool
     length: int
     scanned: bool
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if (cfg.arch_type != "dense" or cfg.attention_type != "gqa" or cfg.n_experts
-            or cfg.encoder_layers or cfg.layer_pattern is not None
-            or cfg.parallel_block or cfg.window or cfg.qk_norm or cfg.emb_scale
-            or cfg.mlp_type != "swiglu"):
+    if (cfg.attention_type != "gqa" or cfg.encoder_layers
+            or any(kind != "attn" for kind in cfg.layer_kinds)):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense GQA decoder only so far "
-            "(other families: ROADMAP queue 1, item 12)")
+            f"{cfg.name}: the port runs GQA attention decoders only so far; MLA, "
+            "Mamba-2, RG-LRU and encoder-decoder models come later "
+            "(ROADMAP queue 1, items 2.4-2.7)")
 
 
 def plan_segments(cfg: ModelConfig) -> list[Segment]:
@@ -68,12 +72,20 @@ def plan_segments(cfg: ModelConfig) -> list[Segment]:
     return segs
 
 
-def _block_defs(cfg: ModelConfig) -> PyTree:
+def _self_window(cfg: ModelConfig, kind: str) -> int | None:
+    if kind == "local":
+        return cfg.window
+    if cfg.window and cfg.arch_type != "hybrid":
+        return cfg.window    # e.g. mixtral: a sliding window on every layer
+    return None
+
+
+def _block_defs(cfg: ModelConfig, moe: bool) -> PyTree:
     return {
         "norm1": L.rmsnorm_defs(cfg.d_model),
         "mix": attn_lib.gqa_defs(cfg),
         "norm2": L.rmsnorm_defs(cfg.d_model),
-        "mlp": L.mlp_defs(cfg),
+        "mlp": L.moe_defs(cfg) if moe else L.mlp_defs(cfg),
     }
 
 
@@ -87,8 +99,8 @@ def model_defs(cfg: ModelConfig) -> PyTree:
     _check_supported(cfg)
     layer_defs = []
     for s in plan_segments(cfg):
-        layer_defs.append(_stack_defs(_block_defs(cfg), s.length) if s.scanned
-                          else [_block_defs(cfg) for _ in range(s.length)])
+        layer_defs.append(_stack_defs(_block_defs(cfg, s.moe), s.length) if s.scanned
+                          else [_block_defs(cfg, s.moe) for _ in range(s.length)])
     d: PyTree = {
         "embed": ParamDef((cfg.vocab_size, cfg.d_model), ("vocab", "embed_table"), scale=0.02),
         "segments": layer_defs,
@@ -105,19 +117,36 @@ def init(generator: torch.Generator, cfg: ModelConfig,
     return init_tree(generator, model_defs(cfg), dtype, device)
 
 
-def _block_apply(bp: PyTree, cfg: ModelConfig, x, cache=None, lengths=None,
-                 prompt_len=None):
-    """One residual block: x + attn(norm1(x)), then + mlp(norm2(x)).
-    Returns (x, new cache or None)."""
+def _block_apply(bp: PyTree, cfg: ModelConfig, seg: Segment, x, cache=None,
+                 lengths=None, prompt_len=None):
+    """One residual block: x + attn(norm1(x)), then + mlp(norm2(x)) (an MoE
+    layer's returns its aux loss); with ``cfg.parallel_block``,
+    x + attn(norm1(x)) + mlp(norm2(x)). Returns (x, new cache or None, aux);
+    a dense layer's aux is 0.0, a Python float, so it launches nothing."""
+    aux = 0.0
     a, new_cache = attn_lib.gqa_apply(bp["mix"], cfg, L.rmsnorm_apply(bp["norm1"], x, cfg.norm_eps),
-                                      cache=cache, lengths=lengths, prompt_len=prompt_len)
-    x = x + a
+                                      window=_self_window(cfg, seg.kind), cache=cache,
+                                      lengths=lengths, prompt_len=prompt_len)
+    if not cfg.parallel_block:
+        x = x + a
     h2 = L.rmsnorm_apply(bp["norm2"], x, cfg.norm_eps)
-    return x + L.mlp_apply(bp["mlp"], cfg, h2), new_cache
+    if seg.moe:
+        y, aux = L.moe_apply(bp["mlp"], cfg, h2)
+    else:
+        y = L.mlp_apply(bp["mlp"], cfg, h2)
+    if cfg.parallel_block:
+        return x + a + y, new_cache, aux
+    return x + y, new_cache, aux
 
 
 def _embed(params, cfg: ModelConfig, tokens):
-    return params["embed"][tokens.long()].to(getattr(torch, cfg.compute_dtype))
+    dtype = getattr(torch, cfg.compute_dtype)
+    x = params["embed"][tokens.long()].to(dtype)
+    if cfg.emb_scale:
+        # the reference multiplies by a weak-typed Python float, which JAX
+        # rounds to the compute dtype first (45.25 for gemma's √2048 in bf16)
+        x = x * torch.tensor(float(np.sqrt(cfg.d_model)), dtype=dtype)
+    return x
 
 
 def _layer_view(cache, li: int):
@@ -134,8 +163,18 @@ def forward(params, cfg: ModelConfig, tokens, *, caches: list | None = None,
     new caches or None). ``caches`` (from :func:`init_cache`, or paged ones
     from ``serving.kvcache.init_paged_caches`` for decode) are written in
     place; lengths/prompt_len as in ``attention.gqa_apply``."""
+    h, new_caches, _ = _forward(params, cfg, tokens, caches=caches, lengths=lengths,
+                                prompt_len=prompt_len)
+    return h, new_caches
+
+
+def _forward(params, cfg: ModelConfig, tokens, *, caches=None, lengths=None,
+             prompt_len=None):
+    """:func:`forward` with the MoE aux loss summed over the layers:
+    (hidden, new caches or None, aux); aux is 0.0 without MoE layers."""
     _check_supported(cfg)
     x = _embed(params, cfg, tokens)
+    aux_total = 0.0
     new_caches: list = []
     for si, (seg, sp) in enumerate(zip(plan_segments(cfg), params["segments"])):
         cache_s = caches[si] if caches is not None else None
@@ -145,14 +184,15 @@ def forward(params, cfg: ModelConfig, tokens, *, caches: list | None = None,
             c = None
             if cache_s is not None:   # a layer of a stacked cache is a view into it
                 c = _layer_view(cache_s, li) if seg.scanned else cache_s[li]
-            x, nc = _block_apply(bp, cfg, x, c, lengths, prompt_len)
+            x, nc, aux = _block_apply(bp, cfg, seg, x, c, lengths, prompt_len)
+            aux_total = aux_total + aux
             seg_new.append(nc)
         if cache_s is not None and seg.scanned:
             seg_new = (cache_s if isinstance(cache_s, attn_lib.PagedKVCache)
                        else attn_lib.KVCache(cache_s.k, cache_s.v, seg_new[-1].pos))
         new_caches.append(seg_new)
     h = L.rmsnorm_apply(params["out_norm"], x, cfg.norm_eps)
-    return h, (new_caches if caches is not None else None)
+    return h, (new_caches if caches is not None else None), aux_total
 
 
 def _unembed(params, cfg: ModelConfig) -> torch.Tensor:
@@ -184,28 +224,32 @@ def cross_entropy_chunked(params, cfg: ModelConfig, h, labels,
 
 
 def loss_fn(params, cfg: ModelConfig, batch: PyTree) -> torch.Tensor:
-    """Next-token CE. batch: {"tokens": (B, L) [, "labels": (B, L)]}; without
-    labels the shift happens here (tokens[:-1] -> tokens[1:])."""
+    """Next-token CE plus the MoE layers' aux loss. batch: {"tokens": (B, L)
+    [, "labels": (B, L)]}; without labels the shift happens here
+    (tokens[:-1] -> tokens[1:])."""
     tokens = batch["tokens"]
     labels = batch.get("labels")
     if labels is None:
         tokens, labels = tokens[:, :-1], tokens[:, 1:]
-    h, _ = forward(params, cfg, tokens)
-    return cross_entropy_chunked(params, cfg, h, labels)
+    h, _, aux = _forward(params, cfg, tokens)
+    return cross_entropy_chunked(params, cfg, h, labels) + aux
 
 
 def init_cache(params, cfg: ModelConfig, batch: int, max_len: int) -> list:
     """Empty per-layer caches on the params' device (one stacked
-    ``KVCache`` for a scanned segment, a list of them for a list segment)."""
+    ``KVCache`` for a scanned segment, a list of them for a list segment);
+    a windowed layer gets a ring buffer of ``min(window, max_len)`` slots."""
     dtype = getattr(torch, cfg.compute_dtype)
     dev = params["embed"].device
     caches: list = []
     for seg in plan_segments(cfg):
+        window = _self_window(cfg, seg.kind)
         if seg.scanned:
             caches.append(attn_lib.init_kv_cache(cfg, batch, max_len, dtype, dev,
-                                                 layers=seg.length))
+                                                 layers=seg.length, window=window))
         else:
-            caches.append([attn_lib.init_kv_cache(cfg, batch, max_len, dtype, dev)
+            caches.append([attn_lib.init_kv_cache(cfg, batch, max_len, dtype, dev,
+                                                  window=window)
                            for _ in range(seg.length)])
     return caches
 

@@ -5,7 +5,9 @@ The port of the reference's ``repro/serving/engine.py`` without the mesh:
 ``make_serve_step``, ``GenerationResult``, ``generate`` and the lock-step
 ``WaveBatcher``. The reference's jitted ``lax.scan`` decode loop is a
 Python loop here; tokens and logprobs stay on the device and come to the
-host at the end, as in the reference. The KV caches are written in place.
+host at the end, as in the reference. The KV caches are written in place;
+a sliding-window config decodes over ring caches of ``window`` slots, and
+a ragged wave over a ring raises, as in the reference.
 
 Greedy decoding is ``argmax`` (the first maximum, as in JAX). With
 ``temperature > 0`` tokens are drawn from a ``torch.Generator`` seeded by

@@ -9,8 +9,8 @@ the products in different orders; bf16 outputs round once more). On the CPU
 the wrapper runs the plain version and launches nothing.
 
 The CUDA bf16 kernel cannot run here, so its arithmetic is emulated: the
-tile loop of ``csrc/flash_attention_bf16.cuh`` (128-row q and kv tiles, the
-kv tiles each q tile visits, exp2 with the scale folded in, P split into
+tile loop of ``csrc/flash_attention_bf16.cuh`` (128-row q tiles, 128-row kv
+tiles, 64-row at head dims 192 and 256, the kv tiles each q tile visits, exp2 with the scale folded in, P split into
 bf16 hi and lo terms for P·V) in float32 on bf16 values, held to the JAX
 reference at 3e-2 and, element by element, to one bf16 ulp of the reference
 plus 1e-4 (the card check's bound).
@@ -50,7 +50,17 @@ KEYLESS_CASES = [
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # a longer GQA prompt: several 128-row q tiles and kv tiles, a ragged edge
 LONG_GQA_CASE = (1, 1100, 1100, 8, 2, 64, True, None)
-KERNEL_BQ = KERNEL_BKV = 128          # csrc/flash_attention_bf16.cuh: BQ, BKV
+# head dims 192 and 256 (nemotron, gemma): GQA, MQA, a window, Lq != Lkv
+WIDE_CASES = [
+    (1, 300, 300, 4, 1, 256, True, None),
+    (1, 260, 200, 4, 2, 192, True, 70),
+    (1, 130, 190, 2, 2, 256, False, None),
+]
+KERNEL_BQ = 128                       # csrc/flash_attention_bf16.cuh: BQ, Tile::BKV
+
+
+def _kernel_bkv(hd):
+    return 64 if hd > 128 else 128
 NEG_INF = -1e30
 
 
@@ -140,19 +150,20 @@ def _emulate_bf16_kernel(q, k, v, *, causal, window, scale, split_p=True):
     kf = k.float().repeat_interleave(H // Hkv, dim=1)
     vf = v.float().repeat_interleave(H // Hkv, dim=1)
     out = torch.empty_like(q)
-    n_kv = -(-Lkv // KERNEL_BKV)
+    bkv = _kernel_bkv(hd)
+    n_kv = -(-Lkv // bkv)
     for q0 in range(0, Lq, KERNEL_BQ):
         q_last = min(q0 + KERNEL_BQ, Lq) - 1
         keyless = window is not None and q_last >= Lkv + window - 1
-        hi = min(q_last // KERNEL_BKV + 1, n_kv) if causal and not keyless else n_kv
-        lo = max(q0 - window + 1, 0) // KERNEL_BKV if window and not keyless else 0
+        hi = min(q_last // bkv + 1, n_kv) if causal and not keyless else n_kv
+        lo = max(q0 - window + 1, 0) // bkv if window and not keyless else 0
         rows = torch.arange(q0, q_last + 1)[:, None]
         qt = q[:, :, q0:q_last + 1].float()
         m = torch.full(qt.shape[:3], NEG_INF)
         l = torch.zeros(qt.shape[:3])
         acc = torch.zeros(qt.shape)
         for kt in range(lo, hi):
-            k0, k1 = kt * KERNEL_BKV, min((kt + 1) * KERNEL_BKV, Lkv)   # keys past Lkv: p = 0
+            k0, k1 = kt * bkv, min((kt + 1) * bkv, Lkv)   # keys past Lkv: p = 0
             keys = torch.arange(k0, k1)[None, :]
             ok = torch.ones(rows.shape[0], k1 - k0, dtype=torch.bool)
             if causal:
@@ -189,7 +200,7 @@ def _jax_reference_bf16(case, seed):
     return want, (_bhld(q), _bhld(k), _bhld(v))
 
 
-@pytest.mark.parametrize("case", FLASH_CASES + KEYLESS_CASES + [LONG_GQA_CASE])
+@pytest.mark.parametrize("case", FLASH_CASES + KEYLESS_CASES + [LONG_GQA_CASE] + WIDE_CASES)
 def test_bf16_kernel_arithmetic_matches_jax_reference(case):
     """The wgmma kernel's numerical design, emulated, within the reference's
     3e-2 and within one bf16 ulp + 1e-4 of it element by element."""

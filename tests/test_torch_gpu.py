@@ -255,6 +255,18 @@ ODD_FLASH_CASES = [
     (1, 385, 385, 2, 2, 128, True, 200),
     (1, 257, 257, 4, 1, 64, False, 70),
 ]
+# head dims 192 and 256 (nemotron, gemma): the bf16 kernel's 64-row kv
+# tiles; MQA, GQA, windows, lengths off a tile, Lq != Lkv, rows no key reaches
+WIDE_FLASH_CASES = [
+    (1, 200, 200, 8, 1, 256, True, None),
+    (2, 333, 333, 4, 2, 192, True, 100),
+    (1, 150, 300, 4, 1, 256, True, 64),
+    (1, 300, 150, 4, 2, 192, False, None),
+    (1, 65, 65, 2, 1, 192, True, None),
+    (1, 385, 385, 2, 2, 256, True, 200),
+    (1, 150, 70, 4, 2, 256, True, 5),
+    (1, 257, 129, 4, 2, 192, True, None),
+]
 
 
 def _qkv(B, Lq, Lkv, H, Hkv, hd, dtype, device, seed=0):
@@ -266,7 +278,7 @@ def _qkv(B, Lq, Lkv, H, Hkv, hd, dtype, device, seed=0):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ODD_FLASH_CASES)
+@pytest.mark.parametrize("case", ODD_FLASH_CASES + WIDE_FLASH_CASES)
 @pytest.mark.parametrize("dtype", [F32, BF16])
 def test_flash_attention_kernel_matches_plain_version(cuda, case, dtype):
     B, Lq, Lkv, H, Hkv, hd, causal, window = case
@@ -352,6 +364,45 @@ def test_generate_on_card_matches_cpu(cuda):
     assert flash_attention.launches == before + cfg.n_layers
     assert np.array_equal(on_cpu.tokens, on_card.tokens)
     np.testing.assert_allclose(on_card.logprobs, on_cpu.logprobs, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Lp", [20, 45])
+def test_ring_decode_matches_full_cache_windowed_decode(cuda, Lp):
+    """Reduced mixtral (window 32), float32 on the card: a prompt shorter
+    and longer than the window, then decode steps across the ring's wrap,
+    through the ring cache against a full-length cache with the window mask
+    (the reference's non-ring branch), and against the CPU's ring route."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as Mo
+
+    cfg = get_config("mixtral-8x7b", reduced=True)
+    params = Mo.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, size=(2, Lp)).astype(np.int32)
+    fed = np.random.default_rng(2).integers(0, cfg.vocab_size, size=(2, 16)).astype(np.int32)
+    max_len = Lp + fed.shape[1]
+
+    def run(p, dev, ring):
+        tok = torch.from_numpy(prompt).to(dev)
+        if ring:
+            logits, caches = Mo.prefill(p, cfg, tok, max_len=max_len)
+            assert caches[0][0].k.shape[1] == cfg.window
+        else:
+            caches = Mo.init_cache(p, dataclasses.replace(cfg, window=None), 2, max_len)
+            _, caches = Mo.forward(p, cfg, tok, caches=caches)
+            assert caches[0][0].k.shape[1] == max_len
+        out = []
+        for t in range(fed.shape[1]):
+            logits, caches = Mo.decode_step(p, cfg, caches, torch.from_numpy(fed[:, t:t + 1]).to(dev))
+            out.append(logits[:, -1].float().cpu())
+        return torch.stack(out)
+
+    on_card = _tree.map(lambda x: x.to(cuda), params)
+    ring = run(on_card, cuda, True)
+    torch.testing.assert_close(ring, run(on_card, cuda, False), atol=1e-5, rtol=0)
+    torch.testing.assert_close(ring, run(params, "cpu", True), atol=1e-5, rtol=0)
 
 
 # ---------------------------------------------------------------------------
