@@ -126,7 +126,32 @@ through these phases, in order, and exits non-zero at the first failure:
    ``train()`` steps each of reduced mixtral and gemma in bf16 on a ring
    of 4 (fused bus): finite losses, one gossip_mix launch per step, a
    fused step against an einsum step within the bf16 tolerance.
-14. report — the run's time, one JSON line of kernels, the nvidia-smi line,
+14. slice 9 — MLA, Mamba-2 and the RG-LRU hybrid at their published widths
+   and full depth, bf16, random weights drawn on the card, one model at a
+   time, each through one ``WaveBatcher`` wave with slice 8's gates:
+   deepseek-v2-lite-16b (2 x 3072 + 32; MLA's prefill takes the flash
+   kernel at qk head dim 192 with v zero-padded from 128: one launch per
+   layer), mamba2-2.7b (4 x 3072 + 32, no attention: no launch; its prompt
+   and 8 recurrent decode steps against one re-prefill of the extended
+   sequence through the chunked form, within twice the re-prefill's
+   float32 distance plus 1e-5) and recurrentgemma-2b (4 x 3072 + 32: one
+   launch per local layer at hd 256, MQA, window 2048, so the ring wraps
+   in prefill; 8 decode steps through the ring against a full-length
+   cache with the window mask). Then deepseek-v2-lite through a
+   ``ContinuousBatcher`` over the paged MLA cache (4 slots, ``max_len``
+   512, buckets up to 256, 8 requests; its 64-expert MoE inside the CUDA
+   graph): every request in full, one graph replay per decode,
+   ``bucket_misses == 0``, graph step = eager step bit for bit, paged
+   against dense next logits within twice the dense route's float32
+   distance; it times a graph decode step and profiles one. For each MoE
+   config (mixtral in slice 8 too) it prints, not gated, per MoE layer the
+   tokens whose router picks differ between the kernel and blockwise
+   prefills. Last, 5 ``train()`` steps of mamba2-2.7b at its published
+   widths cut to 4 layers, and of reduced deepseek-v2-lite and
+   recurrentgemma, in bf16 on a ring of 4 (fused bus): finite losses, one
+   gossip_mix launch per step, a fused step against an einsum step within
+   the bf16 tolerance.
+15. report — the run's time, one JSON line of kernels, the nvidia-smi line,
    and last the ``{"ok": true, ...}`` line.
 
 ``--collect`` runs ``gc.collect()`` before each part (and the microbatch=2
@@ -139,11 +164,16 @@ kernel-test tolerances, float32 atol 2e-5 and bf16 3e-2, and holds bf16
 besides to one bf16 ulp of the plain value plus 1e-4, element by element;
 at the serving prefill's shape it runs both dtypes, each on its own kernel
 (bf16: wgmma tensor cores and TMA; float32: CUDA cores), and prints each
-one's time and TFLOP/s. Its cases cover head dims 16 to 256; it also times
-the bf16 kernel at slice 8's prefill shapes (gemma-2b's, nemotron's and
-mixtral's windowed one) beside its bound, its plain version and
-``scaled_dot_product_attention`` (with an explicit boolean mask for the
-window, which that call has no argument for).
+one's time and TFLOP/s, each beside its bound (bf16 at the tensor cores'
+rate, float32 at the CUDA cores') and ``scaled_dot_product_attention`` in
+the same dtype. Its cases cover head dims 16 to 256 (hd 256 in MQA with a
+2048-token window among them) and v zero-padded from 128 to 192, as MLA's
+prefill passes it; it also times the bf16 kernel at slice 8's and slice
+9's prefill shapes (gemma-2b's, nemotron's, mixtral's windowed one,
+deepseek-v2-lite's MLA with the padded v, recurrentgemma's windowed MQA)
+beside its bound, its plain version and ``scaled_dot_product_attention``
+(with an explicit boolean mask for a window, which that call has no
+argument for; with v at its own head dim 128 for MLA).
 """
 from __future__ import annotations
 
@@ -200,11 +230,28 @@ S8_SERVE = [
     ("nemotron-4-340b", 2, 2, 2048, 16),
     ("mixtral-8x7b", 8, 2, 6144, 64),
 ]
-S8_RING_STEPS = 8       # mixtral decode steps past the window: ring vs full-length cache
+CHECK_STEPS = 8         # decode steps of the ring (mixtral, recurrentgemma) and recurrent checks
 S8_CB_SLOTS, S8_CB_MAX_LEN, S8_CB_PAGE, S8_CB_BUCKET = 4, 512, 16, 256
 S8_CB_REQUESTS = 8
 S8_TRAIN = ("mixtral-8x7b", "gemma-2b")   # reduced widths: a correctness check
 S8_TRAIN_BATCH, S8_TRAIN_SEQ = 4, 64
+# Slice 9 (PERF.md, Cells): MLA, Mamba-2 and the RG-LRU hybrid at their
+# published widths and full depth, one wave each, in S8_SERVE's form
+S9_SERVE = [
+    ("deepseek-v2-lite-16b", None, 2, 3072, 32),
+    ("mamba2-2.7b", None, 4, 3072, 32),
+    ("recurrentgemma-2b", None, 4, 3072, 32),
+]
+S9_CONTINUOUS = "deepseek-v2-lite-16b"   # paged MLA, MoE in the graph; S8_CB_* sizes
+# training: mamba2 at its published widths cut in depth (M replicas and state
+# fit one card), the others reduced in width (2 full-width layers at M = 4
+# already hold 4.3 B / 3.6 B params): (config, layers or None for reduced,
+# per-worker batch, sequence length)
+S9_TRAIN = [
+    ("mamba2-2.7b", 4, 2, 512),
+    ("deepseek-v2-lite-16b", None, S8_TRAIN_BATCH, S8_TRAIN_SEQ),
+    ("recurrentgemma-2b", None, S8_TRAIN_BATCH, S8_TRAIN_SEQ),
+]
 # ``--collect`` runs gc.collect() before each part, as the script did while
 # the tree helpers held leaves in reference cycles: each part's peak with
 # and without it shows whether a cycle holds device memory again.
@@ -564,24 +611,39 @@ FLASH_CASES = [
     (1, 385, 385, 2, 2, 256, True, 200),
     (1, 150, 70, 4, 2, 256, True, 5),
     (1, 200, 130, 2, 1, 192, False, 40),
+    # recurrentgemma-2b's local layers: MQA at hd 256, window 2048, rows past it
+    (1, 2300, 2300, 2, 1, 256, True, 2048),
 ]
-# The flash kernel's shapes on slice 8's prefill paths (B, L, H, Hkv, hd,
-# window): gemma-2b's wave, nemotron-4-340b's, mixtral-8x7b's windowed one.
+# MLA's prefill (deepseek-v2-lite): qk head dim 192, v's 128 zero-padded to
+# 192 (B, L, H, hd, hd_v): the output's padding columns must be exact zeros
+FLASH_PADDED_V_CASES = [
+    (1, 200, 4, 192, 128),
+    (2, 333, 2, 192, 128),
+]
+# The flash kernel's shapes on slice 8's and slice 9's prefill paths (B, L,
+# H, Hkv, hd, window, hd_v): gemma-2b's wave, nemotron-4-340b's,
+# mixtral-8x7b's windowed one, deepseek-v2-lite's MLA (v padded from 128),
+# recurrentgemma-2b's windowed MQA.
 FLASH_PATHS = [
-    ("gemma-2b", 4, 3072, 8, 1, 256, None),
-    ("nemotron-4-340b", 2, 2048, 96, 8, 192, None),
-    ("mixtral-8x7b", 2, 6144, 32, 8, 128, 4096),
+    ("gemma-2b", 4, 3072, 8, 1, 256, None, 256),
+    ("nemotron-4-340b", 2, 2048, 96, 8, 192, None, 192),
+    ("mixtral-8x7b", 2, 6144, 32, 8, 128, 4096, 128),
+    ("deepseek-v2-lite-16b", 2, 3072, 16, 16, 192, None, 128),
+    ("recurrentgemma-2b", 4, 3072, 10, 1, 256, 2048, 256),
 ]
 
 
-def _attn_inputs(B, Lq, Lkv, H, Hkv, hd, dtype, gen):
+def _attn_inputs(B, Lq, Lkv, H, Hkv, hd, dtype, gen, hd_v=None):
     """q, k, v in the model's (B, L, H, hd) layout, as the (B, H, L, hd)
-    views ops.attention hands the kernel."""
+    views ops.attention hands the kernel; with ``hd_v`` < hd, v's columns
+    past hd_v are zeros, as MLA's prefill pads them."""
     import torch
 
     q = torch.randn((B, Lq, H, hd), generator=gen, device="cuda").to(dtype)
     k = torch.randn((B, Lkv, Hkv, hd), generator=gen, device="cuda").to(dtype)
-    v = torch.randn((B, Lkv, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, Lkv, Hkv, hd_v or hd), generator=gen, device="cuda").to(dtype)
+    if hd_v is not None and hd_v < hd:
+        v = torch.cat([v, v.new_zeros((B, Lkv, Hkv, hd - hd_v))], dim=-1)
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
 
@@ -623,9 +685,19 @@ def phase_flash_check(card: str) -> dict:
             ref = attention_reference(q, k, v, causal=causal, window=window)
             err = _flash_err(out, ref, dtype, (B, Lq, Lkv, H, Hkv, hd, causal, window))
             worst[dtype] = max(worst.get(dtype, 0.0), err)
+        for B, L, H, hd, hd_v in FLASH_PADDED_V_CASES:
+            q, k, v = _attn_inputs(B, L, L, H, H, hd, dtype, gen, hd_v=hd_v)
+            out = flash_attention(q, k, v, causal=True)
+            ref = attention_reference(q, k, v, causal=True)
+            err = _flash_err(out, ref, dtype, (B, L, L, H, H, hd, True, None))
+            if bool(out[..., hd_v:].any()):
+                raise AssertionError(f"flash_attention with v zero-padded from {hd_v} to "
+                                     f"{hd}: the padding columns of its output are not zero")
+            worst[dtype] = max(worst[dtype], err)
     log(f"[kernel] flash_attention matches its plain version on {len(FLASH_CASES)} cases "
-        f"x 2 dtypes (max|err| float32 {worst[torch.float32]:.3g}, bf16 "
-        f"{worst[torch.bfloat16]:.3g})")
+        f"and {len(FLASH_PADDED_V_CASES)} with v zero-padded (MLA) x 2 dtypes (max|err| "
+        f"float32 {worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}); the padded "
+        f"columns come out exactly zero")
 
     # The serving slice's prefill: granite-3-2b, B = SERVE_SLOTS, L = PROMPT_LEN.
     cfg = serve_config()
@@ -645,6 +717,10 @@ def phase_flash_check(card: str) -> dict:
         f"bf16 {err:.3g}")
     ops = 4 * B * H * hd * (L * (L + 1) // 2)   # q·k and p·v over the causal pairs
     ms32 = time_cuda(lambda: flash_attention(q32, k32, v32, causal=True), iters=5)
+    library32_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+        q32, k32, v32, is_causal=True, enable_gqa=True), iters=5)
+    bound32_ms, bound32_by = _bound(2 * q32.numel() * 4 + 2 * k32.numel() * 4, ops, card,
+                                    peak=F32_PEAK)
     del q32, k32, v32
     torch.cuda.empty_cache()
     ms = time_cuda(lambda: flash_attention(q, k, v, causal=True), iters=20)
@@ -656,8 +732,9 @@ def phase_flash_check(card: str) -> dict:
     log(f"[kernel] flash_attention bf16 (wgmma) {ms:.3f} ms, {ops / ms / 1e9:.1f} TFLOP/s "
         f"(bound {bound_ms:.3f} ms by {bound_by}; it issues 1.5x these FLOP on the tensor "
         f"cores, P·V twice for the split P); float32 (CUDA cores) {ms32:.3f} ms, "
-        f"{ops / ms32 / 1e9:.1f} TFLOP/s; plain version {plain_ms:.3f} ms; "
-        f"scaled_dot_product_attention {library_ms:.3f} ms")
+        f"{ops / ms32 / 1e9:.1f} TFLOP/s (bound {bound32_ms:.3f} ms by {bound32_by} at the "
+        f"CUDA cores' {F32_PEAK / 1e12:.0f} TFLOP/s); plain version {plain_ms:.3f} ms; "
+        f"scaled_dot_product_attention {library_ms:.3f} ms bf16, {library32_ms:.3f} ms float32")
     del q, k, v
     torch.cuda.empty_cache()
     paths = [_flash_path(card, gen, *shape) for shape in FLASH_PATHS]
@@ -666,7 +743,8 @@ def phase_flash_check(card: str) -> dict:
             "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-            "float32_ms": ms32, "path_shapes": paths}
+            "float32_ms": ms32, "float32_bound_ms": bound32_ms, "float32_bound_by": bound32_by,
+            "float32_library_ms": library32_ms, "path_shapes": paths}
 
 
 def _causal_pairs(L: int, window: int | None) -> int:
@@ -677,17 +755,20 @@ def _causal_pairs(L: int, window: int | None) -> int:
     return w * (w + 1) // 2 + (L - w) * w
 
 
-def _flash_path(card: str, gen, name, B, L, H, Hkv, hd, window) -> dict:
-    """The bf16 kernel at one path shape of slice 8: held to its plain
-    version, timed beside it, its bound and one library call. The library
-    has no window argument, so the windowed shape's library time is
-    scaled_dot_product_attention with an explicit boolean mask."""
+def _flash_path(card: str, gen, name, B, L, H, Hkv, hd, window, hd_v) -> dict:
+    """The bf16 kernel at one path shape of slices 8 and 9: held to its
+    plain version, timed beside it, its bound and one library call. The
+    library has no window argument, so a windowed shape's library time is
+    scaled_dot_product_attention with an explicit boolean mask. With hd_v
+    < hd (MLA) the kernel and its plain version take v zero-padded to hd,
+    as the model passes it, and the library takes v at its own head dim;
+    the bound counts the work at hd_v: 2·(hd + hd_v) FLOP per pair and head."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import attention_reference, flash_attention
 
-    q, k, v = _attn_inputs(B, L, L, H, Hkv, hd, torch.bfloat16, gen)
+    q, k, v = _attn_inputs(B, L, L, H, Hkv, hd, torch.bfloat16, gen, hd_v=hd_v)
     shape = (B, L, L, H, Hkv, hd, True, window)
     ref = attention_reference(q, k, v, causal=True, window=window)
     err = _flash_err(flash_attention(q, k, v, causal=True, window=window), ref,
@@ -697,29 +778,33 @@ def _flash_path(card: str, gen, name, B, L, H, Hkv, hd, window) -> dict:
     ms = time_cuda(lambda: flash_attention(q, k, v, causal=True, window=window), iters=10)
     plain_ms = time_cuda(lambda: attention_reference(q, k, v, causal=True, window=window),
                          iters=1, warmup=1)
+    v_own = v[..., :hd_v]
     if window is None:
         library = "scaled_dot_product_attention(is_causal, enable_gqa)"
         library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), iters=10)
+            q, k, v_own, is_causal=True, enable_gqa=True), iters=10)
     else:
         library = "scaled_dot_product_attention(attn_mask=boolean causal window mask, enable_gqa)"
         i = torch.arange(L, device="cuda")
         mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
         library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, enable_gqa=True), iters=10)
+            q, k, v_own, attn_mask=mask, enable_gqa=True), iters=10)
         del mask
-    ops = 4 * B * H * hd * _causal_pairs(L, window)
-    moved = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
+    if hd_v < hd:
+        library += f" with v at head dim {hd_v}"
+    ops = 2 * (hd + hd_v) * B * H * _causal_pairs(L, window)
+    # q, k in; v at its own head dim in; o at v's head dim out (bf16)
+    moved = (q.numel() + k.numel() + B * Hkv * L * hd_v + B * H * L * hd_v) * q.element_size()
     bound_ms, bound_by = _bound(moved, ops, card, peak=BF16_PEAK)
     log(f"[kernel] flash_attention bf16 at {name}'s prefill q {(B, L, H, hd)} k/v "
-        f"{(B, L, Hkv, hd)} causal window {window}: max|err| {err:.3g} vs plain; "
-        f"{ms:.3f} ms, {ops / ms / 1e9:.1f} TFLOP/s (bound {bound_ms:.3f} ms by {bound_by}); "
-        f"plain version {plain_ms:.3f} ms; {library} {library_ms:.3f} ms")
-    del q, k, v
+        f"{(B, L, Hkv, hd)} (v's own head dim {hd_v}) causal window {window}: max|err| "
+        f"{err:.3g} vs plain; {ms:.3f} ms, {ops / ms / 1e9:.1f} TFLOP/s (bound {bound_ms:.3f} "
+        f"ms by {bound_by}); plain version {plain_ms:.3f} ms; {library} {library_ms:.3f} ms")
+    del q, k, v, v_own
     torch.cuda.empty_cache()
-    return {"path": name, "shape": [B, L, H, Hkv, hd], "window": window, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "library": library}
+    return {"path": name, "shape": [B, L, H, Hkv, hd], "hd_v": hd_v, "window": window,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms, "library": library}
 
 
 def slice_config():
@@ -1843,20 +1928,50 @@ def phase_slice8() -> dict:
     t0 = time.perf_counter()
     by_path = {}
     for name, layers, slots, prompt_len, n_new in S8_SERVE:
-        by_path[f"slice8_serve_{name}"] = _s8_serve(name, layers, slots, prompt_len, n_new)
-    by_path["slice8_continuous_gemma-2b"] = _s8_continuous()
+        by_path[f"slice8_serve_{name}"] = _serve_wave("slice8", name, layers, slots,
+                                                      prompt_len, n_new)
+    by_path["slice8_continuous_gemma-2b"] = _continuous_family("slice8", "gemma-2b")
     for name in S8_TRAIN:
-        by_path[f"slice8_train_{name}"] = _s8_train(name)
+        by_path[f"slice8_train_{name}"] = _train_family("slice8", name, None, S8_TRAIN_BATCH,
+                                                        S8_TRAIN_SEQ)
     log(f"[slice8] the phase took {time.perf_counter() - t0:.1f} s")
     return by_path
 
 
-def _s8_serve(name, layers, slots, prompt_len, n_new) -> dict:
+def phase_slice9() -> dict:
+    """Slice 9: MLA, Mamba-2 and the RG-LRU hybrid. A: each family at its
+    published widths and full depth through one WaveBatcher wave (slice 8's
+    gates, the ring check for the hybrid, the recurrent-decode check for
+    Mamba-2); B: deepseek-v2-lite through ContinuousBatcher over the paged
+    MLA cache; C: training of mamba2 at published widths (4 layers) and of
+    reduced deepseek-v2-lite and recurrentgemma on the fused bus. Returns
+    launches by path."""
+    t0 = time.perf_counter()
+    by_path = {}
+    for name, layers, slots, prompt_len, n_new in S9_SERVE:
+        by_path[f"slice9_serve_{name}"] = _serve_wave("slice9", name, layers, slots,
+                                                      prompt_len, n_new)
+    by_path[f"slice9_continuous_{S9_CONTINUOUS}"] = _continuous_family(
+        "slice9", S9_CONTINUOUS, paged_check=True)
+    for name, layers, batch, seq in S9_TRAIN:
+        by_path[f"slice9_train_{name}"] = _train_family("slice9", name, layers, batch, seq)
+    log(f"[slice9] the phase took {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
+def _attention_layers(cfg) -> int:
+    """Layers whose prefill takes the flash kernel: the attention kinds."""
+    return sum(kind in ("attn", "local") for kind in cfg.layer_kinds)
+
+
+def _serve_wave(slice_tag, name, layers, slots, prompt_len, n_new) -> dict:
     """One WaveBatcher wave of ``slots`` requests (the main path, its
-    launches counted), then generate() of the same wave (same tokens, finite
-    logprobs), the kernel-vs-blockwise prefill check, a profiled prefill
-    (the wgmma kernel once per layer, no float32 one) and, for a windowed
-    config, the ring cache against a full-length cache."""
+    launches counted: one flash_attention per attention layer, nothing
+    else), then generate() of the same wave (same tokens, finite logprobs),
+    the serving-vs-training-route prefill check, a profiled prefill (the
+    wgmma kernel once per attention layer, no float32 one), and for a
+    windowed config the ring cache against a full-length cache, for a
+    Mamba-2 config its recurrent decode against a re-prefill."""
     import numpy as np
     import torch
 
@@ -1866,7 +1981,7 @@ def _s8_serve(name, layers, slots, prompt_len, n_new) -> dict:
     from repro_torch.models.params import count_params
     from repro_torch.serving import WaveBatcher, generate
 
-    tag = f"slice8 {name}"
+    tag = f"{slice_tag} {name}"
     fresh_gb(f"{name}", tag)
     cfg = get_config(name) if layers is None else get_config(name, n_layers=layers)
     t0 = time.perf_counter()
@@ -1875,12 +1990,14 @@ def _s8_serve(name, layers, slots, prompt_len, n_new) -> dict:
     init_s = time.perf_counter() - t0
     init_gb = torch.cuda.max_memory_allocated() / 1e9
     prompts, _ = token_stream(S=slots, seq_len=prompt_len - 1, vocab=cfg.vocab_size, seed=1)
-    log(f"[{tag}] layers {cfg.n_layers} of {get_config(name).n_layers}, d_model={cfg.d_model} "
-        f"heads={cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim} {cfg.mlp_type} d_ff={cfg.d_ff} "
-        f"experts={cfg.n_experts} window={cfg.window} vocab={cfg.vocab_size} "
-        f"{cfg.param_dtype}: {count_params(Mo.model_defs(cfg)):,} params, initialised on the "
-        f"card in {init_s:.1f} s (peak {init_gb:.2f} GB); a wave of {slots} x {prompt_len} "
-        f"prompt + {n_new} new tokens")
+    n_attn = _attention_layers(cfg)
+    kinds = ", ".join(f"{k} x{cfg.layer_kinds.count(k)}" for k in dict.fromkeys(cfg.layer_kinds))
+    log(f"[{tag}] layers {cfg.n_layers} of {get_config(name).n_layers} ({kinds}), d_model="
+        f"{cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim} {cfg.attention_type} "
+        f"{cfg.mlp_type} d_ff={cfg.d_ff} experts={cfg.n_experts} window={cfg.window} vocab="
+        f"{cfg.vocab_size} {cfg.param_dtype}: {count_params(Mo.model_defs(cfg)):,} params, "
+        f"initialised on the card in {init_s:.1f} s (peak {init_gb:.2f} GB); a wave of {slots} "
+        f"x {prompt_len} prompt + {n_new} new tokens")
 
     wb = WaveBatcher(params, cfg, slots, prompt_len + n_new)
     rids = [wb.submit(p, n_new) for p in prompts]
@@ -1891,14 +2008,14 @@ def _s8_serve(name, layers, slots, prompt_len, n_new) -> dict:
     wave_s = time.perf_counter() - t0
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    if launches != {"gossip_mix": 0, "quant_pack": 0, "flash_attention": cfg.n_layers}:
+    if launches != {"gossip_mix": 0, "quant_pack": 0, "flash_attention": n_attn}:
         raise AssertionError(f"{name}'s wave launched {launches}, want one flash_attention "
-                             f"per layer ({cfg.n_layers}) and nothing else")
+                             f"per attention layer ({n_attn}) and nothing else")
     if sorted(wb.done) != rids or any(len(wb.done[r]) != n_new for r in rids):
         raise AssertionError(f"{name}: WaveBatcher did not serve every request in full")
     log(f"[{tag}] wave: {wave_s * 1e3:.1f} ms, {slots * n_new / wave_s:,.1f} generated tokens/s "
-        f"end to end, flash_attention launches {launches['flash_attention']} (one per layer), "
-        f"peak memory {peak_gb:.2f} GB")
+        f"end to end, flash_attention launches {launches['flash_attention']} (one per attention "
+        f"layer), peak memory {peak_gb:.2f} GB")
 
     tok = torch.from_numpy(prompts).cuda()
     with torch.no_grad():
@@ -1910,14 +2027,33 @@ def _s8_serve(name, layers, slots, prompt_len, n_new) -> dict:
         log(f"[{tag}] the wave again through generate(): the same tokens, logprobs finite "
             f"(mean {res.logprobs.mean():.4f})")
         check_prefill(params, cfg, tok, prompt_len + n_new, tag)
+        if cfg.n_experts:
+            count_route_flips(params, cfg, tok, prompt_len + n_new, tag)
         rows = profile_call(f"{name} prefill wave",
                             lambda: Mo.prefill(params, cfg, tok, max_len=prompt_len + n_new))
-        check_flash_route(rows, cfg.n_layers, tag)
+        check_flash_route(rows, n_attn, tag)
+        fed = torch.from_numpy(res.tokens[:, :CHECK_STEPS]).cuda()
         if cfg.window:
-            fed = torch.from_numpy(res.tokens[:, :S8_RING_STEPS]).cuda()
-            _s8_check_ring(params, cfg, tok, fed, tag)
+            _check_ring(params, cfg, tok, fed, tag)
+        if "ssm" in cfg.layer_kinds:
+            _check_recurrent_decode(params, cfg, tok, fed, tag)
     del params, wb, res
     return launches
+
+
+def _f32_caches(cfg, batch: int, max_len: int, device) -> list:
+    """One empty float32 cache per layer, in layer order, for _f32_forward:
+    full-length KV caches (a windowed layer masks instead of a ring), the
+    recurrent kinds' own caches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import model as Mo
+
+    full = dataclasses.replace(cfg, window=None)
+    return [Mo._layer_cache(full, kind, batch, max_len, torch.float32, torch.device(device))
+            for kind in cfg.layer_kinds]
 
 
 def _f32_forward(params, cfg, tok, caches=None):
@@ -1925,7 +2061,7 @@ def _f32_forward(params, cfg, tok, caches=None):
     the bf16 weights run in float32, each layer's weights upcast only while
     it runs, the vocab in chunks (a float32 copy of nemotron's or mixtral's
     cut model would not fit beside the bf16 one). ``caches``: one float32
-    KVCache per layer, in layer order."""
+    cache per layer, in layer order (:func:`_f32_caches`)."""
     import dataclasses
 
     import torch
@@ -1954,7 +2090,13 @@ def _f32_forward(params, cfg, tok, caches=None):
     return logits[:, -1], (new if caches else None)
 
 
-def _s8_check_ring(params, cfg, tok, fed, tag) -> None:
+def _layer_caches(caches) -> list:
+    """The per-layer caches of a segment list, a scanned segment's stacked
+    cache counted once."""
+    return [c for seg in caches for c in (seg if isinstance(seg, list) else [seg])]
+
+
+def _check_ring(params, cfg, tok, fed, tag) -> None:
     """A windowed model's prompt (longer than the window: the ring wraps in
     the prefill) and ``fed``'s decode steps (wrapping it again) through the
     ring cache, against the same steps through a full-length cache with the
@@ -1965,7 +2107,6 @@ def _s8_check_ring(params, cfg, tok, fed, tag) -> None:
 
     import torch
 
-    from repro_torch import _tree
     from repro_torch.models import attention as A
     from repro_torch.models import model as Mo
 
@@ -1973,20 +2114,20 @@ def _s8_check_ring(params, cfg, tok, fed, tag) -> None:
     steps = fed.shape[1]
     max_len = Lp + steps
     logits, ring = Mo.prefill(params, cfg, tok, max_len=max_len)
-    if _tree.leaves(ring)[0].shape[-3] != cfg.window or Lp < cfg.window:   # k: ..., S, Kh, hd
+    kv = [c for c in _layer_caches(ring) if isinstance(c, A.KVCache)]
+    if not kv or kv[0].k.shape[-3] != cfg.window or Lp < cfg.window:   # k: ..., S, Kh, hd
         raise AssertionError(f"{tag}: the check wants a ring cache that wraps in the prefill")
     for t in range(steps):
         logits, ring = Mo.decode_step(params, cfg, ring, fed[:, t:t + 1])
     got = logits[:, -1]
-    del ring
+    del ring, kv
     full = Mo.init_cache(params, dataclasses.replace(cfg, window=None), B, max_len)
     h, full = Mo.forward(params, cfg, tok, caches=full)
     for t in range(steps):
         logits, full = Mo.decode_step(params, cfg, full, fed[:, t:t + 1])
     want = logits[:, -1]
     del full, h
-    n_layers = cfg.n_layers
-    c32 = [A.init_kv_cache(cfg, B, max_len, torch.float32, tok.device) for _ in range(n_layers)]
+    c32 = _f32_caches(cfg, B, max_len, tok.device)
     exact, c32 = _f32_forward(params, cfg, tok, c32)
     for t in range(steps):
         exact, c32 = _f32_forward(params, cfg, fed[:, t:t + 1], c32)
@@ -2001,11 +2142,43 @@ def _s8_check_ring(params, cfg, tok, fed, tag) -> None:
         raise AssertionError(f"{tag}: ring decode off the full-length cache: {e_rf} > {tol}")
 
 
-def _s8_continuous() -> dict:
-    """gemma-2b (MQA at hd 256, scaled embeddings) through ContinuousBatcher:
-    the paged path and its CUDA graph. Gates: every request in full, one
-    graph replay per decode, bucket_misses == 0, graph step = eager step bit
-    for bit."""
+def _check_recurrent_decode(params, cfg, tok, fed, tag) -> None:
+    """Mamba-2's O(1) recurrent decode against its chunked form: the prompt
+    prefilled and ``fed``'s tokens decoded one at a time through the SSM
+    state, against one prefill of the prompt extended by the same tokens,
+    both bf16. Tolerance: twice the re-prefill's distance from a float32
+    forward of the extended sequence, plus 1e-5."""
+    import torch
+
+    from repro_torch.models import model as Mo
+
+    B, Lp = tok.shape
+    steps = fed.shape[1]
+    logits, caches = Mo.prefill(params, cfg, tok, max_len=Lp + steps)
+    for t in range(steps):
+        logits, caches = Mo.decode_step(params, cfg, caches, fed[:, t:t + 1])
+    got = logits[:, -1]
+    del caches
+    ext = torch.cat([tok, fed.to(tok.dtype)], dim=1)
+    want = Mo.prefill(params, cfg, ext, max_len=Lp + steps)[0][:, -1]
+    exact = _f32_forward(params, cfg, ext)[0]
+    e_rw = (got - want).abs().max().item()
+    e_wf = (want - exact).abs().max().item()
+    tol = 2 * e_wf + 1e-5
+    log(f"[{tag}] {Lp}-token prompt + {steps} recurrent decode steps vs one prefill of the "
+        f"{Lp + steps} tokens (chunked): max|err| {e_rw:.4g} (tol {tol:.4g}); vs float32: "
+        f"recurrent {(got - exact).abs().max().item():.4g}, re-prefill {e_wf:.4g}; argmax agree "
+        f"{int((got.argmax(-1) == want.argmax(-1)).sum())}/{B}")
+    if not bool(torch.isfinite(got).all()) or e_rw > tol:
+        raise AssertionError(f"{tag}: recurrent decode off the re-prefill: {e_rw} > {tol}")
+
+
+def _continuous_family(slice_tag, name, paged_check: bool = False) -> dict:
+    """``name`` at its published widths and full depth through
+    ContinuousBatcher: the paged path and its CUDA graph. Gates: every
+    request in full, one graph replay per decode, bucket_misses == 0, graph
+    step = eager step bit for bit; with ``paged_check``, paged against dense
+    next logits as slice 7 holds them."""
     import numpy as np
     import torch
 
@@ -2014,9 +2187,9 @@ def _s8_continuous() -> dict:
     from repro_torch.serving import ContinuousBatcher
     from repro_torch.serving.batcher import default_buckets
 
-    tag = "slice8 continuous"
-    fresh_gb("gemma-2b continuous", tag)
-    cfg = get_config("gemma-2b")
+    tag = f"{slice_tag} continuous"
+    fresh_gb(f"{name} continuous", tag)
+    cfg = get_config(name)
     params = Mo.init(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
@@ -2037,29 +2210,38 @@ def _s8_continuous() -> dict:
     stats = cb.stats()
     steps = len(cb._occupancy)
     if sorted(cb.done) != rids or any(len(cb.done[r]) != n for r, n in zip(rids, n_news)):
-        raise AssertionError("gemma ContinuousBatcher did not serve every request in full")
+        raise AssertionError(f"{name} ContinuousBatcher did not serve every request in full")
     if (stats["bucket_misses"], stats["decode"]) != (0, "cuda graph") or \
             (stats["decode_replays"], stats["eager_decodes"]) != (steps, 0):
-        raise AssertionError(f"gemma ContinuousBatcher after the pass ({steps} decodes): {stats}")
+        raise AssertionError(f"{name} ContinuousBatcher after the pass ({steps} decodes): {stats}")
     if any(launches.values()):
-        raise AssertionError(f"gemma continuous serving launched {launches}")
+        raise AssertionError(f"{name} continuous serving launched {launches}")
     if not all(np.isfinite(cb.done_logprobs[r]).all() for r in rids):
-        raise AssertionError("gemma continuous: non-finite logprobs")
-    log(f"[{tag}] gemma-2b, {S8_CB_SLOTS} slots, max_len {S8_CB_MAX_LEN}, buckets {buckets}: "
+        raise AssertionError(f"{name} continuous: non-finite logprobs")
+    log(f"[{tag}] {name}, {S8_CB_SLOTS} slots, max_len {S8_CB_MAX_LEN}, buckets {buckets}: "
         f"{S8_CB_REQUESTS} requests ({sum(n_news)} tokens) in {wall:.3f} s, {steps} decode "
         f"steps, {stats['decode_replays']} graph replays, {stats['eager_decodes']} eager, "
         f"bucket misses {stats['bucket_misses']}; peak "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     with torch.no_grad():
+        if paged_check:
+            # decode timings on the emptied state (the shapes are the pool's)
+            graph_ms = time_cuda(cb._decode, 20)
+            eager_ms = time_cuda(lambda: cb.decode_eager(*cb.state()), 5, warmup=1)
+            log(f"[{tag}] decode step ({S8_CB_SLOTS} slots): CUDA graph replay {graph_ms:.3f} "
+                f"ms, the same step eagerly {eager_ms:.3f} ms")
+            profile_call(f"{name} one graph decode step", cb._decode)
+            check_paged_vs_dense(params, cfg, cb, prompts[0])
         check_graph_vs_eager(cb, prompts[:S8_CB_SLOTS])
     del cb, params
     return launches
 
 
-def _s8_train(name) -> dict:
-    """Five train() steps of the reduced config in bf16 on a ring of
-    M_WORKERS (fused bus): finite losses, one gossip_mix launch per step,
-    and a fused step against an einsum step within the bf16 tolerance."""
+def _train_family(slice_tag, name, layers, batch_size, seq_len) -> dict:
+    """Five train() steps in bf16 on a ring of M_WORKERS (fused bus) of the
+    config at its published widths cut to ``layers`` layers, or reduced
+    (``layers`` None): finite losses, one gossip_mix launch per step, and a
+    fused step against an einsum step within the bf16 tolerance."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2069,18 +2251,22 @@ def _s8_train(name) -> dict:
     from repro_torch.core.gossip import GossipSpec
     from repro_torch.data import WorkerBatcher, pad_to_equal, random_split, token_stream
     from repro_torch.models import model as Mo
+    from repro_torch.models.params import count_params
     from repro_torch.optim import momentum_sgd
     from repro_torch.train import train
 
-    tag = f"slice8 train {name}"
+    tag = f"{slice_tag} train {name}"
     fresh_gb(f"{name} training", tag)
-    cfg = get_config(name, reduced=True, param_dtype="bfloat16", compute_dtype="bfloat16")
+    if layers is None:
+        cfg = get_config(name, reduced=True, param_dtype="bfloat16", compute_dtype="bfloat16")
+    else:
+        cfg = get_config(name, n_layers=layers)
     params0 = replicate_for_workers(
         Mo.init(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda"), M_WORKERS)
-    toks, _ = token_stream(S=M_WORKERS * S8_TRAIN_BATCH * 8, seq_len=S8_TRAIN_SEQ,
+    toks, _ = token_stream(S=M_WORKERS * batch_size * 8, seq_len=seq_len,
                            vocab=cfg.vocab_size, seed=0)
     batcher = WorkerBatcher((toks,), pad_to_equal(random_split(len(toks), M_WORKERS)),
-                            batch_size=S8_TRAIN_BATCH, seed=0)
+                            batch_size=batch_size, seed=0)
 
     def batches():
         while True:
@@ -2092,9 +2278,13 @@ def _s8_train(name) -> dict:
     opt = momentum_sgd(LR, 0.9)
     topo = T.undirected_ring(M_WORKERS)
     spec = GossipSpec(topology=topo, backend="fused")
+    torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    t0 = time.perf_counter()
     state, hist = train(loss, params0, opt, batches(), steps=STEPS, gossip=spec,
                         log_every=STEPS, device="cuda", verbose=False)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
     launches = read_launches()
     if not all(math.isfinite(x) for x in hist.loss):
         raise AssertionError(f"{tag}: non-finite loss {hist.loss}")
@@ -2108,10 +2298,12 @@ def _s8_train(name) -> dict:
     if not finite or err > TOL["bfloat16"]:
         raise AssertionError(f"{tag}: fused step vs einsum step max|err| {err}, finite {finite}")
     log(f"[{tag}] {cfg.name} (d_model {cfg.d_model}, {cfg.n_layers} layers, experts "
-        f"{cfg.n_experts}, window {cfg.window}) bf16, M={M_WORKERS} ring, fused bus: losses "
-        f"{[round(x, 4) for x in hist.loss]}, gossip_mix launches {launches['gossip_mix']} in "
-        f"{STEPS} steps; fused vs einsum step params max|err| {err:.3g} (tol {TOL['bfloat16']}), "
-        f"losses {m_f.loss.item():.4f} / {m_e.loss.item():.4f}")
+        f"{cfg.n_experts}, window {cfg.window}; {count_params(Mo.model_defs(cfg)):,} params per "
+        f"worker) bf16, M={M_WORKERS} ring, {batch_size} x {seq_len} tokens per worker, fused "
+        f"bus: {STEPS} steps in {train_s:.2f} s, losses {[round(x, 4) for x in hist.loss]}, "
+        f"gossip_mix launches {launches['gossip_mix']} in {STEPS} steps; fused vs einsum step "
+        f"params max|err| {err:.3g} (tol {TOL['bfloat16']}), losses {m_f.loss.item():.4f} / "
+        f"{m_e.loss.item():.4f}; peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     del state, s_f, s_e, params0
     return launches
 
@@ -2121,8 +2313,6 @@ def check_paged_vs_dense(params, cfg, cb, prompt) -> None:
     the paged caches against the dense-cache route (prefill + decode_step of
     the same tokens), both bf16. Tolerance as check_prefill: twice the dense
     route's distance from a float32 forward of the same weights, plus 1e-5."""
-    import dataclasses
-
     import torch
 
     from repro_torch import _tree
@@ -2145,10 +2335,14 @@ def check_paged_vs_dense(params, cfg, cb, prompt) -> None:
         return logits[0, -1]
 
     dense = dense_route(params, cfg)
-    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
-    p32 = _tree.map(lambda x: x.float(), params)
-    exact = dense_route(p32, cfg32)
-    del p32
+    # the same route in float32, each layer upcast only while it runs (a
+    # float32 copy of deepseek-v2-lite would not fit beside its bf16 weights)
+    c32 = _f32_caches(cfg, 1, len(prompt) + 8, tok.device)
+    exact, c32 = _f32_forward(params, cfg, tok, c32)
+    for t in range(5):
+        exact, c32 = _f32_forward(params, cfg, fed[None, t:t + 1], c32)
+    exact = exact[0]
+    del c32
     e_pd = (paged - dense).abs().max().item()
     e_df = (dense - exact).abs().max().item()
     tol = 2 * e_df + 1e-5
@@ -2177,11 +2371,23 @@ def check_graph_vs_eager(cb, prompts) -> None:
     cb.step()                                     # the graph
     cb.decode_eager(*twin)
     torch.cuda.synchronize()
-    dump, n = cb.pool.dump, 0
-    for got, want in zip(_tree.leaves(cb.state()), _tree.leaves(twin)):
-        if got.is_floating_point() and got.dim() >= 4:
-            keep = [i for i in range(got.shape[-4]) if i != dump]
-            got, want = got[..., keep, :, :, :], want[..., keep, :, :, :]
+    keep = torch.tensor([i for i in range(cb.pool.n_pages) if i != cb.pool.dump],
+                        device=cb.cur.device)
+
+    def pairs():
+        """(graph, eager) state tensors; each paged cache's two pools without
+        the dump page (its pages dim: 1 when stacked on a layer dim, else 0)."""
+        for seg_g, seg_e in zip(cb.caches, twin[0]):
+            stacked = not isinstance(seg_g, list)
+            for g, e in (zip([seg_g], [seg_e]) if stacked else zip(seg_g, seg_e)):
+                for i, (a, b) in enumerate(zip(g, e)):
+                    if i < 2:
+                        a, b = (t.index_select(int(stacked), keep) for t in (a, b))
+                    yield a, b
+        yield from zip(cb.state()[1:], twin[1:])
+
+    n = 0
+    for got, want in pairs():
         if not torch.equal(got, want):
             raise AssertionError(f"graph and eager decode differ in a state tensor of shape "
                                  f"{tuple(got.shape)}")
@@ -2218,17 +2424,49 @@ def check_prefill(params, cfg, tok, max_len: int, tag: str) -> None:
     finite = bool(torch.isfinite(kernel).all())
     tol = 2 * e_bf + 1e-5
     log(f"[{tag}] last-position prefill logits (|logit| ≤ {exact.abs().max().item():.3f}): "
-        f"kernel vs blockwise max|err| {e_kb:.4g} (tol {tol:.4g}); vs float32: "
-        f"kernel {e_kf:.4g}, blockwise {e_bf:.4g}; argmax agree "
+        f"serving route (the kernel) vs training route (blockwise) max|err| {e_kb:.4g} (tol "
+        f"{tol:.4g}); vs float32: serving {e_kf:.4g}, training {e_bf:.4g}; argmax agree "
         f"{int((kernel.argmax(-1) == block.argmax(-1)).sum())}/{kernel.shape[0]}")
     if not finite or e_kb > tol:
         raise AssertionError(f"{tag}: prefill through the kernel off the blockwise route: "
                              f"{e_kb} > {tol} (finite {finite})")
 
 
+def count_route_flips(params, cfg, tok, max_len: int, tag: str) -> None:
+    """Not gated: per MoE layer, the tokens whose top-k expert set differs
+    between the serving route's prefill (the kernel) and the training
+    route's forward (blockwise). Both are bf16, so a router near-tie can
+    flip on the last bits of the attention output; a flipped token moves
+    the logits by more than rounding does."""
+    from repro_torch.models import layers as Ly
+    from repro_torch.models import model as Mo
+
+    real = Ly._route
+    runs = []
+    for fn in (lambda: Mo.prefill(params, cfg, tok, max_len=max_len),
+               lambda: Mo.forward(params, cfg, tok)):
+        picks = []
+
+        def recording(p, c, xf, picks=picks):
+            out = real(p, c, xf)
+            picks.append(out[1].sort(-1).values)      # the top-k set of each token
+            return out
+
+        Ly._route = recording
+        try:
+            fn()
+        finally:
+            Ly._route = real
+        runs.append(picks)
+    flips = [int((a != b).any(-1).sum()) for a, b in zip(*runs)]
+    log(f"[{tag}] router top-{cfg.top_k} sets, kernel vs blockwise route, tokens that differ "
+        f"per MoE layer ({tok.numel()} tokens each): {flips} (total {sum(flips)}; not gated)")
+
+
 def check_flash_route(rows, n_layers: int, tag: str = "serve") -> None:
-    """The profiled bf16 prefill ran the wgmma kernel once per layer and
-    never the float32 CUDA-core kernel."""
+    """The profiled bf16 prefill ran the wgmma kernel once per attention
+    layer (``n_layers``; none for an attention-free model) and never the
+    float32 CUDA-core kernel."""
     flash = [(name, count) for name, _, count in rows if "flash_attention_fwd" in name]
     if not rows:
         log(f"[{tag}] flash_attention route of the prefill: not measured (no profile)")
@@ -2237,8 +2475,9 @@ def check_flash_route(rows, n_layers: int, tag: str = "serve") -> None:
     if launches != n_layers or any("wgmma" not in name for name, _ in flash):
         raise AssertionError(f"the bf16 prefill ran {flash}, want {n_layers} launches of "
                              f"the wgmma kernel and nothing else")
-    log(f"[{tag}] the profiled prefill ran {launches} launches of {flash[0][0][:60]} and "
-        f"none of the float32 kernel")
+    kernel = flash[0][0][:60] if flash else "the wgmma kernel"
+    log(f"[{tag}] the profiled prefill ran {launches} launches of {kernel} and none of the "
+        f"float32 kernel")
 
 
 def check_round1(got, exact, amax: float) -> None:
@@ -2338,6 +2577,7 @@ def main() -> int:
     by_path["slice3_serve"] = phase_serve()["launches"]
     by_path["slice7_continuous"] = phase_continuous(card)["launches"]
     by_path.update(phase_slice8())
+    by_path.update(phase_slice9())
     for e in entries:
         e["launches_by_path"] = {path: n[e["name"]] for path, n in by_path.items()}
         e["launches"] = sum(e["launches_by_path"].values())

@@ -3,8 +3,11 @@
 granite-3-2b, deepseek-7b and chameleon-34b (dense SwiGLU GQA/MHA, the
 last with qk-norm), gemma-2b (GeGLU, MQA at head dim 256, scaled
 embeddings), nemotron-4-340b (squared ReLU, head dim 192) and mixtral-8x7b
-(capacity-routed MoE with sliding-window attention). The reference's other
-four configs come with their model families (ROADMAP queue 1, item 2)."""
+(capacity-routed MoE with sliding-window attention), deepseek-v2-lite-16b
+(MLA with 64 routed and 2 shared experts), mamba2-2.7b (Mamba-2 SSD, no
+attention) and recurrentgemma-2b (RG-LRU layers beside local MQA attention).
+The reference's encoder-decoder config comes with its family (ROADMAP queue
+1, item 2.7)."""
 from __future__ import annotations
 
 import dataclasses
@@ -19,6 +22,9 @@ ARCH_MODULES = {
     "nemotron-4-340b": "nemotron_4_340b",
     "mixtral-8x7b": "mixtral_8x7b",
     "chameleon-34b": "chameleon_34b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "mamba2-2.7b": "mamba2_2_7b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 ARCH_NAMES = tuple(ARCH_MODULES)

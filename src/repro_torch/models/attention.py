@@ -1,18 +1,22 @@
 """Attention: dense and blockwise GQA/MQA/MHA, sliding windows, and the KV
 caches for serving.
 
-The port of the reference's ``repro/models/attention.py`` for the GQA
-families: ``dense_attention`` (with ``kv_valid``), ``blockwise_attention``
-(the online-softmax algorithm in plain PyTorch), ``attention_any``,
+The port of the reference's ``repro/models/attention.py``:
+``dense_attention`` (with ``kv_valid``), ``blockwise_attention`` (the
+online-softmax algorithm in plain PyTorch), ``attention_any``,
 ``KVCache``/``init_kv_cache`` (a full cache, or a ring buffer of ``window``
 slots for sliding-window attention, ``_is_ring``),
 ``slot_decode_attention``, ``_ragged_kv_valid``, the paged cache of the
 continuous batcher (``PagedKVCache``, ``_paged_write``,
-``paged_decode_attention``), and ``gqa_defs``/``gqa_apply`` (with
-``qk_norm`` and ``window``) with its cache-free (training), prefill,
-cached-decode (full or ring) and paged-decode branches. Tensors keep the
-reference's ``(B, L, H, hd)`` layout. MLA (and its paged cache),
-cross-attention and the mesh decode come with later slices.
+``paged_decode_attention``), ``gqa_defs``/``gqa_apply`` (with ``qk_norm``
+and ``window``) with its cache-free (training), prefill, cached-decode
+(full or ring) and paged-decode branches, and DeepSeek-V2's multi-head
+latent attention: ``mla_defs``/``mla_apply`` with its compressed cache
+(``MLACache``, and ``PagedMLACache`` for the continuous batcher), expanded
+for training and prefill, absorbed for decode. Tensors keep the
+reference's ``(B, L, H, hd)`` layout. Cross-attention (the
+encoder-decoder, ROADMAP queue 1, item 2.7) and the mesh decode are not
+ported yet.
 
 Paged decode keeps the reference's formulation: q is scored against the
 whole page pool, the block table gathers each slot's (NB, page) scores, and
@@ -25,7 +29,10 @@ slot's pages would copy the context before reading it again.
 
 A long unmasked prefill goes through the hand-written flash kernel
 (``repro_torch.kernels.flash_attention.ops.attention``), with the layer's
-window where it has one; training keeps
+window where it has one; MLA's, whose v head dim (128) is below its qk
+head dim (192), passes v zero-padded to the qk width, since the kernel
+takes one head dim (the zero columns add nothing to p·v), and keeps the
+first ``v_head_dim`` columns of the output. Training keeps
 ``blockwise_attention``, as the reference's model does, because the kernel
 is forward only.
 
@@ -54,7 +61,8 @@ BLOCK_THRESHOLD = 1024   # kv length above which attention goes blockwise
 __all__ = ["NEG_INF", "repeat_kv", "dense_attention", "blockwise_attention",
            "attention_any", "KVCache", "init_kv_cache", "PagedKVCache",
            "paged_decode_attention", "slot_decode_attention", "gqa_defs",
-           "gqa_apply", "f32_product"]
+           "gqa_apply", "f32_product", "mla_defs", "MLACache", "init_mla_cache",
+           "PagedMLACache", "mla_apply"]
 
 
 def f32_product(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -235,6 +243,17 @@ class PagedKVCache(NamedTuple):
     v_pages: torch.Tensor       # (P, page, Kh, hd)
     block_tables: torch.Tensor  # (S, NB) int32: physical page per logical block
     lengths: torch.Tensor       # (S,) int32: tokens cached per slot
+
+
+class PagedMLACache(NamedTuple):
+    """:class:`PagedKVCache` for MLA: pages over the compressed latent and
+    the shared rope key instead of per-head keys and values. Written and
+    advanced as :class:`PagedKVCache` is."""
+
+    ckv_pages: torch.Tensor     # (P, page, kv_lora)
+    kr_pages: torch.Tensor      # (P, page, rope_dim)
+    block_tables: torch.Tensor  # (S, NB) int32
+    lengths: torch.Tensor       # (S,) int32
 
 
 def _paged_write(pages: torch.Tensor, block_tables: torch.Tensor,
@@ -427,3 +446,173 @@ def gqa_apply(params, cfg: ModelConfig, x, *, window: int | None = None,
         o = dense_attention(q, cache.k, cache.v, pos + torch.arange(L, device=x.device),
                             arange_s, causal=True, window=window, kv_valid=kv_valid)
     return torch.einsum("blhk,hkd->bld", o, params["wo"]), new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def mla_defs(cfg: ModelConfig) -> PyTree:
+    D, H = cfg.d_model, cfg.n_heads
+    r, dn, dr, dv = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    s_d = float(D) ** -0.5
+    s_r = float(r) ** -0.5
+    return {
+        "wq": ParamDef((D, H, dn + dr), ("embed", "q_heads", None), scale=s_d),
+        "w_dkv": ParamDef((D, r + dr), ("embed", "kv_lora")),
+        "kv_norm": rmsnorm_defs(r, axis="kv_lora"),
+        "w_uk": ParamDef((r, H, dn), ("kv_lora", "q_heads", None), scale=s_r),
+        "w_uv": ParamDef((r, H, dv), ("kv_lora", "q_heads", None), scale=s_r),
+        "wo": ParamDef((H, dv, D), ("q_heads", None, "embed"), scale=float(H * dv) ** -0.5),
+    }
+
+
+class MLACache(NamedTuple):
+    """MLA's compressed cache: the normed latent ``ckv`` (B, S, kv_lora) and
+    the roped shared key ``krope`` (B, S, rope_dim), with a leading layer
+    dim for a scanned segment. Written in place as :class:`KVCache`."""
+
+    ckv: torch.Tensor
+    krope: torch.Tensor
+    pos: int
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype,
+                   device: torch.device, layers: int | None = None) -> MLACache:
+    lead = (batch, max_len) if layers is None else (layers, batch, max_len)
+    return MLACache(torch.zeros(lead + (cfg.kv_lora_rank,), dtype=dtype, device=device),
+                    torch.zeros(lead + (cfg.qk_rope_dim,), dtype=dtype, device=device), 0)
+
+
+def _mla_absorbed_scores(params, q_nope, q_rope, ckv_all, kr_all, scale: float):
+    """Absorbed-form decode scores in the compressed space: (B, H, L, S)."""
+    q_abs = torch.einsum("blhk,rhk->blhr", q_nope, params["w_uk"])
+    s = (f32_product("blhr,bsr->bhls", q_abs, ckv_all)
+         + f32_product("blhk,bsk->bhls", q_rope, kr_all))
+    return s * scale
+
+
+def _mla_absorbed_out(params, p, ckv_all):
+    o_c = torch.einsum("bhls,bsr->blhr", p.to(ckv_all.dtype), ckv_all)
+    o = torch.einsum("blhr,rhk->blhk", o_c, params["w_uv"])      # W_uv absorbed
+    return torch.einsum("blhk,hkd->bld", o, params["wo"])
+
+
+def _mla_paged_attention(params, q_nope, q_rope, ckv_pages, kr_pages, block_tables,
+                         lengths, scale: float):
+    """Absorbed MLA decode over the page pools, as
+    :func:`paged_decode_attention` in the compressed (kv_lora) space:
+    scores against the whole pool in place, the block table's gather of
+    each slot's (NB, page) scores, and the probabilities scattered (out of
+    place, static shapes) into a pool-shaped buffer for the value product."""
+    S, _, H, _ = q_nope.shape
+    Pn, page, _ = ckv_pages.shape
+    NB = block_tables.shape[1]
+    q_abs = torch.einsum("blhk,rhk->blhr", q_nope, params["w_uk"])[:, 0]
+    idx = block_tables.long()[:, None, :, None].expand(S, H, NB, page)
+    # f32_product of the module note, cast after the gather it commutes with
+    s = (torch.gather(torch.einsum("shr,cpr->shcp", q_abs, ckv_pages), 2, idx).float()
+         + torch.gather(torch.einsum("shk,cpk->shcp", q_rope[:, 0], kr_pages), 2, idx).float())
+    s = s.reshape(S, H, NB * page) * scale
+    valid = torch.arange(NB * page, device=q_nope.device)[None, :] <= lengths[:, None]
+    s = s + torch.where(valid, 0.0, NEG_INF)[:, None, :]
+    p = torch.softmax(s, dim=-1).to(ckv_pages.dtype).reshape(S, H, NB, page)
+    p_pool = torch.zeros((S, H, Pn, page), dtype=ckv_pages.dtype,
+                         device=q_nope.device).scatter(2, idx, p)
+    o_c = torch.einsum("shcp,cpr->shr", p_pool, ckv_pages)
+    o = torch.einsum("shr,rhk->shk", o_c, params["w_uv"])
+    return torch.einsum("shk,hkd->sd", o, params["wo"])[:, None]
+
+
+def _mla_flash(q, k, v, scale: float) -> torch.Tensor:
+    """Causal flash attention with v's head dim below q's and k's: v goes in
+    zero-padded to their width and the padding columns come off the output
+    (ROADMAP queue 3 records the extra work)."""
+    dv = v.shape[-1]
+    v_pad = torch.cat([v, v.new_zeros(v.shape[:-1] + (q.shape[-1] - dv,))], dim=-1)
+    return flash_ops.attention(q, k, v_pad, causal=True, scale=scale)[..., :dv]
+
+
+def mla_apply(params, cfg: ModelConfig, x, *, cache: MLACache | PagedMLACache | None = None,
+              lengths: torch.Tensor | None = None, prompt_len: int | None = None):
+    """Multi-head latent attention over (B, L, D) → (out, new cache or None).
+
+    Without a cache (training) and in prefill (L > 1, an empty cache) it
+    runs in the expanded form: per-head keys and values from the latent,
+    the rope key broadcast over the heads; a long unmasked prefill goes
+    through the flash kernel. Cached decode (L == 1) runs in the absorbed
+    form, scoring q against the latent itself; ``lengths``/``prompt_len``
+    as in :func:`gqa_apply`. A :class:`PagedMLACache` takes one token per
+    slot at its own position. The scale is ``1/sqrt(qk_nope + qk_rope)``.
+    """
+    B, L, _ = x.shape
+    H = cfg.n_heads
+    r, dn, dr = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim
+    scale = float(1.0 / np.sqrt(dn + dr))
+
+    q = torch.einsum("bld,dhk->blhk", x, params["wq"])            # (B, L, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    dkv = x @ params["w_dkv"]                                      # (B, L, r + dr)
+    ckv = rmsnorm_apply(params["kv_norm"], dkv[..., :r], cfg.norm_eps)
+    k_rope_in = dkv[..., r:][:, :, None, :]                        # (B, L, 1, dr)
+
+    if isinstance(cache, PagedMLACache):
+        if L != 1:
+            raise ValueError("a paged MLA cache is decode-only (admission scatters "
+                             "a dense prefill into it)")
+        qp = cache.lengths[:, None]                                # (S, 1)
+        q_rope = rope(q_rope, qp, cfg.rope_theta)
+        k_rope_new = rope(k_rope_in, qp, cfg.rope_theta)[:, :, 0]
+        _paged_write(cache.ckv_pages, cache.block_tables, cache.lengths, ckv)
+        _paged_write(cache.kr_pages, cache.block_tables, cache.lengths, k_rope_new)
+        out = _mla_paged_attention(params, q_nope, q_rope, cache.ckv_pages, cache.kr_pages,
+                                   cache.block_tables, cache.lengths, scale)
+        return out, cache
+
+    if cache is None or L > 1:
+        q_pos = torch.arange(L, device=x.device)
+        q_rope = rope(q_rope, q_pos, cfg.rope_theta)
+        k_rope = rope(k_rope_in, q_pos, cfg.rope_theta)[:, :, 0]   # (B, L, dr)
+        k_nope = torch.einsum("blr,rhk->blhk", ckv, params["w_uk"])
+        v = torch.einsum("blr,rhk->blhk", ckv, params["w_uv"])
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, L, H, dr)], dim=-1)
+        qq = torch.cat([q_nope, q_rope], dim=-1)
+        kv_valid = None
+        if lengths is not None:      # ragged right-padded prefill: mask the pad keys
+            kv_valid = torch.arange(L, device=x.device)[None, :] < lengths[:, None]
+        if cache is not None and kv_valid is None and L > BLOCK_THRESHOLD:
+            o = _mla_flash(qq, k, v, scale)
+        else:
+            o = attention_any(qq, k, v, 0, causal=True, scale=scale, kv_valid=kv_valid)
+        new_cache = None
+        if cache is not None:
+            cache.ckv[:, :L] = ckv
+            cache.krope[:, :L] = k_rope
+            new_cache = MLACache(cache.ckv, cache.krope, cache.pos + L)
+        return torch.einsum("blhk,hkd->bld", o, params["wo"]), new_cache
+
+    # cached decode, absorbed form: scores in the compressed space
+    pos = cache.pos
+    if lengths is not None:
+        qp = (pos - (prompt_len - lengths))[:, None]               # (B, 1)
+    else:
+        qp = pos + torch.arange(L, device=x.device)
+    q_rope = rope(q_rope, qp, cfg.rope_theta)
+    k_rope_new = rope(k_rope_in, qp, cfg.rope_theta)[:, :, 0]
+    cache.ckv[:, pos:pos + L] = ckv
+    cache.krope[:, pos:pos + L] = k_rope_new
+    new_cache = MLACache(cache.ckv, cache.krope, pos + L)
+    S = cache.ckv.shape[1]
+    s = _mla_absorbed_scores(params, q_nope, q_rope, cache.ckv, cache.krope, scale)
+    if lengths is not None:
+        # ragged decode: the original pad columns [len_b, prompt_len) stay masked
+        s = s + _valid_bias(_ragged_kv_valid(S, lengths, prompt_len, pos))
+    else:
+        arange_s = torch.arange(S, device=x.device)
+        causal_ok = arange_s[None, :] <= qp[:, None]               # (L, S)
+        kv_valid = arange_s < pos + L
+        s = (s + torch.where(causal_ok, 0.0, NEG_INF)[None, None]
+             + torch.where(kv_valid, 0.0, NEG_INF)[None, None, None, :])
+    p = torch.softmax(s, dim=-1)
+    return _mla_absorbed_out(params, p, cache.ckv), new_cache

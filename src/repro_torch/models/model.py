@@ -1,23 +1,30 @@
-"""Model assembly: the GQA decoders, dense and MoE, for training and serving.
+"""Model assembly: decoders of every kind the reference runs but the
+encoder-decoder, for training and serving.
 
-The port of the reference's ``repro/models/model.py`` for the attention-only
-decoders (granite, deepseek-7b, gemma-2b, nemotron-4-340b, chameleon-34b,
-mixtral-8x7b): ``model_defs``, ``init``, ``forward`` (with or without KV
-caches), ``logits_from_hidden``, ``cross_entropy_chunked``, ``loss_fn`` (the
-MoE layers' aux loss added), ``init_cache``, ``prefill`` and
-``decode_step``, all functions over a params tree. Blocks take every MLP
-variant or capacity-routed MoE, optional qk-norm, scaled embeddings, the
-opt-in parallel block, and sliding windows (ring KV caches). KV caches are
-written in place (``attention.KVCache``, and for decode the continuous
-batcher's ``attention.PagedKVCache``).
+The port of the reference's ``repro/models/model.py``: the GQA decoders,
+dense and MoE (granite, deepseek-7b, gemma-2b, nemotron-4-340b,
+chameleon-34b, mixtral-8x7b), the MLA decoder with MoE
+(deepseek-v2-lite-16b), the attention-free Mamba-2 stack (mamba2-2.7b) and
+the RG-LRU hybrid with local attention (recurrentgemma-2b): ``model_defs``,
+``init``, ``forward`` (with or without caches), ``logits_from_hidden``,
+``cross_entropy_chunked``, ``loss_fn`` (the MoE layers' aux loss added),
+``init_cache``, ``prefill`` and ``decode_step``, all functions over a params
+tree. Blocks take every MLP variant or capacity-routed MoE, optional
+qk-norm, scaled embeddings, the opt-in parallel block, and sliding windows
+(ring KV caches); a Mamba-2 block has no MLP. Caches are written in place
+(``attention.KVCache``, ``attention.MLACache``, ``ssm.MambaCache``,
+``rglru.RGLRUCache``, and for decode the continuous batcher's
+``attention.PagedKVCache`` and ``attention.PagedMLACache``). The recurrent
+kinds refuse ragged (right-padded) prompts, as the reference does: pad
+tokens would pass through their state.
 
 Layers are grouped into segments as in the reference. A scanned segment
 (``cfg.scan_layers``, what the full configs use) stacks its leaves on a
 leading layer dim and runs as a Python loop over it, its cache stacked the
 same way; a list segment (what ``reduced()`` gives) is a list of per-layer
 trees and caches. ``cfg.remat`` only trades memory for recompute in the
-reference and is ignored here (ROADMAP). MLA, the recurrent layer kinds
-(Mamba-2, RG-LRU) and encoder-decoder come with their families.
+reference and is ignored here (ROADMAP). The encoder-decoder (``encode``,
+cross-attention) is ROADMAP queue 1, item 2.7.
 """
 from __future__ import annotations
 
@@ -31,6 +38,8 @@ from repro_torch import _tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.params import ParamDef, init_tree
 
 PyTree = Any
@@ -42,19 +51,17 @@ __all__ = ["Segment", "plan_segments", "model_defs", "init", "forward",
 
 @dataclasses.dataclass(frozen=True)
 class Segment:
-    kind: str          # attn (the recurrent kinds come later)
+    kind: str          # attn | local | ssm | rglru
     moe: bool
     length: int
     scanned: bool
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if (cfg.attention_type != "gqa" or cfg.encoder_layers
-            or any(kind != "attn" for kind in cfg.layer_kinds)):
+    if cfg.encoder_layers:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs GQA attention decoders only so far; MLA, "
-            "Mamba-2, RG-LRU and encoder-decoder models come later "
-            "(ROADMAP queue 1, items 2.4-2.7)")
+            f"{cfg.name}: the port runs decoder-only models so far; the "
+            "encoder-decoder comes with ROADMAP queue 1, item 2.7")
 
 
 def plan_segments(cfg: ModelConfig) -> list[Segment]:
@@ -80,13 +87,21 @@ def _self_window(cfg: ModelConfig, kind: str) -> int | None:
     return None
 
 
-def _block_defs(cfg: ModelConfig, moe: bool) -> PyTree:
-    return {
-        "norm1": L.rmsnorm_defs(cfg.d_model),
-        "mix": attn_lib.gqa_defs(cfg),
-        "norm2": L.rmsnorm_defs(cfg.d_model),
-        "mlp": L.moe_defs(cfg) if moe else L.mlp_defs(cfg),
-    }
+def _block_defs(cfg: ModelConfig, kind: str, moe: bool) -> PyTree:
+    d: PyTree = {"norm1": L.rmsnorm_defs(cfg.d_model)}
+    if kind in ("attn", "local"):
+        d["mix"] = attn_lib.mla_defs(cfg) if cfg.attention_type == "mla" \
+            else attn_lib.gqa_defs(cfg)
+    elif kind == "ssm":
+        d["mix"] = ssm_lib.mamba2_defs(cfg)
+    elif kind == "rglru":
+        d["mix"] = rglru_lib.rglru_defs(cfg)
+    else:
+        raise ValueError(kind)
+    if kind != "ssm":            # mamba2 stacks have no MLP (d_ff = 0)
+        d["norm2"] = L.rmsnorm_defs(cfg.d_model)
+        d["mlp"] = L.moe_defs(cfg) if moe else L.mlp_defs(cfg)
+    return d
 
 
 def _stack_defs(defs: PyTree, n: int) -> PyTree:
@@ -99,8 +114,8 @@ def model_defs(cfg: ModelConfig) -> PyTree:
     _check_supported(cfg)
     layer_defs = []
     for s in plan_segments(cfg):
-        layer_defs.append(_stack_defs(_block_defs(cfg, s.moe), s.length) if s.scanned
-                          else [_block_defs(cfg, s.moe) for _ in range(s.length)])
+        layer_defs.append(_stack_defs(_block_defs(cfg, s.kind, s.moe), s.length) if s.scanned
+                          else [_block_defs(cfg, s.kind, s.moe) for _ in range(s.length)])
     d: PyTree = {
         "embed": ParamDef((cfg.vocab_size, cfg.d_model), ("vocab", "embed_table"), scale=0.02),
         "segments": layer_defs,
@@ -119,22 +134,49 @@ def init(generator: torch.Generator, cfg: ModelConfig,
 
 def _block_apply(bp: PyTree, cfg: ModelConfig, seg: Segment, x, cache=None,
                  lengths=None, prompt_len=None):
-    """One residual block: x + attn(norm1(x)), then + mlp(norm2(x)) (an MoE
-    layer's returns its aux loss); with ``cfg.parallel_block``,
-    x + attn(norm1(x)) + mlp(norm2(x)). Returns (x, new cache or None, aux);
-    a dense layer's aux is 0.0, a Python float, so it launches nothing."""
+    """One residual block: x + mix(norm1(x)), then + mlp(norm2(x)) where the
+    block has an MLP (an MoE layer's returns its aux loss); with
+    ``cfg.parallel_block`` an attention block is x + attn(norm1(x)) +
+    mlp(norm2(x)). The mix is GQA or MLA attention, Mamba-2 or RG-LRU by
+    ``seg.kind``. Returns (x, new cache or None, aux); a dense layer's aux
+    is 0.0, a Python float, so it launches nothing. Recurrent kinds refuse
+    ragged ``lengths``: pad tokens would pass through their state."""
     aux = 0.0
-    a, new_cache = attn_lib.gqa_apply(bp["mix"], cfg, L.rmsnorm_apply(bp["norm1"], x, cfg.norm_eps),
-                                      window=_self_window(cfg, seg.kind), cache=cache,
-                                      lengths=lengths, prompt_len=prompt_len)
-    if not cfg.parallel_block:
+    h = L.rmsnorm_apply(bp["norm1"], x, cfg.norm_eps)
+    if seg.kind in ("attn", "local"):
+        if cfg.attention_type == "mla":
+            a, new_cache = attn_lib.mla_apply(bp["mix"], cfg, h, cache=cache,
+                                              lengths=lengths, prompt_len=prompt_len)
+        else:
+            a, new_cache = attn_lib.gqa_apply(bp["mix"], cfg, h,
+                                              window=_self_window(cfg, seg.kind),
+                                              cache=cache, lengths=lengths,
+                                              prompt_len=prompt_len)
+    elif seg.kind == "ssm":
+        if lengths is not None:
+            raise NotImplementedError(
+                "ragged prompts pollute mamba2 recurrent state; batch "
+                "equal-length prompts instead")
+        a, new_cache = ssm_lib.mamba2_apply(bp["mix"], cfg, h, cache=cache)
+    elif seg.kind == "rglru":
+        if lengths is not None:
+            raise NotImplementedError(
+                "ragged prompts pollute rglru recurrent state; batch "
+                "equal-length prompts instead")
+        a, new_cache = rglru_lib.rglru_apply(bp["mix"], cfg, h, cache=cache)
+    else:
+        raise ValueError(seg.kind)
+    if "mlp" not in bp:
+        return x + a, new_cache, aux
+    parallel = cfg.parallel_block and seg.kind in ("attn", "local")
+    if not parallel:
         x = x + a
     h2 = L.rmsnorm_apply(bp["norm2"], x, cfg.norm_eps)
     if seg.moe:
         y, aux = L.moe_apply(bp["mlp"], cfg, h2)
     else:
         y = L.mlp_apply(bp["mlp"], cfg, h2)
-    if cfg.parallel_block:
+    if parallel:
         return x + a + y, new_cache, aux
     return x + y, new_cache, aux
 
@@ -149,12 +191,15 @@ def _embed(params, cfg: ModelConfig, tokens):
     return x
 
 
+_PAGED = (attn_lib.PagedKVCache, attn_lib.PagedMLACache)
+
+
 def _layer_view(cache, li: int):
-    """Layer ``li`` of a stacked cache: views into its storage."""
-    if isinstance(cache, attn_lib.PagedKVCache):
-        return attn_lib.PagedKVCache(cache.k_pages[li], cache.v_pages[li],
-                                     cache.block_tables[li], cache.lengths[li])
-    return attn_lib.KVCache(cache.k[li], cache.v[li], cache.pos)
+    """Layer ``li`` of a stacked cache: views into its storage (a paged
+    cache stacks its tables and lengths too; the others share ``pos``)."""
+    if isinstance(cache, _PAGED):
+        return type(cache)(*(t[li] for t in cache))
+    return type(cache)(*(t[li] for t in cache[:-1]), cache.pos)
 
 
 def forward(params, cfg: ModelConfig, tokens, *, caches: list | None = None,
@@ -188,8 +233,8 @@ def _forward(params, cfg: ModelConfig, tokens, *, caches=None, lengths=None,
             aux_total = aux_total + aux
             seg_new.append(nc)
         if cache_s is not None and seg.scanned:
-            seg_new = (cache_s if isinstance(cache_s, attn_lib.PagedKVCache)
-                       else attn_lib.KVCache(cache_s.k, cache_s.v, seg_new[-1].pos))
+            seg_new = (cache_s if isinstance(cache_s, _PAGED)
+                       else cache_s._replace(pos=seg_new[-1].pos))
         new_caches.append(seg_new)
     h = L.rmsnorm_apply(params["out_norm"], x, cfg.norm_eps)
     return h, (new_caches if caches is not None else None), aux_total
@@ -235,23 +280,34 @@ def loss_fn(params, cfg: ModelConfig, batch: PyTree) -> torch.Tensor:
     return cross_entropy_chunked(params, cfg, h, labels) + aux
 
 
+def _layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                 dtype: torch.dtype, dev: torch.device, layers: int | None = None):
+    """An empty cache of one layer of ``kind`` (``layers`` stacks one per
+    layer of a scanned segment, each layer its own storage)."""
+    if kind in ("attn", "local"):
+        if cfg.attention_type == "mla":
+            return attn_lib.init_mla_cache(cfg, batch, max_len, dtype, dev, layers=layers)
+        return attn_lib.init_kv_cache(cfg, batch, max_len, dtype, dev, layers=layers,
+                                      window=_self_window(cfg, kind))
+    if kind == "ssm":
+        return ssm_lib.init_mamba_cache(cfg, batch, dtype, dev, layers=layers)
+    if kind == "rglru":
+        return rglru_lib.init_rglru_cache(cfg, batch, dtype, dev, layers=layers)
+    raise ValueError(kind)
+
+
 def init_cache(params, cfg: ModelConfig, batch: int, max_len: int) -> list:
-    """Empty per-layer caches on the params' device (one stacked
-    ``KVCache`` for a scanned segment, a list of them for a list segment);
-    a windowed layer gets a ring buffer of ``min(window, max_len)`` slots."""
+    """Empty per-layer caches on the params' device (one stacked cache for a
+    scanned segment, a list of them for a list segment): a ``KVCache``
+    (a ring buffer of ``min(window, max_len)`` slots for a windowed layer),
+    an ``MLACache``, a ``MambaCache`` or an ``RGLRUCache`` by layer kind."""
     dtype = getattr(torch, cfg.compute_dtype)
     dev = params["embed"].device
-    caches: list = []
-    for seg in plan_segments(cfg):
-        window = _self_window(cfg, seg.kind)
-        if seg.scanned:
-            caches.append(attn_lib.init_kv_cache(cfg, batch, max_len, dtype, dev,
-                                                 layers=seg.length, window=window))
-        else:
-            caches.append([attn_lib.init_kv_cache(cfg, batch, max_len, dtype, dev,
-                                                  window=window)
-                           for _ in range(seg.length)])
-    return caches
+    return [_layer_cache(cfg, seg.kind, batch, max_len, dtype, dev, seg.length)
+            if seg.scanned else
+            [_layer_cache(cfg, seg.kind, batch, max_len, dtype, dev)
+             for _ in range(seg.length)]
+            for seg in plan_segments(cfg)]
 
 
 def prefill(params, cfg: ModelConfig, tokens, max_len: int | None = None,

@@ -7,7 +7,9 @@ The port of the reference's ``repro/serving/engine.py`` without the mesh:
 Python loop here; tokens and logprobs stay on the device and come to the
 host at the end, as in the reference. The KV caches are written in place;
 a sliding-window config decodes over ring caches of ``window`` slots, and
-a ragged wave over a ring raises, as in the reference.
+a ragged wave over a ring raises, as in the reference; so does any ragged
+wave of a recurrent arch (Mamba-2, RG-LRU), whose state pad tokens would
+pass through: those batch equal-length prompts.
 
 Greedy decoding is ``argmax`` (the first maximum, as in JAX). With
 ``temperature > 0`` tokens are drawn from a ``torch.Generator`` seeded by
@@ -189,7 +191,9 @@ class WaveBatcher:
     """Wave-based batched serving: requests are grouped into fixed-size
     waves, RIGHT-padded to the wave's longest prompt, prefilled together and
     decoded in lock-step (one shared cache position per wave). Ragged waves
-    pass per-row ``lengths`` so pad positions never leak into attention.
+    pass per-row ``lengths`` so pad positions never leak into attention;
+    recurrent archs (ssm/rglru) refuse them and must batch equal-length
+    prompts.
     ``ttft[rid]``: seconds from submit until the wave's prefill has made the
     request's first token on the device.
     """

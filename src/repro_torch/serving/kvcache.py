@@ -2,10 +2,12 @@
 
 The port of the reference's ``repro/serving/kvcache.py`` without the mesh.
 Physical storage is one page pool per attention layer, ``(n_pages, page,
-Kh, hd)`` tensors (stacked on a leading layer dim for a scanned segment,
-each layer its own storage). Slot ``s``'s logical block ``b`` lives in page
-``block_tables[s, b]``; every layer shares the same mapping, so the
-host-side :class:`PagePool` (numpy, as in the reference) tracks one table.
+Kh, hd)`` tensors for keys and values, or for MLA ``(n_pages, page,
+kv_lora)`` latents and ``(n_pages, page, rope_dim)`` rope keys (stacked on
+a leading layer dim for a scanned segment, each layer its own storage).
+Slot ``s``'s logical block ``b`` lives in page ``block_tables[s, b]``;
+every layer shares the same mapping, so the host-side :class:`PagePool`
+(numpy, as in the reference) tracks one table.
 
 The last page of every pool is a reserved DUMP page: retired or
 never-admitted slots point their whole table row at it, so the writes the
@@ -29,7 +31,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
-from repro_torch.models.attention import PagedKVCache
+from repro_torch.models.attention import PagedKVCache, PagedMLACache
 
 __all__ = ["paged_unsupported_reason", "supports_paged", "PagePool",
            "init_paged_caches", "clear_paged_caches", "map_layers",
@@ -104,28 +106,30 @@ class PagePool:
 
 
 def _one_layer(cfg: ModelConfig, pool: PagePool, dtype: torch.dtype,
-               device: torch.device, layers: int | None = None) -> PagedKVCache:
+               device: torch.device, layers: int | None = None):
     lead = () if layers is None else (layers,)
-    shape = lead + (pool.n_pages, pool.page, cfg.n_kv_heads, cfg.head_dim)
-    return PagedKVCache(
-        torch.zeros(shape, dtype=dtype, device=device),
-        torch.zeros(shape, dtype=dtype, device=device),
-        torch.full(lead + (pool.slots, pool.nb), pool.dump, dtype=torch.int32,
-                   device=device),
-        torch.zeros(lead + (pool.slots,), dtype=torch.int32, device=device))
+    tables = torch.full(lead + (pool.slots, pool.nb), pool.dump, dtype=torch.int32,
+                        device=device)
+    lengths = torch.zeros(lead + (pool.slots,), dtype=torch.int32, device=device)
+    pages = lead + (pool.n_pages, pool.page)
+    if cfg.attention_type == "mla":
+        return PagedMLACache(
+            torch.zeros(pages + (cfg.kv_lora_rank,), dtype=dtype, device=device),
+            torch.zeros(pages + (cfg.qk_rope_dim,), dtype=dtype, device=device),
+            tables, lengths)
+    shape = pages + (cfg.n_kv_heads, cfg.head_dim)
+    return PagedKVCache(torch.zeros(shape, dtype=dtype, device=device),
+                        torch.zeros(shape, dtype=dtype, device=device), tables, lengths)
 
 
 def init_paged_caches(cfg: ModelConfig, pool: PagePool,
                       device: str | torch.device) -> list:
     """Per-layer paged caches on ``device``: one stacked :class:`PagedKVCache`
-    for a scanned segment (every layer its own storage, not a broadcast
-    view), a list of them for a list segment."""
+    (:class:`PagedMLACache` for MLA) for a scanned segment (every layer its
+    own storage, not a broadcast view), a list of them for a list segment."""
     reason = paged_unsupported_reason(cfg)
     if reason is not None:
         raise ValueError(f"paged cache unsupported for this arch: {reason}")
-    if cfg.attention_type == "mla":
-        raise NotImplementedError("the paged MLA cache comes with the MLA family "
-                                  "(ROADMAP queue 1, item 2.4)")
     dtype = getattr(torch, cfg.compute_dtype)
     dev = torch.device(device)
     return [_one_layer(cfg, pool, dtype, dev, seg.length) if seg.scanned
@@ -149,8 +153,8 @@ def clear_paged_caches(cfg: ModelConfig, caches: list, dump: int) -> None:
     page, in place: the empty state of :func:`init_paged_caches` on the
     same storage."""
     def one(c, _stacked):
-        c.k_pages.zero_()
-        c.v_pages.zero_()
+        c[0].zero_()             # k or ckv pages
+        c[1].zero_()             # v or rope-key pages
         c.block_tables.fill_(dump)
         c.lengths.zero_()
     map_layers(cfg, caches, one)
@@ -174,7 +178,7 @@ def _scatter_pages(pages: torch.Tensor, dense_seq: torch.Tensor,
         pages[flat] = dense_seq.reshape((A * nids, page) + dense_seq.shape[2:])
 
 
-def _set_meta(c: PagedKVCache, slot, row, length, stacked: bool) -> None:
+def _set_meta(c: PagedKVCache | PagedMLACache, slot, row, length, stacked: bool) -> None:
     """Install table rows and lengths in place; slot may be an int (the
     retire path) or an (A,) group with row (A, nb) and length (A,)."""
     if stacked:
@@ -195,8 +199,12 @@ def scatter_prefill(cfg: ModelConfig, caches: list, dense: list, slots: torch.Te
     lengths (A,) int32, all on the caches' device.
     """
     def one(pc, dc, stacked):
-        _scatter_pages(pc.k_pages, dc.k, ids, stacked)
-        _scatter_pages(pc.v_pages, dc.v, ids, stacked)
+        if isinstance(pc, PagedMLACache):
+            _scatter_pages(pc.ckv_pages, dc.ckv, ids, stacked)
+            _scatter_pages(pc.kr_pages, dc.krope, ids, stacked)
+        else:
+            _scatter_pages(pc.k_pages, dc.k, ids, stacked)
+            _scatter_pages(pc.v_pages, dc.v, ids, stacked)
         _set_meta(pc, slots, rows, lengths, stacked)
 
     for seg, pc, dc in zip(M.plan_segments(cfg), caches, dense):

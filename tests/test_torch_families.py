@@ -156,13 +156,15 @@ def test_emb_scale_bf16_bit_equal(d_model):
 
 
 def test_unsupported_families_still_raise():
-    """MLA, Mamba-2, RG-LRU and encoder-decoder configs (the reference's,
-    not registered in the port) raise with the ROADMAP items that port them."""
-    for name in ("deepseek-v2-lite-16b", "mamba2-2.7b", "recurrentgemma-2b",
-                 "seamless-m4t-large-v2"):
-        cfg = ModelConfig(**dataclasses.asdict(jget_config(name, reduced=True)))
-        with pytest.raises(NotImplementedError, match="items 2.4-2.7"):
-            TM.model_defs(cfg)
+    """The encoder-decoder config (the reference's, not registered in the
+    port) raises with the ROADMAP item that ports it; the MLA, Mamba-2 and
+    RG-LRU configs, ported since, no longer raise."""
+    cfg = ModelConfig(**dataclasses.asdict(jget_config("seamless-m4t-large-v2", reduced=True)))
+    with pytest.raises(NotImplementedError, match="item 2.7"):
+        TM.model_defs(cfg)
+    for name in ("deepseek-v2-lite-16b", "mamba2-2.7b", "recurrentgemma-2b"):
+        assert name in ARCH_NAMES
+        TM.model_defs(tget_config(name, reduced=True))
 
 
 # ---------------------------------------------------------------------------

@@ -648,3 +648,88 @@ def test_continuous_on_card_matches_cpu(cuda):
     for (t_cpu, l_cpu), (t_gpu, l_gpu) in zip(*out):
         assert np.array_equal(t_cpu, t_gpu)
         np.testing.assert_allclose(l_gpu, l_cpu, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# MLA, Mamba-2 and the RG-LRU hybrid on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_mla_long_prefill_takes_the_kernel_with_padded_v(cuda):
+    """Reduced deepseek-v2-lite with qk head dim 64 (a kernel head dim) and
+    v head dim 32: a prompt past the dense threshold takes the float32
+    kernel once per layer with v zero-padded to 64; the same greedy tokens
+    as the CPU's plain version."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as Mo
+    from repro_torch.serving import generate
+
+    cfg = get_config("deepseek-v2-lite-16b", reduced=True, qk_nope_dim=48, qk_rope_dim=16)
+    params = Mo.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(2, 1100))
+    prompt = prompt.astype(np.int32)
+    on_cpu = generate(params, cfg, prompt, n_new=6)
+    before = flash_attention.launches
+    on_card = generate(_tree.map(lambda x: x.to(cuda), params), cfg, prompt, n_new=6)
+    assert flash_attention.launches == before + cfg.n_layers
+    assert np.array_equal(on_cpu.tokens, on_card.tokens)
+    np.testing.assert_allclose(on_card.logprobs, on_cpu.logprobs, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mla_moe_continuous_graph_step_equals_eager_step(cuda, dtype):
+    """Reduced deepseek-v2-lite (MLA, capacity-routed MoE, 3 layers, the MoE
+    ones scanned) through ContinuousBatcher on the card: the decode step,
+    MoE included, captured as one CUDA graph; a replay equals the same step
+    run eagerly on a copy of the state bit for bit (the dump page left
+    out: pages dim 1 of a stacked pool, 0 of a single layer's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as Mo
+    from repro_torch.serving import ContinuousBatcher
+
+    cfg = get_config("deepseek-v2-lite-16b", reduced=True, n_layers=3, scan_layers=True,
+                     param_dtype=dtype, compute_dtype=dtype)
+    params = Mo.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    cb = ContinuousBatcher(_tree.map(lambda x: x.to(cuda), params), cfg, 4, 32, page_size=4,
+                           max_new=8)
+    assert cb.stats()["decode"] == "cuda graph"
+    rng = np.random.default_rng(0)
+    for n in (3, 9, 5, 12):
+        cb.submit(rng.integers(0, cfg.vocab_size, size=n).astype(np.int32), 8)
+    cb.step()
+    twin = _tree.map(torch.clone, cb.state())
+    cb.step()                                   # graph replay
+    cb.decode_eager(*twin)
+    torch.cuda.synchronize()
+    keep = torch.tensor([i for i in range(cb.pool.n_pages) if i != cb.pool.dump], device=cuda)
+    for seg_g, seg_e in zip(cb.caches, twin[0]):
+        stacked = not isinstance(seg_g, list)
+        for g, e in (zip([seg_g], [seg_e]) if stacked else zip(seg_g, seg_e)):
+            for i, (a, b) in enumerate(zip(g, e)):
+                if i < 2:
+                    a, b = (t.index_select(int(stacked), keep) for t in (a, b))
+                assert torch.equal(a, b)
+    for a, b in zip(cb.state()[1:], twin[1:]):
+        assert torch.equal(a, b)
+    assert cb.stats()["decode_replays"] == 2 and int(cb.n_gen.sum()) == 4 * 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["mamba2-2.7b", "recurrentgemma-2b"])
+def test_recurrent_generate_on_card_matches_cpu(cuda, name):
+    """Reduced Mamba-2 and RG-LRU hybrid, float32: a 40-token prompt (past
+    the hybrid's 32-token window) and 8 decode steps on the card, the same
+    greedy tokens as on the CPU, logprobs within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as Mo
+    from repro_torch.serving import generate
+
+    cfg = get_config(name, reduced=True)
+    params = Mo.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, size=(2, 40)).astype(np.int32)
+    on_cpu = generate(params, cfg, prompt, n_new=8)
+    on_card = generate(_tree.map(lambda x: x.to(cuda), params), cfg, prompt, n_new=8)
+    assert np.array_equal(on_cpu.tokens, on_card.tokens)
+    np.testing.assert_allclose(on_card.logprobs, on_cpu.logprobs, atol=1e-4)
