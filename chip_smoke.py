@@ -151,7 +151,30 @@ through these phases, in order, and exits non-zero at the first failure:
    recurrentgemma, in bf16 on a ring of 4 (fused bus): finite losses, one
    gossip_mix launch per step, a fused step against an einsum step within
    the bf16 tolerance.
-15. report — the run's time, one JSON line of kernels, the nvidia-smi line,
+15. slice 10 — the encoder-decoder, seamless-m4t-large-v2, at its published
+   widths and full depth (24 encoder and 24 decoder layers, bf16, random
+   weights drawn on the card). The main path is one ``generate(...,
+   enc_embeds=...)`` of 4 requests, each 4096 seeded random frame
+   embeddings (the speech frontend is a stub), an 8-token prompt and 128
+   new tokens: exactly one flash_attention launch per encoder layer (the
+   encoder's non-causal self-attention; the decoder's 8-token prompt and
+   its cross-attention stay dense) and nothing else; finite logprobs and
+   the same greedy tokens from a second ``generate``. Then the
+   last-position prefill logits with the encoder on the kernel against
+   the encoder on ``blockwise_attention`` (check_prefill's tolerance), a
+   prefill plus one decode step over the precomputed cross K/V against an
+   uncached ``forward`` of the prompt and that token over the same
+   memory (twice the uncached route's float32 distance plus 1e-5), a
+   profiled prefill (the wgmma kernel once per encoder layer, no float32
+   one), a profiled decode step and the logits product's share of it at
+   the vocab's unaligned 256206 columns, beside the same product over a
+   16-byte-aligned copy of the head. Last, 5 ``train()`` steps at
+   published widths cut to 2 encoder and 2 decoder layers, M = 2 on the
+   clique (gossip_mix at k = 1), 2 x 512 tokens and 2 x 4096 frames per
+   worker: finite losses, one gossip_mix launch per step, no
+   flash_attention launch, a fused step against an einsum step within the
+   bf16 tolerance, the peak memory.
+16. report — the run's time, one JSON line of kernels, the nvidia-smi line,
    and last the ``{"ok": true, ...}`` line.
 
 ``--collect`` runs ``gc.collect()`` before each part (and the microbatch=2
@@ -171,9 +194,11 @@ the same dtype. Its cases cover head dims 16 to 256 (hd 256 in MQA with a
 prefill passes it; it also times the bf16 kernel at slice 8's and slice
 9's prefill shapes (gemma-2b's, nemotron's, mixtral's windowed one,
 deepseek-v2-lite's MLA with the padded v, recurrentgemma's windowed MQA)
-beside its bound, its plain version and ``scaled_dot_product_attention``
-(with an explicit boolean mask for a window, which that call has no
-argument for; with v at its own head dim 128 for MLA).
+and at slice 10's (seamless-m4t-large-v2's encoder, non-causal over 4096
+frames) beside its bound, its plain version and
+``scaled_dot_product_attention`` (with an explicit boolean mask for a
+window, which that call has no argument for; with v at its own head dim
+128 for MLA; with no mask and ``is_causal=False`` for the encoder).
 """
 from __future__ import annotations
 
@@ -252,6 +277,15 @@ S9_TRAIN = [
     ("deepseek-v2-lite-16b", None, S8_TRAIN_BATCH, S8_TRAIN_SEQ),
     ("recurrentgemma-2b", None, S8_TRAIN_BATCH, S8_TRAIN_SEQ),
 ]
+# Slice 10 (PERF.md, Cells): seamless-m4t-large-v2 at its published widths
+# and full depth served through generate(enc_embeds=): (requests, prompt
+# tokens, new tokens), each request with cfg.encoder_seq (4096) frames
+S10_NAME = "seamless-m4t-large-v2"
+S10_SERVE = (4, 8, 128)
+# training at published widths cut to 2 encoder + 2 decoder layers (the
+# embedding and lm_head alone hold 524.6 M params) at M = 2 on the clique:
+# (layers, workers, per-worker batch, tokens per sequence)
+S10_TRAIN = (2, 2, 2, 512)
 # ``--collect`` runs gc.collect() before each part, as the script did while
 # the tree helpers held leaves in reference cycles: each part's peak with
 # and without it shows whether a cycle holds device memory again.
@@ -620,16 +654,18 @@ FLASH_PADDED_V_CASES = [
     (1, 200, 4, 192, 128),
     (2, 333, 2, 192, 128),
 ]
-# The flash kernel's shapes on slice 8's and slice 9's prefill paths (B, L,
-# H, Hkv, hd, window, hd_v): gemma-2b's wave, nemotron-4-340b's,
+# The flash kernel's shapes on slice 8's, 9's and 10's prefill paths (B, L,
+# H, Hkv, hd, window, hd_v, causal): gemma-2b's wave, nemotron-4-340b's,
 # mixtral-8x7b's windowed one, deepseek-v2-lite's MLA (v padded from 128),
-# recurrentgemma-2b's windowed MQA.
+# recurrentgemma-2b's windowed MQA, seamless-m4t-large-v2's encoder
+# (non-causal over the 4096 frames of each of 4 requests).
 FLASH_PATHS = [
-    ("gemma-2b", 4, 3072, 8, 1, 256, None, 256),
-    ("nemotron-4-340b", 2, 2048, 96, 8, 192, None, 192),
-    ("mixtral-8x7b", 2, 6144, 32, 8, 128, 4096, 128),
-    ("deepseek-v2-lite-16b", 2, 3072, 16, 16, 192, None, 128),
-    ("recurrentgemma-2b", 4, 3072, 10, 1, 256, 2048, 256),
+    ("gemma-2b", 4, 3072, 8, 1, 256, None, 256, True),
+    ("nemotron-4-340b", 2, 2048, 96, 8, 192, None, 192, True),
+    ("mixtral-8x7b", 2, 6144, 32, 8, 128, 4096, 128, True),
+    ("deepseek-v2-lite-16b", 2, 3072, 16, 16, 192, None, 128, True),
+    ("recurrentgemma-2b", 4, 3072, 10, 1, 256, 2048, 256, True),
+    ("seamless-m4t-large-v2 encoder", 4, 4096, 16, 16, 64, None, 64, False),
 ]
 
 
@@ -747,42 +783,47 @@ def phase_flash_check(card: str) -> dict:
             "float32_library_ms": library32_ms, "path_shapes": paths}
 
 
-def _causal_pairs(L: int, window: int | None) -> int:
-    """(q, k) pairs a causal (windowed) mask keeps over L positions."""
+def _pairs(L: int, causal: bool, window: int | None) -> int:
+    """(q, k) pairs a causal (windowed) mask keeps over L positions; all
+    L² without a mask."""
+    if not causal:
+        return L * L
     if window is None:
         return L * (L + 1) // 2
     w = min(window, L)
     return w * (w + 1) // 2 + (L - w) * w
 
 
-def _flash_path(card: str, gen, name, B, L, H, Hkv, hd, window, hd_v) -> dict:
-    """The bf16 kernel at one path shape of slices 8 and 9: held to its
+def _flash_path(card: str, gen, name, B, L, H, Hkv, hd, window, hd_v, causal) -> dict:
+    """The bf16 kernel at one path shape of slices 8 to 10: held to its
     plain version, timed beside it, its bound and one library call. The
     library has no window argument, so a windowed shape's library time is
     scaled_dot_product_attention with an explicit boolean mask. With hd_v
     < hd (MLA) the kernel and its plain version take v zero-padded to hd,
     as the model passes it, and the library takes v at its own head dim;
-    the bound counts the work at hd_v: 2·(hd + hd_v) FLOP per pair and head."""
+    the bound counts the work at hd_v: 2·(hd + hd_v) FLOP per pair and head
+    (every pair without a mask, ``causal=False``)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import attention_reference, flash_attention
 
     q, k, v = _attn_inputs(B, L, L, H, Hkv, hd, torch.bfloat16, gen, hd_v=hd_v)
-    shape = (B, L, L, H, Hkv, hd, True, window)
-    ref = attention_reference(q, k, v, causal=True, window=window)
-    err = _flash_err(flash_attention(q, k, v, causal=True, window=window), ref,
+    shape = (B, L, L, H, Hkv, hd, causal, window)
+    ref = attention_reference(q, k, v, causal=causal, window=window)
+    err = _flash_err(flash_attention(q, k, v, causal=causal, window=window), ref,
                      torch.bfloat16, shape)
     del ref
     torch.cuda.empty_cache()
-    ms = time_cuda(lambda: flash_attention(q, k, v, causal=True, window=window), iters=10)
-    plain_ms = time_cuda(lambda: attention_reference(q, k, v, causal=True, window=window),
+    ms = time_cuda(lambda: flash_attention(q, k, v, causal=causal, window=window), iters=10)
+    plain_ms = time_cuda(lambda: attention_reference(q, k, v, causal=causal, window=window),
                          iters=1, warmup=1)
     v_own = v[..., :hd_v]
     if window is None:
-        library = "scaled_dot_product_attention(is_causal, enable_gqa)"
+        library = (f"scaled_dot_product_attention({'is_causal' if causal else 'no mask'}, "
+                   "enable_gqa)")
         library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
-            q, k, v_own, is_causal=True, enable_gqa=True), iters=10)
+            q, k, v_own, is_causal=causal, enable_gqa=True), iters=10)
     else:
         library = "scaled_dot_product_attention(attn_mask=boolean causal window mask, enable_gqa)"
         i = torch.arange(L, device="cuda")
@@ -792,17 +833,18 @@ def _flash_path(card: str, gen, name, B, L, H, Hkv, hd, window, hd_v) -> dict:
         del mask
     if hd_v < hd:
         library += f" with v at head dim {hd_v}"
-    ops = 2 * (hd + hd_v) * B * H * _causal_pairs(L, window)
+    ops = 2 * (hd + hd_v) * B * H * _pairs(L, causal, window)
     # q, k in; v at its own head dim in; o at v's head dim out (bf16)
     moved = (q.numel() + k.numel() + B * Hkv * L * hd_v + B * H * L * hd_v) * q.element_size()
     bound_ms, bound_by = _bound(moved, ops, card, peak=BF16_PEAK)
     log(f"[kernel] flash_attention bf16 at {name}'s prefill q {(B, L, H, hd)} k/v "
-        f"{(B, L, Hkv, hd)} (v's own head dim {hd_v}) causal window {window}: max|err| "
+        f"{(B, L, Hkv, hd)} (v's own head dim {hd_v}) causal {causal} window {window}: max|err| "
         f"{err:.3g} vs plain; {ms:.3f} ms, {ops / ms / 1e9:.1f} TFLOP/s (bound {bound_ms:.3f} "
         f"ms by {bound_by}); plain version {plain_ms:.3f} ms; {library} {library_ms:.3f} ms")
     del q, k, v, v_own
     torch.cuda.empty_cache()
     return {"path": name, "shape": [B, L, H, Hkv, hd], "hd_v": hd_v, "window": window,
+            "causal": causal,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms, "library": library}
 
@@ -1736,7 +1778,7 @@ def phase_serve() -> dict:
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            logits, caches = Mo.prefill(params, cfg, tok, max_len=SERVE_MAX_LEN)
+            logits, caches, *_ = Mo.prefill(params, cfg, tok, max_len=SERVE_MAX_LEN)
             torch.cuda.synchronize()
             prefill_s.append(time.perf_counter() - t0)
         pf = sum(prefill_s) / len(prefill_s)
@@ -1959,9 +2001,193 @@ def phase_slice9() -> dict:
     return by_path
 
 
-def _attention_layers(cfg) -> int:
-    """Layers whose prefill takes the flash kernel: the attention kinds."""
-    return sum(kind in ("attn", "local") for kind in cfg.layer_kinds)
+def phase_slice10() -> dict:
+    """Slice 10: the encoder-decoder. A: seamless-m4t-large-v2 at its
+    published widths and full depth served through generate(enc_embeds=)
+    (the encoder's non-causal attention on the kernel); C: training at
+    published widths cut to 2 + 2 layers on the M = 2 clique, fused bus.
+    (B, the kernel at the encoder's shape, is a FLASH_PATHS row of the
+    kernel phase.) Returns launches by path."""
+    t0 = time.perf_counter()
+    layers, workers, batch, seq = S10_TRAIN
+    by_path = {f"slice10_serve_{S10_NAME}": _serve_encdec(),
+               f"slice10_train_{S10_NAME}": _train_family("slice10", S10_NAME, layers, batch,
+                                                          seq, workers, "clique")}
+    log(f"[slice10] the phase took {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
+def _serve_encdec() -> dict:
+    """seamless-m4t-large-v2 at full depth: one generate(enc_embeds=) of
+    S10_SERVE's requests (the main path, its launches counted: one
+    flash_attention per encoder layer, nothing else), a second one (the
+    same greedy tokens), prefill and decode timings, the kernel-vs-blockwise
+    prefill check, the decode check over the precomputed cross K/V, a
+    profiled prefill and decode step, and the logits product's share of
+    the decode step."""
+    import numpy as np
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.configs import get_config
+    from repro_torch.data import token_stream
+    from repro_torch.models import model as Mo
+    from repro_torch.models.params import count_params
+    from repro_torch.serving import generate, make_serve_step
+
+    tag = f"slice10 {S10_NAME}"
+    fresh_gb(S10_NAME, tag)
+    cfg = get_config(S10_NAME)
+    B, Lp, n_new = S10_SERVE
+    t0 = time.perf_counter()
+    params = Mo.init(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    enc = torch.randn((B, cfg.encoder_seq, cfg.d_model), device="cuda", dtype=torch.bfloat16,
+                      generator=torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_gb = torch.cuda.max_memory_allocated() / 1e9
+    prompts, _ = token_stream(S=B, seq_len=Lp - 1, vocab=cfg.vocab_size, seed=1)
+    n_attn = _attention_layers(cfg, Lp)
+    log(f"[{tag}] {cfg.encoder_layers} encoder + {cfg.n_layers} decoder layers, d_model="
+        f"{cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim} {cfg.mlp_type} "
+        f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} {cfg.param_dtype}: "
+        f"{count_params(Mo.model_defs(cfg)):,} params, initialised on the card in {init_s:.1f} "
+        f"s (peak {init_gb:.2f} GB); {B} requests of {cfg.encoder_seq} frames + {Lp} prompt "
+        f"+ {n_new} new tokens")
+
+    # the user's path: generate → prefill (encoder through the kernel,
+    # cross K/V precomputed) → decode steps over the caches and cross K/V
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = generate(params, cfg, prompts, n_new=n_new, enc_embeds=enc)
+    wave_s = time.perf_counter() - t0        # generate() ends in a host transfer
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches != {"gossip_mix": 0, "quant_pack": 0, "flash_attention": n_attn}:
+        raise AssertionError(f"{S10_NAME}'s generate launched {launches}, want one "
+                             f"flash_attention per encoder layer ({n_attn}) and nothing else")
+    if res.tokens.shape != (B, n_new) or not np.isfinite(res.logprobs).all():
+        raise AssertionError(f"{S10_NAME}: tokens {res.tokens.shape}, finite logprobs "
+                             f"{np.isfinite(res.logprobs).all()}")
+    log(f"[{tag}] generate: {wave_s * 1e3:.1f} ms, {B * n_new / wave_s:,.1f} generated tokens/s "
+        f"end to end, flash_attention launches {launches['flash_attention']} (one per encoder "
+        f"layer, non-causal), logprobs finite (mean {res.logprobs.mean():.4f}), peak memory "
+        f"{peak_gb:.2f} GB")
+
+    tok = torch.from_numpy(prompts).cuda()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        again = generate(params, cfg, prompts, n_new=n_new, enc_embeds=enc)
+        again_s = time.perf_counter() - t0
+        if not np.array_equal(again.tokens, res.tokens):
+            raise AssertionError(f"{S10_NAME}: a second generate() gave other greedy tokens")
+        prefill_s = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches, cross_kvs, memory = Mo.prefill(params, cfg, tok, max_len=Lp + n_new,
+                                                           enc_embeds=enc)
+            torch.cuda.synchronize()
+            prefill_s.append(time.perf_counter() - t0)
+        pf = sum(prefill_s) / len(prefill_s)
+        step_s = sum((r - pf) / (n_new - 1) for r in (wave_s, again_s)) / 2
+        ckv_gb = sum(t.numel() * t.element_size() for t in _tree.leaves(cross_kvs)) / 1e9
+        log(f"[{tag}] a second generate(): the same greedy tokens, {again_s * 1e3:.1f} ms; "
+            f"prefill {[round(x * 1e3, 2) for x in prefill_s]} ms, mean {pf * 1e3:.2f} ms = "
+            f"time to first token; decode {step_s * 1e3:.2f} ms/step ((run - prefill) / "
+            f"{n_new - 1} over both runs); cross K/V {ckv_gb:.3f} GB")
+
+        nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        serve_step = make_serve_step(cfg)
+        rows = profile_call("one decode step", lambda: serve_step(params, caches, nxt, memory,
+                                                                  cross_kvs))
+        _logits_share(params, cfg, B, sum(r[1] for r in rows), tag)
+        del caches, cross_kvs, memory, logits
+        check_prefill(params, cfg, tok, Lp + n_new, tag, enc=enc)
+        _check_encdec_decode(params, cfg, tok, enc, tag)
+        rows = profile_call(f"{S10_NAME} prefill",
+                            lambda: Mo.prefill(params, cfg, tok, max_len=Lp + n_new,
+                                               enc_embeds=enc))
+        check_flash_route(rows, n_attn, tag)
+    del params, enc
+    return launches
+
+
+def _logits_share(params, cfg, B: int, step_ms: float, tag: str) -> None:
+    """The logits product of one decode step (B rows against the (D, V)
+    head) timed alone, against its byte bound and the same product over a
+    16-byte-aligned copy of the head (row stride padded to a multiple of 8
+    bf16 values, the same V columns): how much of a decode step's device
+    time the unaligned vocab costs."""
+    import torch
+
+    from repro_torch.models import model as Mo
+    from repro_torch.models.attention import f32_product
+
+    W = Mo._unembed(params, cfg)
+    h = torch.randn((B, 1, cfg.d_model), device="cuda", dtype=W.dtype,
+                    generator=torch.Generator(device="cuda").manual_seed(2))
+    ms = time_cuda(lambda: Mo.logits_from_hidden(params, cfg, h), 20)
+    V = W.shape[1]
+    padded = W.new_empty((W.shape[0], -(-V // 8) * 8))
+    padded[:, :V] = W
+    aligned = padded[:, :V]
+    aligned_ms = time_cuda(lambda: f32_product("bld,dv->blv", h, aligned), 20)
+    del padded, aligned
+    bound_ms = W.numel() * W.element_size() / memory_rate(torch.cuda.get_device_name(0)) * 1e3
+    share = f"{100 * ms / step_ms:.1f}%" if step_ms else "not measured"
+    log(f"[{tag}] logits product ({B} x {cfg.d_model} by {cfg.d_model} x {V}, row stride "
+        f"{W.stride(0) * W.element_size()} bytes): {ms:.3f} ms, {share} of a decode step's "
+        f"{step_ms:.2f} ms device time; bound {bound_ms:.3f} ms (bytes); over a 16-byte-aligned "
+        f"copy of the head {aligned_ms:.3f} ms")
+
+
+def _check_encdec_decode(params, cfg, tok, enc, tag) -> None:
+    """prefill of the prompt and one decode step over the caches and the
+    precomputed cross K/V (dense attention), against an uncached forward of
+    the prompt and that token over the same memory (cross-attention
+    projecting the memory, blockwise over its frames), both bf16.
+    Tolerance: twice the forward's distance from a float32 forward of the
+    same tokens over the same memory, plus 1e-5."""
+    import torch
+
+    from repro_torch.models import model as Mo
+
+    B, Lp = tok.shape
+    logits, caches, cross_kvs, memory = Mo.prefill(params, cfg, tok, max_len=Lp + 1,
+                                                   enc_embeds=enc)
+    nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    got = Mo.decode_step(params, cfg, caches, nxt, memory=memory, cross_kvs=cross_kvs)[0][:, -1]
+    del caches, cross_kvs
+    ext = torch.cat([tok, nxt.to(tok.dtype)], dim=1)
+    h, _ = Mo.forward(params, cfg, ext, memory=memory)
+    want = Mo.logits_from_hidden(params, cfg, h[:, -1:])[:, -1]
+    exact = _f32_forward(params, cfg, ext, memory=memory)[0]
+    e_gw = (got - want).abs().max().item()
+    e_wf = (want - exact).abs().max().item()
+    tol = 2 * e_wf + 1e-5
+    log(f"[{tag}] {Lp}-token prefill + 1 decode step over the cross K/V vs an uncached "
+        f"forward of {Lp + 1} tokens over the same memory: max|err| {e_gw:.4g} (tol {tol:.4g}); "
+        f"vs float32: decode {(got - exact).abs().max().item():.4g}, forward {e_wf:.4g}; argmax "
+        f"agree {int((got.argmax(-1) == want.argmax(-1)).sum())}/{B}")
+    if not bool(torch.isfinite(got).all()) or e_gw > tol:
+        raise AssertionError(f"{tag}: decode over the cross K/V off the uncached forward: "
+                             f"{e_gw} > {tol}")
+
+
+def _attention_layers(cfg, prompt_len: int) -> int:
+    """Layers whose prefill takes the flash kernel: the decoder's attention
+    kinds for a prompt past the dense threshold, and an encoder's layers
+    over more frames than it."""
+    from repro_torch.models.attention import BLOCK_THRESHOLD
+
+    n = 0
+    if prompt_len > BLOCK_THRESHOLD:
+        n += sum(kind in ("attn", "local") for kind in cfg.layer_kinds)
+    if cfg.encoder_seq > BLOCK_THRESHOLD:
+        n += cfg.encoder_layers
+    return n
 
 
 def _serve_wave(slice_tag, name, layers, slots, prompt_len, n_new) -> dict:
@@ -1990,7 +2216,7 @@ def _serve_wave(slice_tag, name, layers, slots, prompt_len, n_new) -> dict:
     init_s = time.perf_counter() - t0
     init_gb = torch.cuda.max_memory_allocated() / 1e9
     prompts, _ = token_stream(S=slots, seq_len=prompt_len - 1, vocab=cfg.vocab_size, seed=1)
-    n_attn = _attention_layers(cfg)
+    n_attn = _attention_layers(cfg, prompt_len)
     kinds = ", ".join(f"{k} x{cfg.layer_kinds.count(k)}" for k in dict.fromkeys(cfg.layer_kinds))
     log(f"[{tag}] layers {cfg.n_layers} of {get_config(name).n_layers} ({kinds}), d_model="
         f"{cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim} {cfg.attention_type} "
@@ -2056,12 +2282,14 @@ def _f32_caches(cfg, batch: int, max_len: int, device) -> list:
             for kind in cfg.layer_kinds]
 
 
-def _f32_forward(params, cfg, tok, caches=None):
+def _f32_forward(params, cfg, tok, caches=None, memory=None):
     """(float32 logits of the last position, new per-layer caches or None):
     the bf16 weights run in float32, each layer's weights upcast only while
     it runs, the vocab in chunks (a float32 copy of nemotron's or mixtral's
     cut model would not fit beside the bf16 one). ``caches``: one float32
-    cache per layer, in layer order (:func:`_f32_caches`)."""
+    cache per layer, in layer order (:func:`_f32_caches`); ``memory``: an
+    encoder-decoder's encoder output, which cross-attention projects
+    (in float32)."""
     import dataclasses
 
     import torch
@@ -2078,7 +2306,8 @@ def _f32_forward(params, cfg, tok, caches=None):
         for li in range(seg.length):
             layer = _tree.map(lambda a: a[li], sp) if seg.scanned else sp[li]
             bp = _tree.map(lambda a: a.float(), layer)
-            x, c, _ = Mo._block_apply(bp, cfg32, seg, x, caches[i] if caches else None)
+            x, c, _ = Mo._block_apply(bp, cfg32, seg, x, caches[i] if caches else None,
+                                      memory=None if memory is None else memory.float())
             new.append(c)
             i += 1
             del bp
@@ -2088,6 +2317,25 @@ def _f32_forward(params, cfg, tok, caches=None):
     logits = torch.cat([A.f32_product("bld,dv->blv", h, W[:, j:j + 32768].float())
                         for j in range(0, W.shape[1], 32768)], dim=-1)
     return logits[:, -1], (new if caches else None)
+
+
+def _f32_encode(params, cfg, enc):
+    """The encoder's memory in float32 from the bf16 weights, each layer
+    upcast only while it runs (attention blockwise, as the training route)."""
+    import dataclasses
+
+    from repro_torch import _tree
+    from repro_torch.models import layers as Ly
+    from repro_torch.models import model as Mo
+
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    layers = params["encoder"]["layers"]
+    x = enc.float()
+    for li in range(cfg.encoder_layers):
+        layer = layers[li] if isinstance(layers, list) else _tree.map(lambda a: a[li], layers)
+        x = Mo._encoder_block_apply(_tree.map(lambda a: a.float(), layer), cfg32, x)
+    return Ly.rmsnorm_apply({"scale": params["encoder"]["out_norm"]["scale"].float()}, x,
+                            cfg.norm_eps)
 
 
 def _layer_caches(caches) -> list:
@@ -2113,7 +2361,7 @@ def _check_ring(params, cfg, tok, fed, tag) -> None:
     B, Lp = tok.shape
     steps = fed.shape[1]
     max_len = Lp + steps
-    logits, ring = Mo.prefill(params, cfg, tok, max_len=max_len)
+    logits, ring, *_ = Mo.prefill(params, cfg, tok, max_len=max_len)
     kv = [c for c in _layer_caches(ring) if isinstance(c, A.KVCache)]
     if not kv or kv[0].k.shape[-3] != cfg.window or Lp < cfg.window:   # k: ..., S, Kh, hd
         raise AssertionError(f"{tag}: the check wants a ring cache that wraps in the prefill")
@@ -2154,7 +2402,7 @@ def _check_recurrent_decode(params, cfg, tok, fed, tag) -> None:
 
     B, Lp = tok.shape
     steps = fed.shape[1]
-    logits, caches = Mo.prefill(params, cfg, tok, max_len=Lp + steps)
+    logits, caches, *_ = Mo.prefill(params, cfg, tok, max_len=Lp + steps)
     for t in range(steps):
         logits, caches = Mo.decode_step(params, cfg, caches, fed[:, t:t + 1])
     got = logits[:, -1]
@@ -2237,11 +2485,16 @@ def _continuous_family(slice_tag, name, paged_check: bool = False) -> dict:
     return launches
 
 
-def _train_family(slice_tag, name, layers, batch_size, seq_len) -> dict:
-    """Five train() steps in bf16 on a ring of M_WORKERS (fused bus) of the
-    config at its published widths cut to ``layers`` layers, or reduced
-    (``layers`` None): finite losses, one gossip_mix launch per step, and a
-    fused step against an einsum step within the bf16 tolerance."""
+def _train_family(slice_tag, name, layers, batch_size, seq_len, workers=M_WORKERS,
+                  topology="ring") -> dict:
+    """Five train() steps in bf16 on ``topology`` over ``workers`` (fused
+    bus) of the config at its published widths cut to ``layers`` layers (an
+    encoder-decoder's encoder too), or reduced (``layers`` None): finite
+    losses, one gossip_mix launch per step, and a fused step against an
+    einsum step within the bf16 tolerance. An encoder-decoder's batches
+    carry seeded random frame embeddings beside the tokens."""
+    import dataclasses
+
     import torch
 
     from repro_torch.configs import get_config
@@ -2261,22 +2514,33 @@ def _train_family(slice_tag, name, layers, batch_size, seq_len) -> dict:
         cfg = get_config(name, reduced=True, param_dtype="bfloat16", compute_dtype="bfloat16")
     else:
         cfg = get_config(name, n_layers=layers)
+        if cfg.encoder_layers:
+            cfg = dataclasses.replace(cfg, encoder_layers=layers)
     params0 = replicate_for_workers(
-        Mo.init(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda"), M_WORKERS)
-    toks, _ = token_stream(S=M_WORKERS * batch_size * 8, seq_len=seq_len,
+        Mo.init(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda"), workers)
+    toks, _ = token_stream(S=workers * batch_size * 8, seq_len=seq_len,
                            vocab=cfg.vocab_size, seed=0)
-    batcher = WorkerBatcher((toks,), pad_to_equal(random_split(len(toks), M_WORKERS)),
+    batcher = WorkerBatcher((toks,), pad_to_equal(random_split(len(toks), workers)),
                             batch_size=batch_size, seed=0)
+    frames = torch.Generator(device="cuda").manual_seed(1)
+
+    def next_batch():
+        b = {"tokens": batcher.next()[0]}
+        if cfg.encoder_layers:
+            b["enc_embeds"] = torch.randn((workers, batch_size, cfg.encoder_seq, cfg.d_model),
+                                          generator=frames, device="cuda",
+                                          dtype=torch.bfloat16)
+        return b
 
     def batches():
         while True:
-            yield {"tokens": batcher.next()[0]}
+            yield next_batch()
 
     def loss(p, b):
         return Mo.loss_fn(p, cfg, b)
 
     opt = momentum_sgd(LR, 0.9)
-    topo = T.undirected_ring(M_WORKERS)
+    topo = T.make(topology, workers)
     spec = GossipSpec(topology=topo, backend="fused")
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -2290,16 +2554,19 @@ def _train_family(slice_tag, name, layers, batch_size, seq_len) -> dict:
         raise AssertionError(f"{tag}: non-finite loss {hist.loss}")
     if launches != {"gossip_mix": STEPS, "quant_pack": 0, "flash_attention": 0}:
         raise AssertionError(f"{tag}: {launches} in {STEPS} steps, want 1 gossip_mix per step")
-    batch = to_device({"tokens": batcher.next()[0]}, "cuda")
+    batch = to_device(next_batch(), "cuda")
     s_f, m_f = make_train_step(loss, opt, gossip=spec)(state, batch)
     s_e, m_e = make_train_step(loss, opt, gossip=GossipSpec(topology=topo,
                                                             backend="einsum"))(state, batch)
     err, finite = _params_err(s_f.params, s_e.params)
     if not finite or err > TOL["bfloat16"]:
         raise AssertionError(f"{tag}: fused step vs einsum step max|err| {err}, finite {finite}")
-    log(f"[{tag}] {cfg.name} (d_model {cfg.d_model}, {cfg.n_layers} layers, experts "
-        f"{cfg.n_experts}, window {cfg.window}; {count_params(Mo.model_defs(cfg)):,} params per "
-        f"worker) bf16, M={M_WORKERS} ring, {batch_size} x {seq_len} tokens per worker, fused "
+    frames_note = (f" and {batch_size} x {cfg.encoder_seq} frames" if cfg.encoder_layers
+                   else "")
+    log(f"[{tag}] {cfg.name} (d_model {cfg.d_model}, {cfg.n_layers} layers, {cfg.encoder_layers} "
+        f"encoder layers, experts {cfg.n_experts}, window {cfg.window}; "
+        f"{count_params(Mo.model_defs(cfg)):,} params per worker) bf16, M={workers} "
+        f"{topo.name}, {batch_size} x {seq_len} tokens{frames_note} per worker, fused "
         f"bus: {STEPS} steps in {train_s:.2f} s, losses {[round(x, 4) for x in hist.loss]}, "
         f"gossip_mix launches {launches['gossip_mix']} in {STEPS} steps; fused vs einsum step "
         f"params max|err| {err:.3g} (tol {TOL['bfloat16']}), losses {m_f.loss.item():.4f} / "
@@ -2329,7 +2596,7 @@ def check_paged_vs_dense(params, cfg, cb, prompt) -> None:
     tok = torch.from_numpy(prompt[None]).cuda()
 
     def dense_route(p, c):
-        logits, caches = Mo.prefill(p, c, tok, max_len=len(prompt) + 8)
+        logits, caches, *_ = Mo.prefill(p, c, tok, max_len=len(prompt) + 8)
         for t in range(5):
             logits, caches = Mo.decode_step(p, c, caches, fed[None, t:t + 1])
         return logits[0, -1]
@@ -2397,7 +2664,7 @@ def check_graph_vs_eager(cb, prompts) -> None:
     cb.run_until_done()
 
 
-def check_prefill(params, cfg, tok, max_len: int, tag: str) -> None:
+def check_prefill(params, cfg, tok, max_len: int, tag: str, enc=None) -> None:
     """The wave's last-position prefill logits through the kernel (the
     serving route) against the same prefill through the training path's
     blockwise_attention, both bf16 on the card. Tolerance: twice the
@@ -2405,19 +2672,27 @@ def check_prefill(params, cfg, tok, max_len: int, tag: str) -> None:
     weights (plus 1e-5 for float32 sums in another order). The two bf16
     routes round differently only inside attention, so a kernel as accurate
     as the blockwise route stays within it; a wrong kernel (mask, GQA head,
-    tile edge) moves the logits by far more."""
+    tile edge) moves the logits by far more. An encoder-decoder (``enc``,
+    its frame embeddings) takes the kernel in its encoder: the blockwise
+    route encodes through blockwise_attention and runs the same decoder
+    over that memory's cross K/V; the float32 forward encodes in float32."""
     import torch
 
     from repro_torch.models import model as Mo
 
-    kernel = Mo.prefill(params, cfg, tok, max_len=max_len)[0][:, -1]
+    kernel = Mo.prefill(params, cfg, tok, max_len=max_len, enc_embeds=enc)[0][:, -1]
     before = read_launches()["flash_attention"]
-    h, _ = Mo.forward(params, cfg, tok)
+    memory = cross_kvs = None
+    if enc is not None:
+        memory = Mo.encode(params, cfg, enc)
+        cross_kvs = Mo.precompute_cross_kv(params, cfg, memory)
+    h, _ = Mo.forward(params, cfg, tok, memory=memory, cross_kvs=cross_kvs)
     if read_launches()["flash_attention"] != before:
         raise AssertionError("the training path launched flash_attention")
     block = Mo.logits_from_hidden(params, cfg, h[:, -1:])[:, -1]
-    del h
-    exact = _f32_forward(params, cfg, tok)[0]
+    del h, memory, cross_kvs
+    exact = _f32_forward(params, cfg, tok,
+                         memory=None if enc is None else _f32_encode(params, cfg, enc))[0]
     e_kb = (kernel - block).abs().max().item()
     e_bf = (block - exact).abs().max().item()
     e_kf = (kernel - exact).abs().max().item()
@@ -2578,6 +2853,7 @@ def main() -> int:
     by_path["slice7_continuous"] = phase_continuous(card)["launches"]
     by_path.update(phase_slice8())
     by_path.update(phase_slice9())
+    by_path.update(phase_slice10())
     for e in entries:
         e["launches_by_path"] = {path: n[e["name"]] for path, n in by_path.items()}
         e["launches"] = sum(e["launches_by_path"].values())

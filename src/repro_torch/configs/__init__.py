@@ -5,9 +5,9 @@ last with qk-norm), gemma-2b (GeGLU, MQA at head dim 256, scaled
 embeddings), nemotron-4-340b (squared ReLU, head dim 192) and mixtral-8x7b
 (capacity-routed MoE with sliding-window attention), deepseek-v2-lite-16b
 (MLA with 64 routed and 2 shared experts), mamba2-2.7b (Mamba-2 SSD, no
-attention) and recurrentgemma-2b (RG-LRU layers beside local MQA attention).
-The reference's encoder-decoder config comes with its family (ROADMAP queue
-1, item 2.7)."""
+attention), recurrentgemma-2b (RG-LRU layers beside local MQA attention)
+and seamless-m4t-large-v2 (an encoder over precomputed frame embeddings and
+a decoder with cross-attention): every config of the reference."""
 from __future__ import annotations
 
 import dataclasses
@@ -25,6 +25,7 @@ ARCH_MODULES = {
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "mamba2-2.7b": "mamba2_2_7b",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
 }
 
 ARCH_NAMES = tuple(ARCH_MODULES)

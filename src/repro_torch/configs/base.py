@@ -3,8 +3,6 @@
 A copy of the reference's ``repro/configs/base.py`` (a plain dataclass), so
 a config and its ``reduced()`` smoke variant carry the same numbers in both
 packages. configs/<id>.py instantiate it with the exact assignment numbers.
-The encoder-decoder fields, a family the port does not run yet, are kept,
-so its config will need no schema change.
 """
 from __future__ import annotations
 

@@ -10,13 +10,13 @@ slots for sliding-window attention, ``_is_ring``),
 continuous batcher (``PagedKVCache``, ``_paged_write``,
 ``paged_decode_attention``), ``gqa_defs``/``gqa_apply`` (with ``qk_norm``
 and ``window``) with its cache-free (training), prefill, cached-decode
-(full or ring) and paged-decode branches, and DeepSeek-V2's multi-head
-latent attention: ``mla_defs``/``mla_apply`` with its compressed cache
-(``MLACache``, and ``PagedMLACache`` for the continuous batcher), expanded
-for training and prefill, absorbed for decode. Tensors keep the
-reference's ``(B, L, H, hd)`` layout. Cross-attention (the
-encoder-decoder, ROADMAP queue 1, item 2.7) and the mesh decode are not
-ported yet.
+(full or ring) and paged-decode branches, non-causal self-attention (the
+encoder's) and cross-attention over an encoder's ``memory``, and
+DeepSeek-V2's multi-head latent attention: ``mla_defs``/``mla_apply`` with
+its compressed cache (``MLACache``, and ``PagedMLACache`` for the
+continuous batcher), expanded for training and prefill, absorbed for
+decode. Tensors keep the reference's ``(B, L, H, hd)`` layout. The mesh
+decode is not ported yet.
 
 Paged decode keeps the reference's formulation: q is scored against the
 whole page pool, the block table gathers each slot's (NB, page) scores, and
@@ -29,7 +29,9 @@ slot's pages would copy the context before reading it again.
 
 A long unmasked prefill goes through the hand-written flash kernel
 (``repro_torch.kernels.flash_attention.ops.attention``), with the layer's
-window where it has one; MLA's, whose v head dim (128) is below its qk
+window where it has one, and so does a long cache-free call that asks for
+it with ``flash=True`` (the encoder's non-causal self-attention when a
+prefill runs it); MLA's, whose v head dim (128) is below its qk
 head dim (192), passes v zero-padded to the qk width, since the kernel
 takes one head dim (the zero columns add nothing to p·v), and keeps the
 first ``v_head_dim`` columns of the output. Training keeps
@@ -347,46 +349,59 @@ def _ring_decode_attention(q, ck, cv, pos: int, window: int) -> torch.Tensor:
     return torch.einsum("bhqs,bshd->bqhd", p, repeat_kv(cv, H))
 
 
-def gqa_apply(params, cfg: ModelConfig, x, *, window: int | None = None,
-              cache: KVCache | PagedKVCache | None = None,
+def gqa_apply(params, cfg: ModelConfig, x, *, causal: bool = True,
+              window: int | None = None, cache: KVCache | PagedKVCache | None = None,
+              memory: torch.Tensor | None = None, flash: bool = False,
               lengths: torch.Tensor | None = None, prompt_len: int | None = None):
-    """Causal self-attention over (B, L, D) → (out, new cache or None);
-    ``window``: sliding-window attention (a key within ``window`` positions
-    of the query, itself included).
+    """Self-attention over (B, L, D) → (out, new cache or None), causal
+    unless ``causal=False`` (an encoder's); ``window``: sliding-window
+    attention (a key within ``window`` positions of the query, itself
+    included). With ``memory`` (B, S, D): cross-attention, keys and values
+    from the memory, no rope and no mask (cache-free only; decode takes
+    the precomputed cross K/V, ``model.precompute_cross_kv``).
 
-    Without a cache: whole sequences from position 0 (training). With a
-    cache and L > 1: prefill of an empty cache; a long unmasked prompt goes
-    through the flash kernel; a ring cache keeps the prompt's last W
-    positions. With a cache and L == 1: one cached decode step (a ring
-    cache writes at pos % W; ragged ``lengths`` with a ring raise, as in
-    the reference). lengths: (B,) true prompt lengths of RIGHT-padded
-    ragged batches: in prefill pad keys are masked out; in decode (with ``prompt_len``, the
-    padded prompt width) rope positions are per row (len_b + t) and the pad
-    columns stay masked, so batched ragged decode matches unbatched. With a
+    Without a cache: whole sequences from position 0 (training, an
+    encoder); ``flash=True`` sends attention over more than
+    ``BLOCK_THRESHOLD`` keys through the flash kernel (forward only), as a
+    prefill runs the encoder. With a cache and L > 1: prefill of an empty
+    cache; a long unmasked prompt goes through the flash kernel; a ring
+    cache keeps the prompt's last W positions. With a cache and L == 1:
+    one cached decode step (a ring cache writes at pos % W; ragged
+    ``lengths`` with a ring raise, as in the reference). lengths: (B,) true
+    prompt lengths of RIGHT-padded ragged batches: in prefill pad keys are
+    masked out; in decode (with ``prompt_len``, the padded prompt width)
+    rope positions are per row (len_b + t) and the pad columns stay
+    masked, so batched ragged decode matches unbatched. With a
     :class:`PagedKVCache` (decode only): one token per slot at the slot's
     own position ``cache.lengths[s]``.
     """
     B, L, _ = x.shape
     paged = isinstance(cache, PagedKVCache)
+    kv_src = memory if memory is not None else x
     q = torch.einsum("bld,dhk->blhk", x, params["wq"])
-    k = torch.einsum("bld,dhk->blhk", x, params["wk"])
-    v = torch.einsum("bld,dhk->blhk", x, params["wv"])
+    k = torch.einsum("bld,dhk->blhk", kv_src, params["wk"])
+    v = torch.einsum("bld,dhk->blhk", kv_src, params["wv"])
     if cfg.qk_norm:
         q = rmsnorm_apply(params["q_norm"], q, cfg.norm_eps)
         k = rmsnorm_apply(params["k_norm"], k, cfg.norm_eps)
-    if paged:
-        q_pos = cache.lengths[:, None]          # (S, 1) per-slot positions
-    elif cache is not None and lengths is not None and L == 1:
-        # token t of row b sits at column prompt_len + t, position len_b + t
-        q_pos = (cache.pos - (prompt_len - lengths))[:, None]
-    else:
-        base = cache.pos if cache is not None else 0
-        q_pos = base + torch.arange(L, device=x.device)
-    q = rope(q, q_pos, cfg.rope_theta)
-    k = rope(k, q_pos, cfg.rope_theta)
+    if memory is None:                          # rope only for self-attention
+        if paged:
+            q_pos = cache.lengths[:, None]      # (S, 1) per-slot positions
+        elif cache is not None and lengths is not None and L == 1:
+            # token t of row b sits at column prompt_len + t, position len_b + t
+            q_pos = (cache.pos - (prompt_len - lengths))[:, None]
+        else:
+            base = cache.pos if cache is not None else 0
+            q_pos = base + torch.arange(L, device=x.device)
+        q = rope(q, q_pos, cfg.rope_theta)
+        k = rope(k, q_pos, cfg.rope_theta)
 
     if cache is None:
-        o = attention_any(q, k, v, 0, causal=True, window=window)
+        causal = causal and memory is None
+        if flash and k.shape[1] > BLOCK_THRESHOLD:
+            o = flash_ops.attention(q, k, v, causal=causal, window=window)
+        else:
+            o = attention_any(q, k, v, 0, causal=causal, window=window)
         return torch.einsum("blhk,hkd->bld", o, params["wo"]), None
 
     if paged:

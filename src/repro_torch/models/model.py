@@ -1,30 +1,39 @@
-"""Model assembly: decoders of every kind the reference runs but the
-encoder-decoder, for training and serving.
+"""Model assembly: every kind of model the reference runs, for training
+and serving.
 
 The port of the reference's ``repro/models/model.py``: the GQA decoders,
 dense and MoE (granite, deepseek-7b, gemma-2b, nemotron-4-340b,
 chameleon-34b, mixtral-8x7b), the MLA decoder with MoE
-(deepseek-v2-lite-16b), the attention-free Mamba-2 stack (mamba2-2.7b) and
-the RG-LRU hybrid with local attention (recurrentgemma-2b): ``model_defs``,
-``init``, ``forward`` (with or without caches), ``logits_from_hidden``,
+(deepseek-v2-lite-16b), the attention-free Mamba-2 stack (mamba2-2.7b),
+the RG-LRU hybrid with local attention (recurrentgemma-2b) and the
+encoder-decoder (seamless-m4t-large-v2): ``model_defs``, ``init``,
+``encode``, ``forward`` (with or without caches), ``logits_from_hidden``,
 ``cross_entropy_chunked``, ``loss_fn`` (the MoE layers' aux loss added),
-``init_cache``, ``prefill`` and ``decode_step``, all functions over a params
-tree. Blocks take every MLP variant or capacity-routed MoE, optional
-qk-norm, scaled embeddings, the opt-in parallel block, and sliding windows
-(ring KV caches); a Mamba-2 block has no MLP. Caches are written in place
+``init_cache``, ``precompute_cross_kv``, ``prefill`` and ``decode_step``,
+all functions over a params tree. Blocks take every MLP variant or
+capacity-routed MoE, optional qk-norm, scaled embeddings, the opt-in
+parallel block, and sliding windows (ring KV caches); a Mamba-2 block has
+no MLP. Caches are written in place
 (``attention.KVCache``, ``attention.MLACache``, ``ssm.MambaCache``,
 ``rglru.RGLRUCache``, and for decode the continuous batcher's
 ``attention.PagedKVCache`` and ``attention.PagedMLACache``). The recurrent
 kinds refuse ragged (right-padded) prompts, as the reference does: pad
 tokens would pass through their state.
 
+The encoder-decoder's encoder runs non-causal self-attention over
+precomputed frame embeddings (the speech frontend is a stub, as in the
+reference); each decoder block adds cross-attention over its output, the
+``memory``, between the mix and the MLP. ``prefill`` encodes once, takes
+the long encoder attention through the flash kernel, and precomputes each
+decoder layer's cross K/V, which every decode step then reads.
+
 Layers are grouped into segments as in the reference. A scanned segment
 (``cfg.scan_layers``, what the full configs use) stacks its leaves on a
 leading layer dim and runs as a Python loop over it, its cache stacked the
 same way; a list segment (what ``reduced()`` gives) is a list of per-layer
-trees and caches. ``cfg.remat`` only trades memory for recompute in the
-reference and is ignored here (ROADMAP). The encoder-decoder (``encode``,
-cross-attention) is ROADMAP queue 1, item 2.7.
+trees and caches; the encoder's layers are stacked or listed by the same
+rule. ``cfg.remat`` only trades memory for recompute in the reference and
+is ignored here (ROADMAP).
 """
 from __future__ import annotations
 
@@ -44,9 +53,9 @@ from repro_torch.models.params import ParamDef, init_tree
 
 PyTree = Any
 
-__all__ = ["Segment", "plan_segments", "model_defs", "init", "forward",
+__all__ = ["Segment", "plan_segments", "model_defs", "init", "encode", "forward",
            "logits_from_hidden", "cross_entropy_chunked", "loss_fn",
-           "init_cache", "prefill", "decode_step"]
+           "init_cache", "precompute_cross_kv", "prefill", "decode_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,13 +64,6 @@ class Segment:
     moe: bool
     length: int
     scanned: bool
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.encoder_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs decoder-only models so far; the "
-            "encoder-decoder comes with ROADMAP queue 1, item 2.7")
 
 
 def plan_segments(cfg: ModelConfig) -> list[Segment]:
@@ -87,7 +89,7 @@ def _self_window(cfg: ModelConfig, kind: str) -> int | None:
     return None
 
 
-def _block_defs(cfg: ModelConfig, kind: str, moe: bool) -> PyTree:
+def _block_defs(cfg: ModelConfig, kind: str, moe: bool, cross: bool) -> PyTree:
     d: PyTree = {"norm1": L.rmsnorm_defs(cfg.d_model)}
     if kind in ("attn", "local"):
         d["mix"] = attn_lib.mla_defs(cfg) if cfg.attention_type == "mla" \
@@ -98,6 +100,9 @@ def _block_defs(cfg: ModelConfig, kind: str, moe: bool) -> PyTree:
         d["mix"] = rglru_lib.rglru_defs(cfg)
     else:
         raise ValueError(kind)
+    if cross:
+        d["norm_cross"] = L.rmsnorm_defs(cfg.d_model)
+        d["cross"] = attn_lib.gqa_defs(cfg)
     if kind != "ssm":            # mamba2 stacks have no MLP (d_ff = 0)
         d["norm2"] = L.rmsnorm_defs(cfg.d_model)
         d["mlp"] = L.moe_defs(cfg) if moe else L.mlp_defs(cfg)
@@ -110,12 +115,22 @@ def _stack_defs(defs: PyTree, n: int) -> PyTree:
         defs)
 
 
+def _encoder_block_defs(cfg: ModelConfig) -> PyTree:
+    return {
+        "norm1": L.rmsnorm_defs(cfg.d_model),
+        "mix": attn_lib.gqa_defs(cfg),
+        "norm2": L.rmsnorm_defs(cfg.d_model),
+        "mlp": L.mlp_defs(cfg),
+    }
+
+
 def model_defs(cfg: ModelConfig) -> PyTree:
-    _check_supported(cfg)
+    cross = cfg.encoder_layers > 0
     layer_defs = []
     for s in plan_segments(cfg):
-        layer_defs.append(_stack_defs(_block_defs(cfg, s.kind, s.moe), s.length) if s.scanned
-                          else [_block_defs(cfg, s.kind, s.moe) for _ in range(s.length)])
+        layer_defs.append(_stack_defs(_block_defs(cfg, s.kind, s.moe, cross), s.length)
+                          if s.scanned else
+                          [_block_defs(cfg, s.kind, s.moe, cross) for _ in range(s.length)])
     d: PyTree = {
         "embed": ParamDef((cfg.vocab_size, cfg.d_model), ("vocab", "embed_table"), scale=0.02),
         "segments": layer_defs,
@@ -123,6 +138,14 @@ def model_defs(cfg: ModelConfig) -> PyTree:
     }
     if not cfg.tie_embeddings:
         d["lm_head"] = ParamDef((cfg.d_model, cfg.vocab_size), ("embed", "vocab"), scale=0.02)
+    if cfg.encoder_layers:
+        n = cfg.encoder_layers
+        d["encoder"] = {
+            "layers": _stack_defs(_encoder_block_defs(cfg), n)
+                      if cfg.scan_layers and n > 1
+                      else [_encoder_block_defs(cfg) for _ in range(n)],
+            "out_norm": L.rmsnorm_defs(cfg.d_model),
+        }
     return d
 
 
@@ -133,14 +156,18 @@ def init(generator: torch.Generator, cfg: ModelConfig,
 
 
 def _block_apply(bp: PyTree, cfg: ModelConfig, seg: Segment, x, cache=None,
-                 lengths=None, prompt_len=None):
-    """One residual block: x + mix(norm1(x)), then + mlp(norm2(x)) where the
-    block has an MLP (an MoE layer's returns its aux loss); with
-    ``cfg.parallel_block`` an attention block is x + attn(norm1(x)) +
-    mlp(norm2(x)). The mix is GQA or MLA attention, Mamba-2 or RG-LRU by
-    ``seg.kind``. Returns (x, new cache or None, aux); a dense layer's aux
-    is 0.0, a Python float, so it launches nothing. Recurrent kinds refuse
-    ragged ``lengths``: pad tokens would pass through their state."""
+                 lengths=None, prompt_len=None, memory=None, cross_kv=None):
+    """One residual block: x + mix(norm1(x)), then, in an encoder-decoder's
+    decoder with ``memory`` given, + cross(norm_cross(x)), then +
+    mlp(norm2(x)) where the block has an MLP (an MoE layer's returns its
+    aux loss); with ``cfg.parallel_block`` an attention block without
+    cross-attention is x + attn(norm1(x)) + mlp(norm2(x)). The mix is GQA
+    or MLA attention, Mamba-2 or RG-LRU by ``seg.kind``. Cross-attention
+    reads ``cross_kv`` (this layer's precomputed (k, v), serving) where
+    given, else projects ``memory`` itself (training). Returns (x, new
+    cache or None, aux); a dense layer's aux is 0.0, a Python float, so it
+    launches nothing. Recurrent kinds refuse ragged ``lengths``: pad tokens
+    would pass through their state."""
     aux = 0.0
     h = L.rmsnorm_apply(bp["norm1"], x, cfg.norm_eps)
     if seg.kind in ("attn", "local"):
@@ -166,11 +193,14 @@ def _block_apply(bp: PyTree, cfg: ModelConfig, seg: Segment, x, cache=None,
         a, new_cache = rglru_lib.rglru_apply(bp["mix"], cfg, h, cache=cache)
     else:
         raise ValueError(seg.kind)
-    if "mlp" not in bp:
-        return x + a, new_cache, aux
-    parallel = cfg.parallel_block and seg.kind in ("attn", "local")
+    parallel = cfg.parallel_block and "mlp" in bp and "cross" not in bp \
+        and seg.kind in ("attn", "local")
     if not parallel:
         x = x + a
+        if "cross" in bp and memory is not None:
+            x = x + _cross_apply(bp, cfg, x, memory, cross_kv)
+        if "mlp" not in bp:
+            return x, new_cache, aux
     h2 = L.rmsnorm_apply(bp["norm2"], x, cfg.norm_eps)
     if seg.moe:
         y, aux = L.moe_apply(bp["mlp"], cfg, h2)
@@ -179,6 +209,20 @@ def _block_apply(bp: PyTree, cfg: ModelConfig, seg: Segment, x, cache=None,
     if parallel:
         return x + a + y, new_cache, aux
     return x + y, new_cache, aux
+
+
+def _cross_apply(bp: PyTree, cfg: ModelConfig, x, memory, cross_kv):
+    """Cross-attention of a decoder block over the encoder's memory: over
+    the precomputed ``cross_kv`` = (k, v) by dense attention where given,
+    else through ``gqa_apply(memory=...)``, as the reference."""
+    hc = L.rmsnorm_apply(bp["norm_cross"], x, cfg.norm_eps)
+    if cross_kv is None:
+        return attn_lib.gqa_apply(bp["cross"], cfg, hc, causal=False, memory=memory)[0]
+    ck, cv = cross_kv
+    q = torch.einsum("bld,dhk->blhk", hc, bp["cross"]["wq"])
+    o = attn_lib.dense_attention(q, ck, cv, torch.arange(hc.shape[1], device=hc.device),
+                                 torch.arange(ck.shape[1], device=hc.device), causal=False)
+    return torch.einsum("blhk,hkd->bld", o, bp["cross"]["wo"])
 
 
 def _embed(params, cfg: ModelConfig, tokens):
@@ -202,34 +246,71 @@ def _layer_view(cache, li: int):
     return type(cache)(*(t[li] for t in cache[:-1]), cache.pos)
 
 
+def _layers(stack, n: int, scanned: bool):
+    """The n per-layer trees of a segment: views into a stacked tree's
+    leaves, or a list's items."""
+    return (_tree.map(lambda a: a[li], stack) if scanned else stack[li] for li in range(n))
+
+
+def encode(params, cfg: ModelConfig, enc_embeds: torch.Tensor, *,
+           flash: bool = False) -> torch.Tensor:
+    """The encoder over precomputed frontend embeddings (B, S, D) → the
+    final-norm memory (B, S, D): pre-norm blocks of non-causal
+    self-attention and an MLP.
+
+    ``flash=True`` takes each layer's self-attention through the flash
+    kernel when S > ``attention.BLOCK_THRESHOLD`` (what :func:`prefill`
+    asks for); without it attention is dense or ``blockwise_attention``,
+    as in the reference, which the training path needs: the kernel is
+    forward only."""
+    x = enc_embeds.to(getattr(torch, cfg.compute_dtype))
+    enc = params["encoder"]
+    scanned = not isinstance(enc["layers"], list)
+    for bp in _layers(enc["layers"], cfg.encoder_layers, scanned):
+        x = _encoder_block_apply(bp, cfg, x, flash)
+    return L.rmsnorm_apply(enc["out_norm"], x, cfg.norm_eps)
+
+
+def _encoder_block_apply(bp: PyTree, cfg: ModelConfig, x, flash: bool = False):
+    """One encoder block: x + attn(norm1(x)) non-causal, then + mlp(norm2(x))."""
+    h = L.rmsnorm_apply(bp["norm1"], x, cfg.norm_eps)
+    x = x + attn_lib.gqa_apply(bp["mix"], cfg, h, causal=False, flash=flash)[0]
+    h2 = L.rmsnorm_apply(bp["norm2"], x, cfg.norm_eps)
+    return x + L.mlp_apply(bp["mlp"], cfg, h2)
+
+
 def forward(params, cfg: ModelConfig, tokens, *, caches: list | None = None,
+            memory: torch.Tensor | None = None, cross_kvs: list | None = None,
             lengths=None, prompt_len: int | None = None):
     """Decoder forward over (B, L) tokens → (final-norm hidden (B, L, D),
     new caches or None). ``caches`` (from :func:`init_cache`, or paged ones
     from ``serving.kvcache.init_paged_caches`` for decode) are written in
-    place; lengths/prompt_len as in ``attention.gqa_apply``."""
-    h, new_caches, _ = _forward(params, cfg, tokens, caches=caches, lengths=lengths,
-                                prompt_len=prompt_len)
+    place; an encoder-decoder's decoder attends over ``memory`` (from
+    :func:`encode`), through ``cross_kvs`` (from
+    :func:`precompute_cross_kv`) where given; lengths/prompt_len as in
+    ``attention.gqa_apply``."""
+    h, new_caches, _ = _forward(params, cfg, tokens, caches=caches, memory=memory,
+                                cross_kvs=cross_kvs, lengths=lengths, prompt_len=prompt_len)
     return h, new_caches
 
 
-def _forward(params, cfg: ModelConfig, tokens, *, caches=None, lengths=None,
-             prompt_len=None):
+def _forward(params, cfg: ModelConfig, tokens, *, caches=None, memory=None,
+             cross_kvs=None, lengths=None, prompt_len=None):
     """:func:`forward` with the MoE aux loss summed over the layers:
     (hidden, new caches or None, aux); aux is 0.0 without MoE layers."""
-    _check_supported(cfg)
     x = _embed(params, cfg, tokens)
     aux_total = 0.0
     new_caches: list = []
     for si, (seg, sp) in enumerate(zip(plan_segments(cfg), params["segments"])):
         cache_s = caches[si] if caches is not None else None
+        ckvs = (_layers(cross_kvs[si], seg.length, seg.scanned) if cross_kvs is not None
+                else [None] * seg.length)
         seg_new = []
-        for li in range(seg.length):
-            bp = _tree.map(lambda a: a[li], sp) if seg.scanned else sp[li]
+        for li, (bp, ckv) in enumerate(zip(_layers(sp, seg.length, seg.scanned), ckvs)):
             c = None
             if cache_s is not None:   # a layer of a stacked cache is a view into it
                 c = _layer_view(cache_s, li) if seg.scanned else cache_s[li]
-            x, nc, aux = _block_apply(bp, cfg, seg, x, c, lengths, prompt_len)
+            x, nc, aux = _block_apply(bp, cfg, seg, x, c, lengths, prompt_len, memory, ckv)
             aux_total = aux_total + aux
             seg_new.append(nc)
         if cache_s is not None and seg.scanned:
@@ -270,13 +351,16 @@ def cross_entropy_chunked(params, cfg: ModelConfig, h, labels,
 
 def loss_fn(params, cfg: ModelConfig, batch: PyTree) -> torch.Tensor:
     """Next-token CE plus the MoE layers' aux loss. batch: {"tokens": (B, L)
-    [, "labels": (B, L)]}; without labels the shift happens here
-    (tokens[:-1] -> tokens[1:])."""
+    [, "labels": (B, L)] [, "enc_embeds": (B, S, D)]}; without labels the
+    shift happens here (tokens[:-1] -> tokens[1:]). An encoder-decoder
+    encodes ``enc_embeds`` (blockwise attention: the flash kernel has no
+    backward)."""
     tokens = batch["tokens"]
+    memory = encode(params, cfg, batch["enc_embeds"]) if cfg.encoder_layers else None
     labels = batch.get("labels")
     if labels is None:
         tokens, labels = tokens[:, :-1], tokens[:, 1:]
-    h, _, aux = _forward(params, cfg, tokens)
+    h, _, aux = _forward(params, cfg, tokens, memory=memory)
     return cross_entropy_chunked(params, cfg, h, labels) + aux
 
 
@@ -310,10 +394,28 @@ def init_cache(params, cfg: ModelConfig, batch: int, max_len: int) -> list:
             for seg in plan_segments(cfg)]
 
 
+def precompute_cross_kv(params, cfg: ModelConfig, memory: torch.Tensor) -> list:
+    """Each decoder layer's cross-attention (k, v), each (B, S, Kh, hd),
+    computed once from the encoder's memory (enc-dec serving): per segment
+    a (k, v) pair stacked on a leading layer dim for a scanned segment, a
+    list of pairs for a list segment."""
+    out = []
+    for seg, sp in zip(plan_segments(cfg), params["segments"]):
+        pairs = [(torch.einsum("bld,dhk->blhk", memory, bp["cross"]["wk"]),
+                  torch.einsum("bld,dhk->blhk", memory, bp["cross"]["wv"]))
+                 for bp in _layers(sp, seg.length, seg.scanned)]
+        out.append((torch.stack([k for k, _ in pairs]), torch.stack([v for _, v in pairs]))
+                   if seg.scanned else pairs)
+    return out
+
+
 def prefill(params, cfg: ModelConfig, tokens, max_len: int | None = None,
-            lengths=None):
+            enc_embeds=None, lengths=None):
     """Run the prompt, building caches → (logits (B, 1, V) of the last
-    position, caches).
+    position, caches, cross_kvs, memory); the last two are None but for an
+    encoder-decoder, which encodes ``enc_embeds`` (B, S, D) first (its long
+    self-attention through the flash kernel) and precomputes each decoder
+    layer's cross K/V for the decode steps.
 
     With ``lengths`` (B,), tokens are RIGHT-padded ragged prompts: pad keys
     are masked out of attention and the logits are taken at each row's last
@@ -321,25 +423,33 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int | None = None,
     """
     B, Lp = tokens.shape
     max_len = max_len or Lp
+    memory = cross_kvs = None
+    if cfg.encoder_layers:
+        if enc_embeds is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: prefill needs enc_embeds")
+        memory = encode(params, cfg, enc_embeds, flash=True)
+        cross_kvs = precompute_cross_kv(params, cfg, memory)
     caches = init_cache(params, cfg, B, max_len)
-    h, new_caches = forward(params, cfg, tokens, caches=caches, lengths=lengths,
-                            prompt_len=Lp)
+    h, new_caches = forward(params, cfg, tokens, caches=caches, memory=memory,
+                            cross_kvs=cross_kvs, lengths=lengths, prompt_len=Lp)
     if lengths is not None:
         h_last = h[torch.arange(B, device=h.device), lengths.long() - 1][:, None, :]
     else:
         h_last = h[:, -1:]
-    return logits_from_hidden(params, cfg, h_last), new_caches
+    return logits_from_hidden(params, cfg, h_last), new_caches, cross_kvs, memory
 
 
-def decode_step(params, cfg: ModelConfig, caches, token, *, lengths=None,
-                prompt_len: int | None = None):
+def decode_step(params, cfg: ModelConfig, caches, token, *, memory=None, cross_kvs=None,
+                lengths=None, prompt_len: int | None = None):
     """One decode step. token: (B, 1) → (logits (B, 1, V), new caches).
+    An encoder-decoder passes the ``memory`` and ``cross_kvs`` its prefill
+    returned.
 
     lengths/prompt_len continue a ragged prefill: rope positions per row run
     lengths[b], lengths[b]+1, ... and the original pad columns stay masked.
     Omit both when decoding against paged caches: per-slot positions come
     from the caches' own lengths.
     """
-    h, new_caches = forward(params, cfg, token, caches=caches, lengths=lengths,
-                            prompt_len=prompt_len)
+    h, new_caches = forward(params, cfg, token, caches=caches, memory=memory,
+                            cross_kvs=cross_kvs, lengths=lengths, prompt_len=prompt_len)
     return logits_from_hidden(params, cfg, h), new_caches

@@ -284,8 +284,8 @@ class ContinuousBatcher:
         slots_t = self._to_dev(np.asarray(slots, np.int64))
         # ragged batched prefill: pad rows are masked out of attention and
         # logits come from each row's last REAL position
-        logits, dense = M.prefill(self.params, self.cfg, self._to_dev(prompts),
-                                  max_len=Lb, lengths=lengths_t)
+        logits, dense, _, _ = M.prefill(self.params, self.cfg, self._to_dev(prompts),
+                                        max_len=Lb, lengths=lengths_t)
         kv.scatter_prefill(self.cfg, self.caches, dense, slots_t, self._to_dev(ids),
                            self._to_dev(rows), lengths_t)
         del dense

@@ -9,7 +9,9 @@ host at the end, as in the reference. The KV caches are written in place;
 a sliding-window config decodes over ring caches of ``window`` slots, and
 a ragged wave over a ring raises, as in the reference; so does any ragged
 wave of a recurrent arch (Mamba-2, RG-LRU), whose state pad tokens would
-pass through: those batch equal-length prompts.
+pass through: those batch equal-length prompts. An encoder-decoder is
+served through ``generate(..., enc_embeds=...)``; ``WaveBatcher`` passes no
+frame embeddings, as in the reference.
 
 Greedy decoding is ``argmax`` (the first maximum, as in JAX). With
 ``temperature > 0`` tokens are drawn from a ``torch.Generator`` seeded by
@@ -75,11 +77,13 @@ def load_consensus_params(path: str, cfg: ModelConfig, *,
 
 
 def make_serve_step(cfg: ModelConfig):
-    """serve_step(params, caches, token) -> (logits, caches): ONE new token
-    against the KV caches (written in place)."""
+    """serve_step(params, caches, token [, memory, cross_kvs]) -> (logits,
+    caches): ONE new token against the KV caches (written in place); an
+    encoder-decoder passes its prefill's memory and cross K/V."""
 
-    def serve_step(params, caches, token):
-        return M.decode_step(params, cfg, caches, token)
+    def serve_step(params, caches, token, memory=None, cross_kvs=None):
+        return M.decode_step(params, cfg, caches, token, memory=memory,
+                             cross_kvs=cross_kvs)
 
     return serve_step
 
@@ -93,12 +97,14 @@ class GenerationResult:
 @torch.no_grad()
 def generate(params, cfg: ModelConfig, prompt, *, n_new: int,
              max_len: int | None = None, temperature: float = 0.0,
-             seed: int = 0, lengths=None,
+             enc_embeds=None, seed: int = 0, lengths=None,
              on_first_token: Callable[[], None] | None = None) -> GenerationResult:
     """Prefill the prompt and decode n_new tokens (greedy or sampled).
 
-    ``prompt`` (B, Lp) and ``lengths`` may be numpy arrays or tensors; they
-    are moved to the params' device. ``lengths`` (B,) marks RIGHT-padded
+    ``prompt`` (B, Lp), ``lengths`` and an encoder-decoder's ``enc_embeds``
+    (B, S, D), its frame embeddings, may be numpy arrays or tensors; they
+    are moved to the params' device. The encoder runs once, in the
+    prefill; every decode step reads its memory and cross K/V. ``lengths`` (B,) marks RIGHT-padded
     ragged prompts: pad keys are masked out of prefill attention, per-row
     rope positions continue from each row's real length, and decoding starts
     from each row's last real token. The decode step after the last token
@@ -111,7 +117,10 @@ def generate(params, cfg: ModelConfig, prompt, *, n_new: int,
     max_len = max_len or (Lp + n_new)
     if lengths is not None:
         lengths = to_device(lengths, dev).to(torch.int32)
-    logits, caches = M.prefill(params, cfg, prompt, max_len=max_len, lengths=lengths)
+    if enc_embeds is not None:
+        enc_embeds = to_device(enc_embeds, dev)
+    logits, caches, cross_kvs, memory = M.prefill(
+        params, cfg, prompt, max_len=max_len, enc_embeds=enc_embeds, lengths=lengths)
     logits = logits[:, -1]
     gen = torch.Generator(device=dev).manual_seed(seed) if temperature > 0 else None
     toks, lps = [], []
@@ -128,8 +137,8 @@ def generate(params, cfg: ModelConfig, prompt, *, n_new: int,
             on_first_token()
         if t + 1 < n_new:
             logits, caches = M.decode_step(
-                params, cfg, caches, nxt[:, None], lengths=lengths,
-                prompt_len=Lp if lengths is not None else None)
+                params, cfg, caches, nxt[:, None], memory=memory, cross_kvs=cross_kvs,
+                lengths=lengths, prompt_len=Lp if lengths is not None else None)
             logits = logits[:, -1]
     return GenerationResult(torch.stack(toks, dim=1).to(torch.int32).cpu().numpy(),
                             torch.stack(lps, dim=1).cpu().numpy())

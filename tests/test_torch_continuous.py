@@ -282,7 +282,7 @@ def test_paged_decode_steps_match_reference(pair):
     ids = rows[:, :Lb // page]
     jl, jd, *_ = JM.prefill(jp, jcfg, jnp.asarray(prompts), max_len=Lb,
                             lengths=jnp.asarray(lens))
-    tl, td = TM.prefill(tp, tcfg, torch.from_numpy(prompts), max_len=Lb,
+    tl, td, *_ = TM.prefill(tp, tcfg, torch.from_numpy(prompts), max_len=Lb,
                         lengths=torch.from_numpy(lens))
     _close(tl, jl, ATOL)
     slots = np.arange(S)

@@ -23,16 +23,18 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import ARCH_NAMES as JARCH_NAMES  # noqa: E402
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.kernels.flash_attention.ops import attention as jflash_op  # noqa: E402
 from repro.models import attention as JA  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
 from repro.models import model as JM  # noqa: E402
+from repro.models import params as JP  # noqa: E402
 from repro.serving import ContinuousBatcher as JContinuousBatcher  # noqa: E402
 from repro.serving import WaveBatcher as JWaveBatcher  # noqa: E402
 from repro.serving import generate as jgenerate  # noqa: E402
 from repro_torch import _tree, convert  # noqa: E402
-from repro_torch.configs import ARCH_NAMES, ModelConfig  # noqa: E402
+from repro_torch.configs import ARCH_NAMES  # noqa: E402
 from repro_torch.configs import get_config as tget_config  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS  # noqa: E402
@@ -40,6 +42,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.models import attention as TA  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
+from repro_torch.models import params as TP  # noqa: E402
 from repro_torch.serving import ContinuousBatcher, WaveBatcher, generate  # noqa: E402
 
 RTOL, ATOL = 1e-4, 1e-6       # loss and gradients
@@ -156,15 +159,18 @@ def test_emb_scale_bf16_bit_equal(d_model):
 
 
 def test_unsupported_families_still_raise():
-    """The encoder-decoder config (the reference's, not registered in the
-    port) raises with the ROADMAP item that ports it; the MLA, Mamba-2 and
-    RG-LRU configs, ported since, no longer raise."""
-    cfg = ModelConfig(**dataclasses.asdict(jget_config("seamless-m4t-large-v2", reduced=True)))
-    with pytest.raises(NotImplementedError, match="item 2.7"):
-        TM.model_defs(cfg)
-    for name in ("deepseek-v2-lite-16b", "mamba2-2.7b", "recurrentgemma-2b"):
-        assert name in ARCH_NAMES
-        TM.model_defs(tget_config(name, reduced=True))
+    """No family of the reference is unsupported any more: every reference
+    config is registered in the port and builds its model_defs, at full
+    size and reduced, with the reference's parameter count. What still
+    raises is a name the reference does not have."""
+    assert sorted(ARCH_NAMES) == sorted(JARCH_NAMES)
+    for name in JARCH_NAMES:
+        for reduced in (False, True):
+            defs = TM.model_defs(tget_config(name, reduced=reduced))
+            assert TP.count_params(defs) == JP.count_params(
+                JM.model_defs(jget_config(name, reduced=reduced))), (name, reduced)
+    with pytest.raises(KeyError, match="unknown arch"):
+        tget_config("whisper-large-v3")
 
 
 # ---------------------------------------------------------------------------
@@ -214,7 +220,7 @@ def test_prefill_and_four_decode_steps_match(name):
     toks = _tokens(jcfg.vocab_size, B, Lp, seed=2)
     max_len = Lp + 8
     jl, jc, *_ = JM.prefill(jp, jcfg, jnp.asarray(toks), max_len=max_len)
-    tl, tc = TM.prefill(tp, tcfg, torch.from_numpy(toks), max_len=max_len)
+    tl, tc, *_ = TM.prefill(tp, tcfg, torch.from_numpy(toks), max_len=max_len)
     _close(tl, jl)
     _check_caches(tc, jc, Lp)
     nxt = np.asarray(jnp.argmax(jl[:, -1], axis=-1))[:, None].astype(np.int32)
@@ -252,7 +258,7 @@ def test_ring_cache_prefill_and_decode_match(Lp, max_len, steps):
     W = tcfg.window
     toks = _tokens(jcfg.vocab_size, 2, Lp, seed=5)
     jl, jc, *_ = JM.prefill(jp, jcfg, jnp.asarray(toks), max_len=max_len)
-    tl, tc = TM.prefill(tp, tcfg, torch.from_numpy(toks), max_len=max_len)
+    tl, tc, *_ = TM.prefill(tp, tcfg, torch.from_numpy(toks), max_len=max_len)
     assert tc[0][0].k.shape[1] == min(W, max_len)
     assert TA._is_ring(tc[0][0], W) == (max_len >= W)
     _close(tl, jl)
@@ -270,7 +276,7 @@ def test_ragged_decode_with_a_ring_raises_as_the_reference():
     toks = _tokens(jcfg.vocab_size, 2, 40, seed=7)
     lens = np.asarray([40, 33], np.int32)
     jl, jc, *_ = JM.prefill(jp, jcfg, jnp.asarray(toks), max_len=48, lengths=jnp.asarray(lens))
-    tl, tc = TM.prefill(tp, tcfg, torch.from_numpy(toks), max_len=48,
+    tl, tc, *_ = TM.prefill(tp, tcfg, torch.from_numpy(toks), max_len=48,
                         lengths=torch.from_numpy(lens))
     _close(tl, jl)                     # a ragged prefill into a ring is allowed
     nxt = _tokens(jcfg.vocab_size, 2, 1, seed=8)
@@ -298,7 +304,7 @@ def test_windowed_long_prefill_takes_the_flash_op(window):
     toks = _tokens(jcfg.vocab_size, 1, 1100, seed=10)
     jl, jc, *_ = JM.prefill(jp, jcfg, jnp.asarray(toks), max_len=1104)
     before = flash_attention.launches
-    tl, tc = TM.prefill(tp, tcfg, torch.from_numpy(toks), max_len=1104)
+    tl, tc, *_ = TM.prefill(tp, tcfg, torch.from_numpy(toks), max_len=1104)
     assert flash_attention.launches == before           # the CPU takes the plain version
     _close(tl, jl)
     _check_caches(tc, jc, 1100)

@@ -387,7 +387,7 @@ def test_ring_decode_matches_full_cache_windowed_decode(cuda, Lp):
     def run(p, dev, ring):
         tok = torch.from_numpy(prompt).to(dev)
         if ring:
-            logits, caches = Mo.prefill(p, cfg, tok, max_len=max_len)
+            logits, caches, *_ = Mo.prefill(p, cfg, tok, max_len=max_len)
             assert caches[0][0].k.shape[1] == cfg.window
         else:
             caches = Mo.init_cache(p, dataclasses.replace(cfg, window=None), 2, max_len)
@@ -733,3 +733,59 @@ def test_recurrent_generate_on_card_matches_cpu(cuda, name):
     on_card = generate(_tree.map(lambda x: x.to(cuda), params), cfg, prompt, n_new=8)
     assert np.array_equal(on_cpu.tokens, on_card.tokens)
     np.testing.assert_allclose(on_card.logprobs, on_cpu.logprobs, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The encoder-decoder on the card
+# ---------------------------------------------------------------------------
+
+
+def _seamless_1100():
+    """Reduced seamless (float32, 2 + 2 layers) over 1100 frames: past the
+    1024-key threshold, so prefill takes the kernel, non-causal."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as Mo
+
+    cfg = get_config("seamless-m4t-large-v2", reduced=True, encoder_seq=1100)
+    params = Mo.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    rng = np.random.default_rng(3)
+    enc = rng.normal(size=(2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    prompt = rng.integers(0, cfg.vocab_size, size=(2, 9)).astype(np.int32)
+    return cfg, params, enc, prompt
+
+
+@pytest.mark.gpu
+def test_encdec_generate_on_card_matches_cpu(cuda):
+    """The encoder's non-causal attention through the kernel on the card,
+    through its plain version on the CPU; the same greedy tokens, logprobs
+    within 1e-4."""
+    from repro_torch.serving import generate
+
+    cfg, params, enc, prompt = _seamless_1100()
+    on_cpu = generate(params, cfg, prompt, n_new=8, enc_embeds=enc)
+    before = flash_attention.launches
+    on_card = generate(_tree.map(lambda x: x.to(cuda), params), cfg, prompt, n_new=8,
+                       enc_embeds=enc)
+    assert flash_attention.launches == before + cfg.encoder_layers
+    assert np.array_equal(on_cpu.tokens, on_card.tokens)
+    np.testing.assert_allclose(on_card.logprobs, on_cpu.logprobs, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_encoder_prefill_launches_the_kernel_and_training_never(cuda):
+    """One launch per encoder layer in prefill, none in loss_fn (the kernel
+    has no backward: training encodes through blockwise_attention), whose
+    gradients are finite."""
+    from repro_torch.models import model as Mo
+
+    cfg, params, enc, prompt = _seamless_1100()
+    params = _tree.map(lambda x: x.to(cuda), params)
+    enc, tok = torch.from_numpy(enc).to(cuda), torch.from_numpy(prompt).to(cuda)
+    before = flash_attention.launches
+    with torch.no_grad():
+        Mo.prefill(params, cfg, tok, max_len=12, enc_embeds=enc)
+    assert flash_attention.launches == before + cfg.encoder_layers
+    grads = torch.func.grad(lambda p: Mo.loss_fn(p, cfg, {"tokens": tok, "enc_embeds": enc}))(
+        params)
+    assert flash_attention.launches == before + cfg.encoder_layers
+    assert all(bool(torch.isfinite(g).all()) for g in _tree.leaves(grads))

@@ -214,7 +214,7 @@ def test_mla_flash_call_pads_v_exactly():
     toks = _tokens(jcfg.vocab_size, 1, 1100, seed=5)
     jl, jc, *_ = _jprefill(jcfg, 1104)(jp, jnp.asarray(toks))
     before = flash_attention.launches
-    tl, tc = TM.prefill(tp, tcfg, torch.from_numpy(toks), max_len=1104)
+    tl, tc, *_ = TM.prefill(tp, tcfg, torch.from_numpy(toks), max_len=1104)
     assert flash_attention.launches == before            # the CPU takes the plain version
     _close(tl, jl)
     _check_caches(tc, jc, 1100)
@@ -250,7 +250,7 @@ def test_prefill_and_four_decode_steps_match(scanned):
     B, Lp = 2, 30
     toks = _tokens(jcfg.vocab_size, B, Lp, seed=2)
     jl, jc, *_ = _jprefill(jcfg, Lp + 8)(jp, jnp.asarray(toks))
-    tl, tc = TM.prefill(tp, tcfg, torch.from_numpy(toks), max_len=Lp + 8)
+    tl, tc, *_ = TM.prefill(tp, tcfg, torch.from_numpy(toks), max_len=Lp + 8)
     _close(tl, jl)
     _check_caches(tc, jc, Lp)
     for step in range(4):
@@ -364,7 +364,7 @@ def test_paged_mla_decode_steps_match_reference():
     assert np.array_equal(rows, np.stack([tpool.admit(s, 12) for s in range(2)]))
     ids = rows[:, :2]
     jl, jd = _jprefill(jcfg, 8)(jp, jnp.asarray(toks), lengths=jnp.asarray(lens))
-    tl, td = TM.prefill(tp, tcfg, torch.from_numpy(toks), max_len=8,
+    tl, td, *_ = TM.prefill(tp, tcfg, torch.from_numpy(toks), max_len=8,
                         lengths=torch.from_numpy(lens))
     _close(tl, jl)
     jc = jkv.scatter_prefill(jcfg, jc, jd, jnp.arange(2), jnp.asarray(ids),

@@ -208,7 +208,7 @@ def test_prefill_and_decode_through_the_ring_match(scanned):
     B, Lp = 2, 45
     toks = _tokens(jcfg.vocab_size, B, Lp, seed=2)
     jl, jc, *_ = _jprefill(jcfg, 64)(jp, jnp.asarray(toks))
-    tl, tc = TM.prefill(tp, tcfg, torch.from_numpy(toks), max_len=64)
+    tl, tc, *_ = TM.prefill(tp, tcfg, torch.from_numpy(toks), max_len=64)
     ring = tc[-1][0]
     assert isinstance(ring, TA.KVCache) and TA._is_ring(ring, tcfg.window)
     _close(tl, jl)

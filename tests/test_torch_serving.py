@@ -80,7 +80,7 @@ def test_prefill_and_decode_match_reference(Lp, scanned):
     max_len = Lp + 4
     jl, jc, *_ = JM.prefill(jp, jcfg, jnp.asarray(toks), max_len=max_len)
     before = flash_attention.launches
-    tl, tc = TM.prefill(tp, tcfg, torch.from_numpy(toks), max_len=max_len)
+    tl, tc, *_ = TM.prefill(tp, tcfg, torch.from_numpy(toks), max_len=max_len)
     assert flash_attention.launches == before           # the CPU takes the plain version
     _close(tl, jl)
     _check_caches(tc, jc, Lp)
@@ -103,7 +103,7 @@ def test_ragged_prefill_and_decode_match_reference():
     toks = _tokens(jcfg.vocab_size, len(lens), Lb, seed=1)
     jl, jc, *_ = JM.prefill(jp, jcfg, jnp.asarray(toks), max_len=Lb + 4,
                             lengths=jnp.asarray(lens))
-    tl, tc = TM.prefill(tp, tcfg, torch.from_numpy(toks), max_len=Lb + 4,
+    tl, tc, *_ = TM.prefill(tp, tcfg, torch.from_numpy(toks), max_len=Lb + 4,
                         lengths=torch.from_numpy(lens))
     _close(tl, jl)
     nxt = _tokens(jcfg.vocab_size, len(lens), 1, seed=2)
@@ -170,8 +170,8 @@ def test_sampled_decoding_is_deterministic_under_a_seed():
 def test_serve_step_is_decode_step():
     _, tcfg, _, tp = _pair()
     toks = torch.from_numpy(_tokens(tcfg.vocab_size, 2, 6))
-    _, c1 = TM.prefill(tp, tcfg, toks, max_len=8)
-    _, c2 = TM.prefill(tp, tcfg, toks, max_len=8)
+    _, c1, *_ = TM.prefill(tp, tcfg, toks, max_len=8)
+    _, c2, *_ = TM.prefill(tp, tcfg, toks, max_len=8)
     nxt = toks[:, -1:]
     a, _ = make_serve_step(tcfg)(tp, c1, nxt)
     b, _ = TM.decode_step(tp, tcfg, c2, nxt)

@@ -245,7 +245,7 @@ def test_prefill_and_four_decode_steps_match(scanned):
     B, Lp = 2, 70
     toks = _tokens(jcfg.vocab_size, B, Lp, seed=2)
     jl, jc, *_ = _jprefill(jcfg, Lp + 8)(jp, jnp.asarray(toks))
-    tl, tc = TM.prefill(tp, tcfg, torch.from_numpy(toks), max_len=Lp + 8)
+    tl, tc, *_ = TM.prefill(tp, tcfg, torch.from_numpy(toks), max_len=Lp + 8)
     _close(tl, jl)
     _check_caches(tc, jc, Lp)
     for step in range(4):
@@ -262,10 +262,10 @@ def test_decode_equals_a_reprefill_of_the_extended_sequence():
     sequence (the chip run's check, at float32 here)."""
     _, tcfg, _, tp = _pair(seed=3)
     toks = _tokens(tcfg.vocab_size, 2, 40, seed=3)
-    logits, caches = TM.prefill(tp, tcfg, torch.from_numpy(toks[:, :32]), max_len=40)
+    logits, caches, *_ = TM.prefill(tp, tcfg, torch.from_numpy(toks[:, :32]), max_len=40)
     for t in range(32, 40):
         logits, caches = TM.decode_step(tp, tcfg, caches, torch.from_numpy(toks[:, t:t + 1]))
-    again, _ = TM.prefill(tp, tcfg, torch.from_numpy(toks), max_len=40)
+    again, _, *_ = TM.prefill(tp, tcfg, torch.from_numpy(toks), max_len=40)
     _close(logits, again.numpy())
 
 
