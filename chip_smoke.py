@@ -174,7 +174,34 @@ through these phases, in order, and exits non-zero at the first failure:
    worker: finite losses, one gossip_mix launch per step, no
    flash_attention launch, a fused step against an einsum step within the
    bf16 tolerance, the peak memory.
-16. report — the run's time, one JSON line of kernels, the nvidia-smi line,
+16. slice 11 — ``cfg.remat`` and the worker mesh. Slice 1's training shape
+   (granite-3-2b, 4 layers, M = 4 ring, 8 x 512 tokens per worker) trained
+   5 steps with remat off and on: finite losses, one gossip_mix launch per
+   step; each one's peak (allocated and reserved), ms/step over steps 1-4
+   and launches per step. On the remat run's params, the worker mesh: a
+   world-size-1 NCCL process group (a FileStore in a temporary directory),
+   the live 1 x 1 ``WorkerMesh`` hosting the 4 workers, ``mix_pytree`` on
+   the fused bus, the per-model-shard bus (``param_specs``) and two int8
+   rounds of ``mix_bus_compressed``, each equal to the meshless path bit for
+   bit, exactly 2 gossip_mix and 2 quant_pack launches, both kernels seen
+   in a profile of the route (after one traced warm-up round, up to 3
+   sessions: late in a run the profiler has lost the start of its
+   windows); a single worker gets its params back and
+   launches nothing; the ``ppermute`` and ``allreduce`` backends (NCCL's
+   all-reduce) within the bf16 tolerance of the einsum mix; the process
+   group destroyed. Then the remat gate: one vmapped step's loss and
+   gradients with remat on and off (2 x 512 tokens per worker) equal bit
+   for bit, or, where a card kernel is not deterministic, within twice the
+   remat-off route's distance from a float32 gradient (it says which held).
+   From the reserved peaks at 4 and 6 layers it predicts the deepest
+   granite at M = 4 under 75 GB with remat and trains it 5 steps. Then
+   slice 10's training shape (seamless 2 + 2 layers, M = 2 clique) with
+   remat off and on, and, not gated, the bf16 router's top-k sets over two
+   identical forwards of deepseek-v2-lite-16b at published widths (2
+   layers, 2 x 1024 tokens) and one step's gradients with remat on and off.
+   Every phase before it trains with remat where its config sets it (the
+   full configs do; the reduced ones do not), as the reference does.
+17. report — the run's time, one JSON line of kernels, the nvidia-smi line,
    and last the ``{"ok": true, ...}`` line.
 
 ``--collect`` runs ``gc.collect()`` before each part (and the microbatch=2
@@ -286,6 +313,18 @@ S10_SERVE = (4, 8, 128)
 # embedding and lm_head alone hold 524.6 M params) at M = 2 on the clique:
 # (layers, workers, per-worker batch, tokens per sequence)
 S10_TRAIN = (2, 2, 2, 512)
+# Slice 11 (PERF.md, Cells): cfg.remat on and off at slice 1's training shape
+# and slice 10's; the deepest granite-3-2b at M = 4 whose peak with remat,
+# predicted from the measured bytes per layer, stays under REMAT_BUDGET_GB;
+# the remat gradient gate at slice 1's width with S11_GATE_BATCH x SEQ_LEN
+# tokens per worker (its float32 fallback must fit beside it); bf16 router
+# picks of two identical forwards at S11_MOE = (config, layers, batch, seq);
+# a world-size-1 NCCL mesh hosting slice 1's M workers.
+REMAT_BUDGET_GB = 75.0
+DEEP_PROBE = 6          # the second depth the bytes per layer are measured at
+MESH_PROFILES = 3       # profiler sessions allowed to show the mesh route's kernels
+S11_GATE_BATCH = 2
+S11_MOE = ("deepseek-v2-lite-16b", 2, 2, 1024)
 # ``--collect`` runs gc.collect() before each part, as the script did while
 # the tree helpers held leaves in reference cycles: each part's peak with
 # and without it shows whether a cycle holds device memory again.
@@ -1799,7 +1838,8 @@ def phase_serve() -> dict:
 
         check_prefill(params, cfg, tok, SERVE_MAX_LEN, "serve")
         rows = profile_call("one prefill wave", lambda: Mo.prefill(params, cfg, tok,
-                                                                   max_len=SERVE_MAX_LEN))
+                                                                   max_len=SERVE_MAX_LEN),
+                            warmup=1)
         check_flash_route(rows, cfg.n_layers)
     del params
     return {"launches": launches}
@@ -2017,6 +2057,298 @@ def phase_slice10() -> dict:
     return by_path
 
 
+def phase_slice11() -> dict:
+    """Slice 11: cfg.remat and the worker mesh. A: granite-3-2b at slice
+    1's shape trained with remat off and on, the worker mesh on those
+    params, the remat gradient gate, then the deepest granite predicted to
+    fit (from a probe at DEEP_PROBE layers); B: seamless at slice 10's
+    training shape, remat off and on; C: the bf16 router's picks over two
+    identical forwards (not gated). Returns launches by path."""
+    t0 = time.perf_counter()
+    by_path, runs = {}, {}
+    for remat in (False, True):
+        run = _remat_train("granite-3-2b", N_LAYERS, M_WORKERS, "ring", PER_WORKER_BATCH,
+                           SEQ_LEN, remat, keep=remat)
+        runs[remat] = run
+        by_path[f"slice11_train_granite-3-2b_remat_{'on' if remat else 'off'}"] = run["launches"]
+    by_path["slice11_mesh"] = _mesh_check(runs[True].pop("params"), runs[True]["cfg"])
+    _remat_gate("granite-3-2b", N_LAYERS, M_WORKERS, S11_GATE_BATCH, SEQ_LEN)
+    # the deepest granite at M = 4 under the budget, from the bytes per layer
+    # between N_LAYERS and DEEP_PROBE layers (past 4 layers the peak sits in
+    # the bus step, whose buffers grow with the params) that the allocator
+    # holds (reserved: what must fit the card, its fragmentation included)
+    probe = _remat_train("granite-3-2b", DEEP_PROBE, M_WORKERS, "ring", PER_WORKER_BATCH,
+                         SEQ_LEN, True)
+    by_path[f"slice11_train_granite-3-2b_{DEEP_PROBE}_layers"] = probe["launches"]
+    fit = {}
+    for key in ("peak_gb", "reserved_gb"):
+        per_layer = (probe[key] - runs[True][key]) / (DEEP_PROBE - N_LAYERS)
+        fit[key] = (per_layer, runs[True][key] - N_LAYERS * per_layer)
+    per_layer, fixed = fit["reserved_gb"]
+    depth = min(serve_config().n_layers, int((REMAT_BUDGET_GB - fixed) // per_layer))
+    predicted = {k: b + depth * a for k, (a, b) in fit.items()}
+    log(f"[slice11 deep] remat peaks allocated / reserved: {runs[True]['peak_gb']:.2f} / "
+        f"{runs[True]['reserved_gb']:.2f} GB at {N_LAYERS} layers, {probe['peak_gb']:.2f} / "
+        f"{probe['reserved_gb']:.2f} GB at {DEEP_PROBE}: reserved {per_layer:.3f} GB per "
+        f"layer over {fixed:.2f} GB; predicted: {depth} layers, reserved "
+        f"{predicted['reserved_gb']:.2f} GB (budget {REMAT_BUDGET_GB} GB), allocated "
+        f"{predicted['peak_gb']:.2f} GB")
+    deep = _remat_train("granite-3-2b", depth, M_WORKERS, "ring", PER_WORKER_BATCH, SEQ_LEN,
+                        True)
+    by_path[f"slice11_train_granite-3-2b_{depth}_layers"] = deep["launches"]
+    log(f"[slice11 deep] {depth} layers with remat: peak allocated {deep['peak_gb']:.2f} GB "
+        f"(predicted {predicted['peak_gb']:.2f}), reserved {deep['reserved_gb']:.2f} GB "
+        f"(predicted {predicted['reserved_gb']:.2f}), {deep['step_ms']:.1f} ms/step")
+    layers, workers, batch, seq = S10_TRAIN
+    for remat in (False, True):
+        run = _remat_train(S10_NAME, layers, workers, "clique", batch, seq, remat)
+        by_path[f"slice11_train_{S10_NAME}_remat_{'on' if remat else 'off'}"] = run["launches"]
+    _router_repeat(*S11_MOE)
+    log(f"[slice11] the phase took {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
+def _remat_train(name, layers, workers, topology, batch_size, seq_len, remat,
+                 keep=False) -> dict:
+    """Five train() steps of ``family_config(name, layers, remat=remat)``
+    on ``topology`` over ``workers`` (fused bus, momentum SGD): finite
+    losses, one gossip_mix launch per step and nothing else. Returns the
+    peak GB, ms/step over steps 1-4, the launches, the config and, with
+    ``keep``, the trained params; the peak the allocator reserved too."""
+    import torch
+
+    from repro_torch.core import topology as T
+    from repro_torch.core.gossip import GossipSpec
+    from repro_torch.optim import momentum_sgd
+    from repro_torch.train import train
+
+    tag = f"slice11 {name} {layers} layers remat {'on' if remat else 'off'}"
+    fresh_gb("training", tag)
+    cfg = family_config(name, layers, remat=remat)
+    params0, next_batch, loss = family_setup(cfg, workers, batch_size, seq_len)
+
+    def batches():
+        while True:
+            yield next_batch()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    state, hist = train(loss, params0, momentum_sgd(LR, 0.9), batches(), steps=STEPS,
+                        gossip=GossipSpec(topology=T.make(topology, workers), backend="fused"),
+                        log_every=STEPS, device="cuda", verbose=False)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(x) for x in hist.loss):
+        raise AssertionError(f"{tag}: non-finite loss {hist.loss}")
+    if launches != {"gossip_mix": STEPS, "quant_pack": 0, "flash_attention": 0}:
+        raise AssertionError(f"{tag}: {launches} in {STEPS} steps, want 1 gossip_mix per step")
+    out = {"peak_gb": peak, "reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+           "step_ms": hist.step_time[-1] * 1e3, "launches": launches, "cfg": cfg}
+    log(f"[{tag}] M={workers} {topology}, {batch_size} x {seq_len} tokens per worker: losses "
+        f"{[round(x, 4) for x in hist.loss]}; steps 1-{STEPS - 1} {out['step_ms']:.1f} ms/step; "
+        f"launches per step {launches['gossip_mix'] / STEPS:g} gossip_mix, 0 flash_attention; "
+        f"peak {peak:.2f} GB (reserved {out['reserved_gb']:.2f} GB)")
+    if keep:
+        out["params"] = state.params
+    del state, params0
+    return out
+
+
+def _remat_gate(name, layers, workers, batch_size, seq_len) -> None:
+    """The gradients of one vmapped step with remat on and off: equal bit
+    for bit, or, where a kernel on the card is not deterministic, within
+    twice the remat-off route's distance from a float32 gradient (its
+    float32 twin). Says which case held."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.convert import to_device
+    from repro_torch.models import model as Mo
+
+    tag = "slice11 remat gate"
+    fresh_gb("the remat gradient gate", tag)
+    cfg_on = family_config(name, layers, remat=True)
+    cfg_off = dataclasses.replace(cfg_on, remat=False)
+    params, next_batch, _ = family_setup(cfg_on, workers, batch_size, seq_len)
+    batch = to_device(next_batch(), "cuda")
+
+    def grads(cfg, p):
+        return torch.func.vmap(torch.func.grad_and_value(
+            lambda q, b: Mo.loss_fn(q, cfg, b)))(p, batch)
+
+    g_on, l_on = grads(cfg_on, params)
+    g_off, l_off = grads(cfg_off, params)
+    pairs = list(zip(_tree.leaves(g_on), _tree.leaves(g_off)))
+    equal = torch.equal(l_on, l_off) and all(torch.equal(a, b) for a, b in pairs)
+    diff = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
+    if equal:
+        log(f"[{tag}] {name} {layers} layers, M={workers}, {batch_size} x {seq_len} tokens per "
+            f"worker: loss and all {len(pairs)} gradient leaves with remat on equal remat off "
+            f"bit for bit")
+        return
+    del g_on
+    cfg32 = dataclasses.replace(cfg_off, param_dtype="float32", compute_dtype="float32")
+    g32, _ = grads(cfg32, _tree.map(lambda x: x.float(), params))
+    twin = max((b.float() - c).abs().max().item() for b, c in zip(_tree.leaves(g_off),
+                                                                   _tree.leaves(g32)))
+    log(f"[{tag}] not bit-equal: remat on vs off max|err| {diff:.3g}, the remat-off route's "
+        f"float32 distance {twin:.3g} (tol {2 * twin:.3g})")
+    if not diff <= 2 * twin:
+        raise AssertionError(f"{tag}: remat on vs off {diff} > twice the float32 distance {twin}")
+
+
+def _router_repeat(name, layers, batch_size, seq_len) -> None:
+    """Not gated: at published widths in bf16, the tokens whose top-k
+    expert set differs between two identical forwards of the training route
+    (no remat involved: it shows whether the route itself is deterministic
+    on the card), then whether one step's gradients with remat on equal
+    remat off."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.models import layers as Ly
+    from repro_torch.models import model as Mo
+
+    tag = "slice11 router"
+    fresh_gb("the router repeat", tag)
+    cfg = family_config(name, layers, remat=True)
+    params = Mo.init(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    tok = torch.randint(0, cfg.vocab_size, (batch_size, seq_len),
+                        generator=torch.Generator(device="cuda").manual_seed(2), device="cuda")
+    real, runs = Ly._route, []
+    for _ in range(2):
+        picks = []
+
+        def recording(p, c, xf, picks=picks):
+            out = real(p, c, xf)
+            picks.append(out[1].sort(-1).values)
+            return out
+
+        Ly._route = recording
+        try:
+            with torch.no_grad():
+                Mo.forward(params, cfg, tok)
+        finally:
+            Ly._route = real
+        runs.append(picks)
+    flips = [int((a != b).any(-1).sum()) for a, b in zip(*runs)]
+    batch = {"tokens": tok}
+    g = [torch.func.grad(lambda p, c=c: Mo.loss_fn(p, c, batch))(params)
+         for c in (cfg, dataclasses.replace(cfg, remat=False))]
+    pairs = list(zip(*(_tree.leaves(x) for x in g)))
+    same = sum(torch.equal(a, b) for a, b in pairs)
+    diff = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
+    log(f"[{tag}] {name} {layers} layers bf16, {batch_size} x {seq_len} tokens: router top-"
+        f"{cfg.top_k} sets differing between two identical forwards, per MoE layer: {flips} "
+        f"(not gated); one step's gradients remat on vs off: {same} of {len(pairs)} leaves "
+        f"bit-equal, max|err| {diff:.3g} (not gated)")
+
+
+def _mesh_check(params, cfg) -> dict:
+    """The worker mesh on the card: a world-size-1 NCCL process group (a
+    FileStore in a temporary directory), the live 1 x 1 WorkerMesh hosting
+    all M workers of slice 1's trained params, and on it the fused mix
+    (``mix_pytree``), the per-model-shard bus (``param_specs``) and two
+    int8 rounds of ``mix_bus_compressed``: each equal to the meshless path
+    bit for bit, gossip_mix and quant_pack launched (counted, and seen in a
+    profile). Then the single-worker case (no neighbour: nothing launched,
+    the params back, as the reference's) and the ``ppermute`` and
+    ``allreduce`` backends (NCCL's all-reduce) against the einsum mix
+    within the bf16 tolerance. The process group is destroyed before it
+    returns the launches of the mesh path."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import _tree
+    from repro_torch.core import bus
+    from repro_torch.core import topology as T
+    from repro_torch.core.gossip import GossipSpec, mix_pytree
+    from repro_torch.launch.mesh import WorkerMesh, make_host_mesh
+    from repro_torch.launch.shardings import local_tree, param_pspecs
+
+    tag = "slice11 mesh"
+    t0 = time.perf_counter()
+
+    def same(a, b) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(_tree.leaves(a), _tree.leaves(b)))
+
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            wm = WorkerMesh.from_mesh(make_host_mesh(data=1, model=1, device="cuda"))
+            topo = T.undirected_ring(M_WORKERS)
+            spec = GossipSpec.for_mesh(topo, wm, backend="fused")
+            flat = GossipSpec(topology=topo, backend="fused")
+            specs = param_pspecs(cfg, wm)
+            local = local_tree(params, specs, wm)
+            reset_launches()
+            mixed = mix_pytree(local, spec, wm)
+            sharded = bus.mix_bus(local, spec, wm, param_specs=specs)
+            comp1, res1 = bus.mix_bus_compressed(local, spec, wm, wire_dtype="int8")
+            comp2, res2 = bus.mix_bus_compressed(comp1, spec, wm, wire_dtype="int8",
+                                                 residual=res1)
+            torch.cuda.synchronize()
+            launches = read_launches()
+            if launches != {"gossip_mix": 2, "quant_pack": 2, "flash_attention": 0}:
+                raise AssertionError(f"{tag}: {launches}, want 2 gossip_mix (the fused and the "
+                                     "per-shard mix) and 2 quant_pack (two int8 rounds)")
+            # late in a whole run the profiler lost the start of its windows
+            # (no gossip_mix in three sessions while the launch counts above
+            # held): one warm-up round first, and up to MESH_PROFILES sessions
+            for attempt in range(1, MESH_PROFILES + 1):
+                rows = profile_call("the fused mix and an int8 round over the mesh", lambda: (
+                    mix_pytree(local, spec, wm),
+                    bus.mix_bus_compressed(local, spec, wm, wire_dtype="int8")), warmup=1)
+                seen = {k: sum(c for n, _, c in rows if k in n.lower())
+                        for k in ("gossip_mix", "quant_pack")}
+                log(f"[{tag}] profile session {attempt}: kernel launches seen {seen}")
+                if all(seen.values()):
+                    break
+            else:
+                raise AssertionError(f"{tag}: {MESH_PROFILES} profiles of the mesh route show "
+                                     f"{seen}")
+            m1, r1 = bus.mix_bus_compressed(params, flat, wire_dtype="int8")
+            m2, r2 = bus.mix_bus_compressed(m1, flat, wire_dtype="int8", residual=r1)
+            checks = {"fused mix": same(mixed, mix_pytree(params, flat)),
+                      "per-shard bus": same(sharded, bus.mix_bus(params, flat)),
+                      "int8 round 1": same(comp1, m1) and same(res1, r1),
+                      "int8 round 2": same(comp2, m2) and same(res2, r2)}
+            if not all(checks.values()):
+                raise AssertionError(f"{tag}: not bit-equal to the meshless path: {checks}")
+            del m1, m2, r1, r2, comp1, comp2, res1, res2, sharded
+            one = _tree.map(lambda x: x[:1], local)
+            reset_launches()
+            alone = mix_pytree(one, GossipSpec.for_mesh(T.clique(1), wm, backend="fused"), wm)
+            if read_launches()["gossip_mix"] or not same(alone, one):
+                raise AssertionError(f"{tag}: a single worker must get its params back, "
+                                     "launching nothing")
+            norm = params["out_norm"]
+            for backend, name in (("ppermute", "ring"), ("allreduce", "clique")):
+                t = T.make(name, M_WORKERS)
+                got = mix_pytree(norm, GossipSpec.for_mesh(t, wm, backend=backend), wm)
+                want = mix_pytree(norm, GossipSpec(topology=t, backend="einsum"))
+                err, finite = _params_err(got, want)
+                if not finite or err > TOL["bfloat16"]:
+                    raise AssertionError(f"{tag}: {backend} vs einsum max|err| {err}")
+                log(f"[{tag}] {backend} backend on the mesh vs einsum: max|err| {err:.3g} "
+                    f"(bf16 tol {TOL['bfloat16']})")
+            log(f"[{tag}] {wm.describe()} over {dist.get_backend()}, {M_WORKERS} workers "
+                f"on the rank: fused mix, per-shard bus and 2 int8 rounds bit-equal to the "
+                f"meshless path; launches {launches}; the profile shows {seen}; single worker "
+                f"unchanged, nothing launched; {time.perf_counter() - t0:.1f} s")
+        finally:
+            dist.destroy_process_group()
+    return launches
+
+
 def _serve_encdec() -> dict:
     """seamless-m4t-large-v2 at full depth: one generate(enc_embeds=) of
     S10_SERVE's requests (the main path, its launches counted: one
@@ -2108,7 +2440,7 @@ def _serve_encdec() -> dict:
         _check_encdec_decode(params, cfg, tok, enc, tag)
         rows = profile_call(f"{S10_NAME} prefill",
                             lambda: Mo.prefill(params, cfg, tok, max_len=Lp + n_new,
-                                               enc_embeds=enc))
+                                               enc_embeds=enc), warmup=1)
         check_flash_route(rows, n_attn, tag)
     del params, enc
     return launches
@@ -2256,7 +2588,8 @@ def _serve_wave(slice_tag, name, layers, slots, prompt_len, n_new) -> dict:
         if cfg.n_experts:
             count_route_flips(params, cfg, tok, prompt_len + n_new, tag)
         rows = profile_call(f"{name} prefill wave",
-                            lambda: Mo.prefill(params, cfg, tok, max_len=prompt_len + n_new))
+                            lambda: Mo.prefill(params, cfg, tok, max_len=prompt_len + n_new),
+                            warmup=1)
         check_flash_route(rows, n_attn, tag)
         fed = torch.from_numpy(res.tokens[:, :CHECK_STEPS]).cuda()
         if cfg.window:
@@ -2485,37 +2818,33 @@ def _continuous_family(slice_tag, name, paged_check: bool = False) -> dict:
     return launches
 
 
-def _train_family(slice_tag, name, layers, batch_size, seq_len, workers=M_WORKERS,
-                  topology="ring") -> dict:
-    """Five train() steps in bf16 on ``topology`` over ``workers`` (fused
-    bus) of the config at its published widths cut to ``layers`` layers (an
-    encoder-decoder's encoder too), or reduced (``layers`` None): finite
-    losses, one gossip_mix launch per step, and a fused step against an
-    einsum step within the bf16 tolerance. An encoder-decoder's batches
-    carry seeded random frame embeddings beside the tokens."""
+def family_config(name, layers, **overrides):
+    """The config at its published widths cut to ``layers`` layers (an
+    encoder-decoder's encoder too), or reduced in bf16 (``layers`` None)."""
     import dataclasses
 
+    from repro_torch.configs import get_config
+
+    if layers is None:
+        return get_config(name, reduced=True, param_dtype="bfloat16", compute_dtype="bfloat16",
+                          **overrides)
+    cfg = get_config(name, n_layers=layers, **overrides)
+    if cfg.encoder_layers:
+        cfg = dataclasses.replace(cfg, encoder_layers=layers)
+    return cfg
+
+
+def family_setup(cfg, workers, batch_size, seq_len):
+    """(worker-stacked params, next_batch, loss) of a training run: weights
+    drawn on the card from seed 0, the token stream and worker batches of
+    seed 0 (slice 1's at its shape), an encoder-decoder's batches with
+    seeded random frame embeddings beside the tokens."""
     import torch
 
-    from repro_torch.configs import get_config
-    from repro_torch.convert import to_device
-    from repro_torch.core import topology as T
-    from repro_torch.core.decentralized import make_train_step, replicate_for_workers
-    from repro_torch.core.gossip import GossipSpec
+    from repro_torch.core.decentralized import replicate_for_workers
     from repro_torch.data import WorkerBatcher, pad_to_equal, random_split, token_stream
     from repro_torch.models import model as Mo
-    from repro_torch.models.params import count_params
-    from repro_torch.optim import momentum_sgd
-    from repro_torch.train import train
 
-    tag = f"{slice_tag} train {name}"
-    fresh_gb(f"{name} training", tag)
-    if layers is None:
-        cfg = get_config(name, reduced=True, param_dtype="bfloat16", compute_dtype="bfloat16")
-    else:
-        cfg = get_config(name, n_layers=layers)
-        if cfg.encoder_layers:
-            cfg = dataclasses.replace(cfg, encoder_layers=layers)
     params0 = replicate_for_workers(
         Mo.init(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda"), workers)
     toks, _ = token_stream(S=workers * batch_size * 8, seq_len=seq_len,
@@ -2532,12 +2861,36 @@ def _train_family(slice_tag, name, layers, batch_size, seq_len, workers=M_WORKER
                                           dtype=torch.bfloat16)
         return b
 
+    return params0, next_batch, (lambda p, b: Mo.loss_fn(p, cfg, b))
+
+
+def _train_family(slice_tag, name, layers, batch_size, seq_len, workers=M_WORKERS,
+                  topology="ring") -> dict:
+    """Five train() steps in bf16 on ``topology`` over ``workers`` (fused
+    bus) of the config at its published widths cut to ``layers`` layers (an
+    encoder-decoder's encoder too), or reduced (``layers`` None): finite
+    losses, one gossip_mix launch per step, and a fused step against an
+    einsum step within the bf16 tolerance. An encoder-decoder's batches
+    carry seeded random frame embeddings beside the tokens."""
+    import torch
+
+    from repro_torch.convert import to_device
+    from repro_torch.core import topology as T
+    from repro_torch.core.decentralized import make_train_step
+    from repro_torch.core.gossip import GossipSpec
+    from repro_torch.models import model as Mo
+    from repro_torch.models.params import count_params
+    from repro_torch.optim import momentum_sgd
+    from repro_torch.train import train
+
+    tag = f"{slice_tag} train {name}"
+    fresh_gb(f"{name} training", tag)
+    cfg = family_config(name, layers)
+    params0, next_batch, loss = family_setup(cfg, workers, batch_size, seq_len)
+
     def batches():
         while True:
             yield next_batch()
-
-    def loss(p, b):
-        return Mo.loss_fn(p, cfg, b)
 
     opt = momentum_sgd(LR, 0.9)
     topo = T.make(topology, workers)
@@ -2775,20 +3128,29 @@ def check_round1(got, exact, amax: float) -> None:
         f"(bound: half the largest row scale {half_scale:.4g} + 1 bf16 ulp)")
 
 
-def profile_call(label: str, fn) -> list[tuple[str, float, int]]:
+def profile_call(label: str, fn, warmup: int = 0) -> list[tuple[str, float, int]]:
     """Device time of one call of ``fn`` by kernel (torch.profiler, CUPTI);
     returns (kernel name, device ms, launches) rows, none if the profiler saw
-    no device kernels."""
+    no device kernels. ``warmup`` calls of ``fn`` run first under the
+    profiler's warm-up schedule, traced but discarded: in a long run the
+    profiler has lost the start of a window (a prefill's first flash
+    launch, a mesh route's first kernels), so every profile that a gate
+    reads takes one."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    kw = {"schedule": schedule(wait=0, warmup=warmup, active=1)} if warmup else {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], **kw) as prof:
+        for _ in range(warmup):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+        t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
     del out
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
@@ -2854,6 +3216,7 @@ def main() -> int:
     by_path.update(phase_slice8())
     by_path.update(phase_slice9())
     by_path.update(phase_slice10())
+    by_path.update(phase_slice11())
     for e in entries:
         e["launches_by_path"] = {path: n[e["name"]] for path, n in by_path.items()}
         e["launches"] = sum(e["launches_by_path"].values())

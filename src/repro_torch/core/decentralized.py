@@ -130,6 +130,7 @@ def make_train_step(
     mode: str = "gossip",
     mix_first: bool = True,
     microbatch: int = 1,
+    compute_stats: bool = True,
 ):
     """Build the train step ``step(state, batch) -> (state, StepMetrics)``.
 
@@ -142,6 +143,8 @@ def make_train_step(
         gradient taken at the current local params (True). False gives the
         adapt-then-combine variant — mix(w - η g).
       microbatch: gradient-accumulation factor over the per-worker batch.
+      compute_stats: gossip mode only; False skips the step's E, E_sp, H
+        and consensus spread, which are then float32 zeros (the loss stays).
     """
     # torch.func imports torch._dynamo inside the first gradient; an
     # exception caught during that import leaves a traceback cycle that holds
@@ -197,8 +200,11 @@ def make_train_step(
                         new_params = gossip_lib.mix_pytree(stepped, gossip)
                     else:
                         new_params = do_mix(stepped) if mix_now else stepped
-                E, E_sp, H = gradient_stats(grads)
-                spread = param_spread(new_params)
+                if compute_stats:
+                    E, E_sp, H = gradient_stats(grads)
+                    spread = param_spread(new_params)
+                else:
+                    E = E_sp = H = spread = torch.zeros((), device=losses.device)
             metrics = StepMetrics(losses.mean(), E, E_sp, H, spread)
             return TrainState(state.step + 1, new_params, opt_state), metrics
 

@@ -6,10 +6,22 @@ carries a leading worker dimension of size M, so mixing leaf ``x`` of shape
 
 Backends (selected via :class:`GossipSpec`):
 
-* ``einsum`` — dense contraction with A; correct for any A (the oracle).
-* ``fused``  — the flat-buffer gossip bus (:mod:`repro_torch.core.bus`):
+* ``einsum``    — dense contraction with A; correct for any A (the oracle).
+* ``ppermute``  — over a worker mesh: one exchange per leaf and
+  non-identity permutation of A's Birkhoff decomposition
+  (``batch_isend_irecv``), the weighted terms summed in the leaf's dtype.
+* ``allreduce`` — over a worker mesh: the clique's mean, one all-reduce per
+  leaf over the worker axes (the parameter-server baseline the paper
+  compares with).
+* ``fused``     — the flat-buffer gossip bus (:mod:`repro_torch.core.bus`):
   the tree packs into one buffer per dtype and the mix (+ optimizer update,
-  in the train step) is one pass of the fused ``gossip_mix`` kernel.
+  in the train step) is one pass of the fused ``gossip_mix`` kernel, one
+  exchange per permutation over a mesh.
+
+On a mesh (``mesh=``: a ``launch.mesh.WorkerMesh`` or its live
+``DeviceMesh``) every rank passes its own workers' leaves (a worker dim of
+``M / n_workers``) and gets theirs back; without one, ``ppermute`` and
+``allreduce`` mix with the einsum oracle, as the reference's do.
 
 ``GossipSpec(time_varying='one_peer_exp')`` mixes step k with the one-peer
 exponential graph of round ``k mod log2 M`` (:func:`mix_pytree_time_varying`;
@@ -21,9 +33,6 @@ partial fleet with the repaired matrices of :mod:`repro_torch.core.topology`.
 its two factored stages, intra-pod then cross-pod (:func:`hierarchical_mix`);
 :func:`hierarchical_mix_compressed` sends the cross-pod stage over the
 compressed wire of :func:`repro_torch.core.bus.mix_bus_compressed`.
-
-The reference's ``ppermute`` and ``allreduce`` backends need a mesh of
-devices; they come with the distributed slice (ROADMAP queue 1, item 17).
 """
 from __future__ import annotations
 
@@ -57,8 +66,11 @@ class GossipSpec:
     """Static description of how the consensus step executes.
 
     topology: the Topology (consensus matrix A, M workers).
-    backend: 'einsum' | 'fused' | 'auto' ('auto' resolves as in the
-      reference, to the mesh backends this port does not have yet).
+    backend: 'einsum' | 'ppermute' | 'allreduce' | 'fused' | 'auto'
+      ('auto': 'allreduce' on a clique, 'ppermute' otherwise).
+    worker_axes: mesh axis name(s) the worker dim is sharded over.
+    model_axis: the intra-replica axis (``WorkerMesh.model_axis``) or None;
+      with it and ``param_specs`` the fused bus gossips per model shard.
     period: gossip every `period` optimizer steps (1 = the paper's DSM).
     time_varying: None (static topology) or 'one_peer_exp': the step-k
       matrix pairs node i with node i + 2^(k mod log2 M) (degree 1, exact
@@ -70,6 +82,8 @@ class GossipSpec:
 
     topology: Topology
     backend: str = "auto"
+    worker_axes: tuple[str, ...] = ("data",)
+    model_axis: str | None = None
     period: int = 1
     time_varying: str | None = None
     hierarchical: bool = False
@@ -77,6 +91,16 @@ class GossipSpec:
     def __post_init__(self):
         if self.time_varying not in (None, "one_peer_exp"):
             raise ValueError(f"unknown time_varying {self.time_varying!r}")
+
+    @classmethod
+    def for_mesh(cls, topology: Topology, wmesh, **kw) -> "GossipSpec":
+        """A spec bound to a WorkerMesh: its worker axes, and its model axis
+        when the shard factor k > 1."""
+        from repro_torch.launch.mesh import WorkerMesh
+
+        wm = WorkerMesh.ensure(wmesh)
+        return cls(topology=topology, worker_axes=wm.worker_axes,
+                   model_axis=wm.model_axis if wm.model_factor > 1 else None, **kw)
 
     def resolved_backend(self) -> str:
         if self.backend != "auto":
@@ -118,38 +142,93 @@ def mix_pytree_reference(params: PyTree, A) -> PyTree:
     return _tree.map(lambda x: mix_reference(x, A), params)
 
 
-def mix_pytree(params: PyTree, spec: GossipSpec) -> PyTree:
-    """Consensus step over the parameter tree (leaves have leading M dim)."""
+# ---------------------------------------------------------------------------
+# Mixing over a worker mesh
+# ---------------------------------------------------------------------------
+
+
+def _allreduce_leaf(x: torch.Tensor, wm, M: int) -> torch.Tensor:
+    """The mean over all M workers of one leaf (this rank's m workers
+    summed, then one all-reduce per worker axis), for each of them."""
+    import torch.distributed as dist
+
+    y = x.sum(0, keepdim=True) if x.shape[0] > 1 else x.clone()
+    for group in wm.worker_groups:
+        dist.all_reduce(y, group=group)
+    return (y / M).expand_as(x).clone()
+
+
+def _ppermute_leaf(x: torch.Tensor, spec: GossipSpec, wm) -> torch.Tensor:
+    """Mix one leaf of this rank's workers: ``Σ_p w_p·P_p(x)`` in the leaf's
+    dtype, the weight cast to it first, one exchange per non-identity
+    permutation (perm[j] is the source of destination j)."""
+    M = spec.topology.M
+    ident = np.arange(M)
+    x = x.contiguous()
+    acc = None
+    for w, perm in spec.permutations:
+        wt = torch.tensor(w, dtype=x.dtype, device=x.device)
+        if np.array_equal(perm, ident):
+            contrib = x * wt
+        else:
+            (got,), pending = bus._ppermute([x], [(int(perm[j]), j) for j in range(M)],
+                                            wm, M)
+            bus._wait([pending])
+            contrib = got * wt
+        acc = contrib if acc is None else acc + contrib
+    return acc
+
+
+def _shard_map_mix(params: PyTree, spec: GossipSpec, wm, leaf_fn) -> PyTree:
+    """``leaf_fn`` over this rank's leaves: the reference's shard_map body,
+    whose per-shard view is what a rank holds here (its workers, each
+    tensor-sharded leaf already cut to its model shard)."""
+    if spec.topology.M % wm.n_workers:
+        raise ValueError(f"{spec.topology.M} workers do not split over {wm.describe()}")
+    return _tree.map(leaf_fn, params)
+
+
+def mix_pytree(params: PyTree, spec: GossipSpec, mesh=None, *,
+               param_specs: PyTree | None = None) -> PyTree:
+    """Consensus step over the parameter tree (leaves have a leading worker
+    dim: all M workers, or this rank's on a ``mesh``). ``param_specs``
+    reaches the fused bus (per-model-shard gossip)."""
     if spec.hierarchical:
         intra, inter = split_hierarchical(dataclasses.replace(spec, hierarchical=False))
-        return mix_pytree(mix_pytree(params, intra), inter)
+        return mix_pytree(mix_pytree(params, intra, mesh, param_specs=param_specs),
+                          inter, mesh, param_specs=param_specs)
     backend = spec.resolved_backend()
-    if backend == "einsum":
-        return mix_pytree_reference(params, spec.topology.A)
+    if backend not in ("einsum", "fused", "allreduce", "ppermute"):
+        raise ValueError(f"unknown gossip backend {backend!r}")
+    wm = bus._live(mesh)
     if backend == "fused":
-        return bus.mix_bus(params, spec)
-    if backend in ("ppermute", "allreduce"):
-        raise NotImplementedError(
-            f"gossip backend {backend!r} needs a device mesh; the port has "
-            "the meshless 'einsum' and 'fused' backends only so far "
-            "(ROADMAP queue 1, item 17)")
-    raise ValueError(f"unknown gossip backend {backend!r}")
+        return bus.mix_bus(params, spec, wm, param_specs=param_specs)
+    if backend == "einsum" or wm is None:
+        if wm is not None:
+            raise ValueError("the einsum backend mixes all M workers' leaves at once; "
+                             "over a mesh use 'ppermute', 'allreduce' or 'fused'")
+        return mix_pytree_reference(params, spec.topology.A)
+    if backend == "allreduce":
+        return _shard_map_mix(params, spec, wm,
+                              lambda x: _allreduce_leaf(x, wm, spec.topology.M))
+    return _shard_map_mix(params, spec, wm, lambda x: _ppermute_leaf(x, spec, wm))
 
 
-def make_mixer(spec: GossipSpec):
+def make_mixer(spec: GossipSpec, mesh=None):
     """Returns a params -> mixed_params closure for the given spec."""
 
     def mixer(params: PyTree) -> PyTree:
-        return mix_pytree(params, spec)
+        return mix_pytree(params, spec, mesh)
 
     return mixer
 
 
-def mix_pytree_time_varying(params: PyTree, spec: GossipSpec, step: int) -> PyTree:
+def mix_pytree_time_varying(params: PyTree, spec: GossipSpec, step: int, mesh=None, *,
+                            param_specs: PyTree | None = None) -> PyTree:
     """Step-dependent consensus (``spec.time_varying = 'one_peer_exp'``): the
     normal mix with the pairwise topology of round ``step % log2(M)``."""
     rounds = spec.one_peer_specs
-    return mix_pytree(params, rounds[step % len(rounds)])
+    return mix_pytree(params, rounds[step % len(rounds)], mesh, param_specs=param_specs)
 
 
 # ---------------------------------------------------------------------------
@@ -167,14 +246,15 @@ def split_hierarchical(spec: GossipSpec) -> tuple[GossipSpec, GossipSpec]:
             dataclasses.replace(spec, topology=inter_t))
 
 
-def hierarchical_mix(params: PyTree, intra: GossipSpec, inter: GossipSpec) -> PyTree:
+def hierarchical_mix(params: PyTree, intra: GossipSpec, inter: GossipSpec,
+                     mesh=None) -> PyTree:
     """Two-level gossip: mix inside each pod, then across pods. The
     equivalent consensus matrix is ``A_inter ⊗ A_intra``."""
-    return mix_pytree(mix_pytree(params, intra), inter)
+    return mix_pytree(mix_pytree(params, intra, mesh), inter, mesh)
 
 
 def hierarchical_mix_compressed(params: PyTree, intra: GossipSpec,
-                                inter: GossipSpec, *,
+                                inter: GossipSpec, mesh=None, *,
                                 dci_dtype: str | None = None,
                                 residual: list | None = None
                                 ) -> tuple[PyTree, list | None]:
@@ -188,8 +268,8 @@ def hierarchical_mix_compressed(params: PyTree, intra: GossipSpec,
     passes ``residual`` through.
     """
     if dci_dtype is None:
-        return hierarchical_mix(params, intra, inter), residual
-    return bus.mix_bus_compressed(mix_pytree(params, intra), inter,
+        return hierarchical_mix(params, intra, inter, mesh), residual
+    return bus.mix_bus_compressed(mix_pytree(params, intra, mesh), inter, mesh,
                                   wire_dtype=dci_dtype, residual=residual)
 
 

@@ -81,3 +81,7 @@ class WorkerBatcher:
             for m in range(self.M)
         ])
         return tuple(a[idx] for a in self.arrays)
+
+    def full_local(self) -> tuple[np.ndarray, ...]:
+        """Full local datasets, shape (M, local, ...)."""
+        return tuple(a[self.parts] for a in self.arrays)

@@ -329,19 +329,19 @@ def _is_ring(cache: KVCache, window: int | None) -> bool:
     return window is not None and cache.k.shape[1] == window
 
 
-def _ring_decode_attention(q, ck, cv, pos: int, window: int) -> torch.Tensor:
+def _ring_decode_attention(q, ck, cv, pos: int, window: int, q_pos=None) -> torch.Tensor:
     """Decode attention over a ring cache that already holds the new token
     (q: (B, 1, H, hd), written at slot pos % W): each slot's absolute
     position, masked to the window and to positions written, scores scaled
     by 1/sqrt(hd), GQA by repeated kv heads, as the reference's ring
-    branch."""
+    branch; the queries sit at ``q_pos`` (default ``pos + arange(L)``)."""
     B, L, H, hd = q.shape
     W = ck.shape[1]
     slot = pos % W
     idx = torch.arange(W, device=q.device)
     slot_pos = torch.where(idx <= slot, pos - slot + idx, pos - slot - W + idx)
     valid = (slot_pos >= 0) & (slot_pos > pos - window)
-    qp = pos + torch.arange(L, device=q.device)
+    qp = q_pos if q_pos is not None else pos + torch.arange(L, device=q.device)
     s = f32_product("bqhd,bshd->bhqs", q, repeat_kv(ck, H)) / float(np.sqrt(hd))
     ok = (slot_pos[None, :] <= qp[:, None]) & valid[None, :]
     s = s + torch.where(ok, 0.0, NEG_INF)[None, None]
@@ -349,8 +349,8 @@ def _ring_decode_attention(q, ck, cv, pos: int, window: int) -> torch.Tensor:
     return torch.einsum("bhqs,bshd->bqhd", p, repeat_kv(cv, H))
 
 
-def gqa_apply(params, cfg: ModelConfig, x, *, causal: bool = True,
-              window: int | None = None, cache: KVCache | PagedKVCache | None = None,
+def gqa_apply(params, cfg: ModelConfig, x, *, positions=None, q_base: int = 0,
+              causal: bool = True, window: int | None = None, cache: KVCache | PagedKVCache | None = None,
               memory: torch.Tensor | None = None, flash: bool = False,
               lengths: torch.Tensor | None = None, prompt_len: int | None = None):
     """Self-attention over (B, L, D) → (out, new cache or None), causal
@@ -360,7 +360,10 @@ def gqa_apply(params, cfg: ModelConfig, x, *, causal: bool = True,
     from the memory, no rope and no mask (cache-free only; decode takes
     the precomputed cross K/V, ``model.precompute_cross_kv``).
 
-    Without a cache: whole sequences from position 0 (training, an
+    ``positions`` overrides the rope positions of self-attention (and the
+    query positions of a ring decode), as in the reference. Without a cache:
+    a chunk whose first token sits at position ``q_base`` (its rope
+    positions and causal offset; 0 for whole sequences: training, an
     encoder); ``flash=True`` sends attention over more than
     ``BLOCK_THRESHOLD`` keys through the flash kernel (forward only), as a
     prefill runs the encoder. With a cache and L > 1: prefill of an empty
@@ -385,23 +388,25 @@ def gqa_apply(params, cfg: ModelConfig, x, *, causal: bool = True,
         q = rmsnorm_apply(params["q_norm"], q, cfg.norm_eps)
         k = rmsnorm_apply(params["k_norm"], k, cfg.norm_eps)
     if memory is None:                          # rope only for self-attention
-        if paged:
+        if positions is not None:
+            q_pos = positions
+        elif paged:
             q_pos = cache.lengths[:, None]      # (S, 1) per-slot positions
         elif cache is not None and lengths is not None and L == 1:
             # token t of row b sits at column prompt_len + t, position len_b + t
             q_pos = (cache.pos - (prompt_len - lengths))[:, None]
         else:
-            base = cache.pos if cache is not None else 0
+            base = cache.pos if cache is not None else q_base
             q_pos = base + torch.arange(L, device=x.device)
         q = rope(q, q_pos, cfg.rope_theta)
         k = rope(k, q_pos, cfg.rope_theta)
 
     if cache is None:
         causal = causal and memory is None
-        if flash and k.shape[1] > BLOCK_THRESHOLD:
+        if flash and q_base == 0 and k.shape[1] > BLOCK_THRESHOLD:
             o = flash_ops.attention(q, k, v, causal=causal, window=window)
         else:
-            o = attention_any(q, k, v, 0, causal=causal, window=window)
+            o = attention_any(q, k, v, q_base, causal=causal, window=window)
         return torch.einsum("blhk,hkd->bld", o, params["wo"]), None
 
     if paged:
@@ -445,7 +450,7 @@ def gqa_apply(params, cfg: ModelConfig, x, *, causal: bool = True,
         slot = pos % cache.k.shape[1]
         cache.k[:, slot:slot + L] = k
         cache.v[:, slot:slot + L] = v
-        o = _ring_decode_attention(q, cache.k, cache.v, pos, window)
+        o = _ring_decode_attention(q, cache.k, cache.v, pos, window, positions)
         new_cache = KVCache(cache.k, cache.v, pos + L)
         return torch.einsum("blhk,hkd->bld", o, params["wo"]), new_cache
     cache.k[:, pos:pos + L] = k
@@ -549,7 +554,8 @@ def _mla_flash(q, k, v, scale: float) -> torch.Tensor:
     return flash_ops.attention(q, k, v_pad, causal=True, scale=scale)[..., :dv]
 
 
-def mla_apply(params, cfg: ModelConfig, x, *, cache: MLACache | PagedMLACache | None = None,
+def mla_apply(params, cfg: ModelConfig, x, *, q_base: int = 0,
+              cache: MLACache | PagedMLACache | None = None,
               lengths: torch.Tensor | None = None, prompt_len: int | None = None):
     """Multi-head latent attention over (B, L, D) → (out, new cache or None).
 
@@ -560,6 +566,8 @@ def mla_apply(params, cfg: ModelConfig, x, *, cache: MLACache | PagedMLACache | 
     form, scoring q against the latent itself; ``lengths``/``prompt_len``
     as in :func:`gqa_apply`. A :class:`PagedMLACache` takes one token per
     slot at its own position. The scale is ``1/sqrt(qk_nope + qk_rope)``.
+    ``q_base``: the position of the first token of the expanded form's chunk
+    (rope positions and causal offset), as in the reference.
     """
     B, L, _ = x.shape
     H = cfg.n_heads
@@ -586,7 +594,7 @@ def mla_apply(params, cfg: ModelConfig, x, *, cache: MLACache | PagedMLACache | 
         return out, cache
 
     if cache is None or L > 1:
-        q_pos = torch.arange(L, device=x.device)
+        q_pos = q_base + torch.arange(L, device=x.device)
         q_rope = rope(q_rope, q_pos, cfg.rope_theta)
         k_rope = rope(k_rope_in, q_pos, cfg.rope_theta)[:, :, 0]   # (B, L, dr)
         k_nope = torch.einsum("blr,rhk->blhk", ckv, params["w_uk"])
@@ -596,10 +604,10 @@ def mla_apply(params, cfg: ModelConfig, x, *, cache: MLACache | PagedMLACache | 
         kv_valid = None
         if lengths is not None:      # ragged right-padded prefill: mask the pad keys
             kv_valid = torch.arange(L, device=x.device)[None, :] < lengths[:, None]
-        if cache is not None and kv_valid is None and L > BLOCK_THRESHOLD:
+        if cache is not None and kv_valid is None and q_base == 0 and L > BLOCK_THRESHOLD:
             o = _mla_flash(qq, k, v, scale)
         else:
-            o = attention_any(qq, k, v, 0, causal=True, scale=scale, kv_valid=kv_valid)
+            o = attention_any(qq, k, v, q_base, causal=True, scale=scale, kv_valid=kv_valid)
         new_cache = None
         if cache is not None:
             cache.ckv[:, :L] = ckv

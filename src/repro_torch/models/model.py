@@ -32,8 +32,10 @@ Layers are grouped into segments as in the reference. A scanned segment
 leading layer dim and runs as a Python loop over it, its cache stacked the
 same way; a list segment (what ``reduced()`` gives) is a list of per-layer
 trees and caches; the encoder's layers are stacked or listed by the same
-rule. ``cfg.remat`` only trades memory for recompute in the reference and
-is ignored here (ROADMAP).
+rule. With ``cfg.remat`` a training forward recomputes each layer in the
+backward pass, as the reference's ``jax.checkpoint`` does, at the same three
+sites: every decoder layer, list or scanned, and every layer of a stacked
+encoder; a list encoder's layers are not wrapped (:mod:`.remat`).
 """
 from __future__ import annotations
 
@@ -47,6 +49,7 @@ from repro_torch import _tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
+from repro_torch.models import remat as remat_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.params import ParamDef, init_tree
@@ -156,7 +159,8 @@ def init(generator: torch.Generator, cfg: ModelConfig,
 
 
 def _block_apply(bp: PyTree, cfg: ModelConfig, seg: Segment, x, cache=None,
-                 lengths=None, prompt_len=None, memory=None, cross_kv=None):
+                 lengths=None, prompt_len=None, memory=None, cross_kv=None,
+                 q_base: int = 0):
     """One residual block: x + mix(norm1(x)), then, in an encoder-decoder's
     decoder with ``memory`` given, + cross(norm_cross(x)), then +
     mlp(norm2(x)) where the block has an MLP (an MoE layer's returns its
@@ -172,10 +176,10 @@ def _block_apply(bp: PyTree, cfg: ModelConfig, seg: Segment, x, cache=None,
     h = L.rmsnorm_apply(bp["norm1"], x, cfg.norm_eps)
     if seg.kind in ("attn", "local"):
         if cfg.attention_type == "mla":
-            a, new_cache = attn_lib.mla_apply(bp["mix"], cfg, h, cache=cache,
+            a, new_cache = attn_lib.mla_apply(bp["mix"], cfg, h, q_base=q_base, cache=cache,
                                               lengths=lengths, prompt_len=prompt_len)
         else:
-            a, new_cache = attn_lib.gqa_apply(bp["mix"], cfg, h,
+            a, new_cache = attn_lib.gqa_apply(bp["mix"], cfg, h, q_base=q_base,
                                               window=_self_window(cfg, seg.kind),
                                               cache=cache, lengths=lengths,
                                               prompt_len=prompt_len)
@@ -209,6 +213,19 @@ def _block_apply(bp: PyTree, cfg: ModelConfig, seg: Segment, x, cache=None,
     if parallel:
         return x + a + y, new_cache, aux
     return x + y, new_cache, aux
+
+
+def _remat_block_apply(bp: PyTree, cfg: ModelConfig, seg: Segment, x, memory, q_base: int):
+    """:func:`_block_apply` of a training forward through
+    :func:`remat.checkpoint`: only ``x``, ``memory`` and the layer's leaves
+    are kept for the backward pass. An MoE layer's aux loss is an output of
+    the recomputed function; a dense layer's stays the float 0.0."""
+    def body(x, memory, bp):
+        y, _, aux = _block_apply(bp, cfg, seg, x, memory=memory, q_base=q_base)
+        return (y, aux) if seg.moe else y
+
+    out = remat_lib.checkpoint(body, x, memory, bp)
+    return out if seg.moe else (out, 0.0)
 
 
 def _cross_apply(bp: PyTree, cfg: ModelConfig, x, memory, cross_kv):
@@ -262,12 +279,19 @@ def encode(params, cfg: ModelConfig, enc_embeds: torch.Tensor, *,
     kernel when S > ``attention.BLOCK_THRESHOLD`` (what :func:`prefill`
     asks for); without it attention is dense or ``blockwise_attention``,
     as in the reference, which the training path needs: the kernel is
-    forward only."""
+    forward only. With ``cfg.remat`` a stacked encoder's layers are
+    recomputed in the backward pass of a training forward."""
     x = enc_embeds.to(getattr(torch, cfg.compute_dtype))
     enc = params["encoder"]
     scanned = not isinstance(enc["layers"], list)
+    # the reference checkpoints a stacked encoder's layers, not a list's
+    remat = cfg.remat and scanned and not flash and torch.is_grad_enabled()
     for bp in _layers(enc["layers"], cfg.encoder_layers, scanned):
-        x = _encoder_block_apply(bp, cfg, x, flash)
+        if remat:
+            x = remat_lib.checkpoint(
+                lambda x, bp: _encoder_block_apply(bp, cfg, x), x, bp)
+        else:
+            x = _encoder_block_apply(bp, cfg, x, flash)
     return L.rmsnorm_apply(enc["out_norm"], x, cfg.norm_eps)
 
 
@@ -279,28 +303,40 @@ def _encoder_block_apply(bp: PyTree, cfg: ModelConfig, x, flash: bool = False):
     return x + L.mlp_apply(bp["mlp"], cfg, h2)
 
 
-def forward(params, cfg: ModelConfig, tokens, *, caches: list | None = None,
+def forward(params, cfg: ModelConfig, tokens, *, q_base: int = 0,
+            caches: list | None = None,
             memory: torch.Tensor | None = None, cross_kvs: list | None = None,
             lengths=None, prompt_len: int | None = None):
     """Decoder forward over (B, L) tokens → (final-norm hidden (B, L, D),
-    new caches or None). ``caches`` (from :func:`init_cache`, or paged ones
+    new caches or None). ``q_base``: the position of the first token of a
+    cache-free chunk (its rope positions and causal offset), as in the
+    reference. ``caches`` (from :func:`init_cache`, or paged ones
     from ``serving.kvcache.init_paged_caches`` for decode) are written in
     place; an encoder-decoder's decoder attends over ``memory`` (from
     :func:`encode`), through ``cross_kvs`` (from
     :func:`precompute_cross_kv`) where given; lengths/prompt_len as in
     ``attention.gqa_apply``."""
-    h, new_caches, _ = _forward(params, cfg, tokens, caches=caches, memory=memory,
-                                cross_kvs=cross_kvs, lengths=lengths, prompt_len=prompt_len)
+    h, new_caches, _ = _forward(params, cfg, tokens, q_base=q_base, caches=caches,
+                                memory=memory, cross_kvs=cross_kvs, lengths=lengths,
+                                prompt_len=prompt_len)
     return h, new_caches
 
 
-def _forward(params, cfg: ModelConfig, tokens, *, caches=None, memory=None,
+def _forward(params, cfg: ModelConfig, tokens, *, q_base=0, caches=None, memory=None,
              cross_kvs=None, lengths=None, prompt_len=None):
     """:func:`forward` with the MoE aux loss summed over the layers:
-    (hidden, new caches or None, aux); aux is 0.0 without MoE layers."""
+    (hidden, new caches or None, aux); aux is 0.0 without MoE layers.
+
+    A training forward (no caches, grad enabled) with ``cfg.remat`` runs
+    each layer through :func:`_remat_block_apply`. In a training forward,
+    with or without remat, each decoder layer reads its own alias of
+    ``memory``, so the gradient reaching ``memory`` is summed per layer
+    first on both paths and they agree bit for bit."""
     x = _embed(params, cfg, tokens)
     aux_total = 0.0
     new_caches: list = []
+    training = caches is None and torch.is_grad_enabled()
+    remat = cfg.remat and training
     for si, (seg, sp) in enumerate(zip(plan_segments(cfg), params["segments"])):
         cache_s = caches[si] if caches is not None else None
         ckvs = (_layers(cross_kvs[si], seg.length, seg.scanned) if cross_kvs is not None
@@ -310,7 +346,12 @@ def _forward(params, cfg: ModelConfig, tokens, *, caches=None, memory=None,
             c = None
             if cache_s is not None:   # a layer of a stacked cache is a view into it
                 c = _layer_view(cache_s, li) if seg.scanned else cache_s[li]
-            x, nc, aux = _block_apply(bp, cfg, seg, x, c, lengths, prompt_len, memory, ckv)
+            mem = memory.view_as(memory) if training and memory is not None else memory
+            if remat:
+                (x, aux), nc = _remat_block_apply(bp, cfg, seg, x, mem, q_base), None
+            else:
+                x, nc, aux = _block_apply(bp, cfg, seg, x, c, lengths, prompt_len, mem, ckv,
+                                          q_base)
             aux_total = aux_total + aux
             seg_new.append(nc)
         if cache_s is not None and seg.scanned:

@@ -105,8 +105,8 @@ class ContinuousBatcher:
                 f"ContinuousBatcher unsupported: {reason}; use WaveBatcher")
         if mesh is not None:
             raise NotImplementedError(
-                "ContinuousBatcher(mesh=...) waits for the device mesh "
-                "(ROADMAP queue 1, item 3)")
+                "ContinuousBatcher(mesh=...) waits for serving over the mesh "
+                "(ROADMAP queue 1, item 3, step 6)")
         self.cfg, self.pad_id, self.params = cfg, pad_id, params
         self.S, self.max_len, self.max_new = batch_slots, max_len, max_new
         self.temperature = temperature

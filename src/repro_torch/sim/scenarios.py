@@ -1,8 +1,8 @@
 """Composable scenario specs for the event-driven simulator.
 
 A numpy-only copy of the reference's ``repro/sim/scenarios.py``; the
-mirror of a device mesh (``WorkerMesh``) comes with the distributed slice
-(ROADMAP queue 1, "Distributed"), so :meth:`MeshSpec.ensure` refuses one.
+mirror of a device mesh (``WorkerMesh``) comes with the mesh's simulator
+(ROADMAP queue 1, item 3, step 7), so :meth:`MeshSpec.ensure` refuses one.
 
 A :class:`Scenario` bundles everything *about the environment* (as opposed to
 the algorithm) that shapes a simulated run:
@@ -280,15 +280,15 @@ class MeshSpec:
         """Normalize: a MeshSpec passes through, None stays None, and a
         topology that carries pod metadata (``group_of``) is adopted. Any
         other mesh (a device mesh of workers) raises: the port has no device
-        mesh yet (ROADMAP queue 1, "Distributed")."""
+        mesh yet (ROADMAP queue 1, item 3, step 7)."""
         if mesh is None or isinstance(mesh, cls):
             return mesh
         if topology is not None and getattr(mesh, "group_of", None) is not None:
             return cls.from_topology(mesh)
         raise NotImplementedError(
             f"cannot build a MeshSpec from {type(mesh).__name__}: a device mesh of "
-            "workers comes with the distributed slice (ROADMAP queue 1, "
-            "\"Distributed\"); pass a MeshSpec, mesh='topology' or None")
+            "workers comes with the mesh's simulator (ROADMAP queue 1, "
+            "item 3, step 7); pass a MeshSpec, mesh='topology' or None")
 
     def describe(self) -> dict:
         out = {"name": self.name, "workers": self.M,

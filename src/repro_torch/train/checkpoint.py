@@ -16,8 +16,8 @@ the paper's output model w̄ = (1/M) Σ_j w_j, averaging in float32 and
 casting back. :class:`AsyncCheckpointWriter` moves the device-to-host copy
 and the disk write off the training loop's thread.
 
-The reference's ``WorkerMesh`` shard coordinates come with the distributed
-slice (ROADMAP queue 1, item 17).
+The reference's ``WorkerMesh`` shard coordinates come with the mesh's
+checkpoints (ROADMAP queue 1, item 3, step 5).
 """
 from __future__ import annotations
 
@@ -168,8 +168,8 @@ def restore(path: str, like: PyTree, device: str | torch.device = "cuda") -> PyT
 # ---------------------------------------------------------------------------
 
 
-_NO_MESH = ("WorkerMesh shard coordinates come with the distributed slice "
-            "(ROADMAP queue 1, item 17)")
+_NO_MESH = ("WorkerMesh shard coordinates come with the mesh's checkpoints "
+            "(ROADMAP queue 1, item 3, step 5)")
 
 
 def _strip_npz(path: str) -> str:

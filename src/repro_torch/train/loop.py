@@ -367,7 +367,7 @@ def run_simulated(
         ``sim.MeshSpec``, or the string ``'topology'`` to adopt a
         hierarchical (kronecker) topology's own pod assignment (per-message
         payload bytes from the bus layout plan over ``params0``). A device
-        mesh of workers raises (ROADMAP queue 1, "Distributed").
+        mesh of workers raises (ROADMAP queue 1, item 3, step 7).
       rounds: per-worker round budget (protocols stop scheduling past it).
       eval_fn: optional (mean-params tree) -> float global loss; recorded
         per round (sync/hier: every `eval_every` rounds when the whole round

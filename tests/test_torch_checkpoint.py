@@ -246,7 +246,7 @@ def test_sharded_save_replaces_stale_monolithic_and_one_replica_at_a_time(
     assert TC.latest_step(path[:-len(".npz")]) is None
     with pytest.raises(ValueError, match="stacked"):
         TC.save_sharded(path, {"a": torch.ones(4, 2), "b": torch.ones(3)})
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 3, step 5"):
         TC.worker_coords(object(), 4)
     with pytest.raises(FileNotFoundError):
         TC.restore_sharded(os.path.join(tmp_path, "none"), new, device="cpu")
@@ -271,7 +271,7 @@ def test_async_writer_roundtrip_and_sharded_path(tmp_path):
         assert all(torch.equal(back[k], tree[k]) for k in tree)
     assert TC.latest_step(path) == 3 and TC.latest_step(spath[:-4]) == 4
     assert not os.path.exists(spath)
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 3, step 5"):
         TC.AsyncCheckpointWriter().save(path, tree, wmesh=object())
 
 

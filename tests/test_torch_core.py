@@ -73,6 +73,16 @@ def test_generators_and_worker_batches_bit_equal():
         np.testing.assert_array_equal(tb.next()[0], jb.next()[0])
 
 
+def test_worker_batcher_full_local_bit_equal():
+    X, y = tdata.classification_data(S=96, n=5, seed=4)
+    parts = tdata.pad_to_equal(tdata.random_split(len(X), 4, seed=3), seed=3)
+    got = tdata.WorkerBatcher((X, y), parts, batch_size=3).full_local()
+    want = jdata.WorkerBatcher((X, y), parts, batch_size=3).full_local()
+    assert [a.shape for a in got] == [(4, parts.shape[1], 5), (4, parts.shape[1])]
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
 # ---------------------------------------------------------------------------
 # Leaf order and the bus layout
 # ---------------------------------------------------------------------------

@@ -789,3 +789,78 @@ def test_encoder_prefill_launches_the_kernel_and_training_never(cuda):
         params)
     assert flash_attention.launches == before + cfg.encoder_layers
     assert all(bool(torch.isfinite(g).all()) for g in _tree.leaves(grads))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["granite-3-2b", "seamless-m4t-large-v2"])
+def test_remat_gradients_on_card_equal_or_within_the_float32_twin(cuda, name):
+    """``cfg.remat`` under the step's vmap(grad_and_value) on the card, bf16
+    reduced configs (seamless with stacked layers, so its encoder is
+    recomputed too): gradients equal remat off bit for bit or, where a card
+    kernel is not deterministic, within twice the remat-off route's
+    distance from a float32 gradient; no flash_attention launch."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as Mo
+
+    cfg = get_config(name, reduced=True, param_dtype="bfloat16", compute_dtype="bfloat16",
+                     scan_layers=True, remat=True)
+    params = _tree.map(lambda x: x[None].expand((2,) + x.shape).contiguous(), Mo.init(
+        torch.Generator(device="cuda").manual_seed(0), cfg, device=cuda))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 2, 64), generator=gen,
+                                     device=cuda)}
+    if cfg.encoder_layers:
+        batch["enc_embeds"] = torch.randn((2, 2, cfg.encoder_seq, cfg.d_model),
+                                          generator=gen, device=cuda, dtype=torch.bfloat16)
+
+    def grads(c, p):
+        return torch.func.vmap(torch.func.grad_and_value(
+            lambda q, b: Mo.loss_fn(q, c, b)))(p, batch)[0]
+
+    before = flash_attention.launches
+    g_on = grads(cfg, params)
+    g_off = grads(dataclasses.replace(cfg, remat=False), params)
+    assert flash_attention.launches == before
+    pairs = list(zip(_tree.leaves(g_on), _tree.leaves(g_off)))
+    if all(torch.equal(a, b) for a, b in pairs):
+        return
+    c32 = dataclasses.replace(cfg, remat=False, param_dtype="float32", compute_dtype="float32")
+    g32 = grads(c32, _tree.map(lambda x: x.float(), params))
+    twin = max((b.float() - c).abs().max().item() for b, c in zip(_tree.leaves(g_off),
+                                                                   _tree.leaves(g32)))
+    diff = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
+    assert diff <= 2 * twin, (diff, twin)
+
+
+@pytest.mark.gpu
+def test_world_size_one_mesh_mix_on_card_equals_meshless(cuda, tmp_path):
+    """A world-size-1 NCCL group and the live 1 x 1 WorkerMesh hosting M = 4
+    workers: the fused mix and an int8 round launch gossip_mix and
+    quant_pack once each and equal the meshless path bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.core.gossip import mix_pytree
+    from repro_torch.launch.mesh import WorkerMesh, make_host_mesh
+
+    params = {"a": _randn((4, 300, 7), BF16, 0, cuda), "b": _randn((4, 129), F32, 1, cuda)}
+    topo = T.undirected_ring(4)
+    flat = GossipSpec(topology=topo, backend="fused")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        wm = WorkerMesh.from_mesh(make_host_mesh(data=1, model=1, device="cuda"))
+        spec = GossipSpec.for_mesh(topo, wm, backend="fused")
+        g0, q0 = gossip_mix_2d.launches, quantize_pack_2d.launches
+        mixed = mix_pytree(params, spec, wm)
+        assert gossip_mix_2d.launches == g0 + 2          # one per dtype group
+        comp, res = bus.mix_bus_compressed(params, spec, wm, wire_dtype="int8")
+        assert quantize_pack_2d.launches == q0 + 2        # both float groups go int8
+        want = mix_pytree(params, flat)
+        want_c, want_r = bus.mix_bus_compressed(params, flat, wire_dtype="int8")
+        for a, b in zip(_tree.leaves((mixed, comp, res)), _tree.leaves((want, want_c, want_r))):
+            assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()

@@ -149,6 +149,20 @@ def test_mla_apply_training_matches():
     _close(got, want)
 
 
+@pytest.mark.parametrize("q_base", [0, 5])
+def test_mla_apply_q_base_matches(q_base):
+    """``q_base``: a chunk whose first token sits at that position (rope
+    positions and causal offset), against the reference's."""
+    jcfg, tcfg, jp, _ = _pair()
+    mj, mt = _mix(jp)
+    x = _x(jcfg, 2, 11)
+    want, _ = JA.mla_apply(mj, jcfg, jnp.asarray(x), q_base=q_base)
+    got, _ = TA.mla_apply(mt, tcfg, torch.from_numpy(x), q_base=q_base)
+    _close(got, want)
+    if q_base:
+        assert not torch.allclose(got, TA.mla_apply(mt, tcfg, torch.from_numpy(x))[0])
+
+
 @pytest.mark.parametrize("ragged", [False, True], ids=["equal", "ragged"])
 def test_mla_apply_prefill_then_absorbed_decode_matches(ragged):
     jcfg, tcfg, jp, _ = _pair()

@@ -67,6 +67,36 @@ def test_loss_and_every_gradient_match(scanned):
                                    err_msg=str(tpath))
 
 
+@pytest.mark.parametrize("kw", [dict(q_base=6), dict(positions=np.arange(3, 20)),
+                                dict(q_base=6, window=5)],
+                         ids=["q_base", "positions", "q_base-window"])
+def test_gqa_apply_positions_and_q_base_match(kw):
+    """``gqa_apply(positions=, q_base=)`` set the rope positions and the
+    causal offset of a chunk, as the reference's do."""
+    jcfg, tcfg = _configs(n_layers=1)
+    jp, tp = _pair(jcfg)
+    x = np.random.default_rng(2).normal(size=(2, 17, jcfg.d_model)).astype(np.float32)
+    jkw = {k: jnp.asarray(v) if isinstance(v, np.ndarray) else v for k, v in kw.items()}
+    tkw = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v for k, v in kw.items()}
+    want, _ = jattn.gqa_apply(jp["segments"][0][0]["mix"], jcfg, jnp.asarray(x), **jkw)
+    got, cache = tattn.gqa_apply(tp["segments"][0][0]["mix"], tcfg, torch.from_numpy(x), **tkw)
+    assert cache is None
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=1e-5)
+
+
+@pytest.mark.parametrize("scanned", [False, True])
+def test_forward_q_base_matches(scanned):
+    """``forward(q_base=)`` threads the chunk's offset to every block."""
+    jcfg, tcfg = _configs(scan_layers=scanned, n_layers=2)
+    jp, tp = _pair(jcfg)
+    toks = _tokens(jcfg.vocab_size, L=9)
+    jh = JM.forward(jp, jcfg, jnp.asarray(toks), q_base=11)[0]
+    th, caches = TM.forward(tp, tcfg, torch.from_numpy(toks), q_base=11)
+    assert caches is None
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=RTOL, atol=1e-5)
+    assert not torch.allclose(th, TM.forward(tp, tcfg, torch.from_numpy(toks))[0])
+
+
 def _qkv(B=2, Lq=32, Lkv=32, H=4, Kh=2, hd=8, seed=0):
     rng = np.random.default_rng(seed)
     return (rng.normal(size=(B, Lq, H, hd)).astype(np.float32),

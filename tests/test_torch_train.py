@@ -144,6 +144,32 @@ def test_train_step_matches_reference(problem, topo, M, backend, mode, mix_first
                                        err_msg=f"{name} at step {k}")
 
 
+def test_train_step_without_stats_matches_reference():
+    """``make_train_step(compute_stats=False)``: the same params and loss,
+    and E, E_sp, H and the spread are float32 zeros, as in the reference."""
+    arrays, p0, jloss, tloss = _problem("mlp")
+    jopt, topt = _optimizers("momentum")
+    M = 4
+    jstep = jax.jit(j_make_train_step(jloss, jopt, gossip=JSpec(
+        topology=JT.make("ring", M), backend="fused"), compute_stats=False))
+    tstep = t_make_train_step(tloss, topt, gossip=TSpec(
+        topology=TT.make("ring", M), backend="fused"), compute_stats=False)
+    jst = j_init_state(j_replicate(jax.tree.map(jnp.asarray, p0), M), jopt)
+    tst = t_init_state(t_replicate(convert.params_from_jax(p0, device="cpu"), M), topt)
+    batcher = WorkerBatcher(arrays, pad_to_equal(random_split(len(arrays[0]), M)),
+                            batch_size=4, seed=0)
+    for k in range(2):
+        batch = batcher.next()
+        jst, jm = jstep(jst, tuple(jnp.asarray(a) for a in batch))
+        tst, tm = tstep(tst, convert.to_device(batch, "cpu"))
+        _assert_trees_close(jst.params, tst.params, f"params after step {k}")
+        np.testing.assert_allclose(tm.loss.item(), float(jm.loss), rtol=RTOL, atol=ATOL)
+        for name in ("grad_energy", "grad_spread", "mean_grad_norm", "param_spread"):
+            value = getattr(tm, name)
+            assert value.dtype == torch.float32 and value.item() == 0.0
+            assert float(getattr(jm, name)) == 0.0
+
+
 def test_train_loop_matches_reference_history(tmp_path, monkeypatch):
     """The loop's History matches the reference's; with ``ckpt_path``,
     ``ckpt_every=2`` both loops save after the same steps (2, 4 and the last,
