@@ -86,7 +86,9 @@ through these phases, in order, and exits non-zero at the first failure:
    path's ``blockwise_attention``; times prefill and decode, reads peak
    memory and profiles one prefill and one decode step; the profiled
    prefill must run the wgmma kernel once per layer and never the float32
-   one.
+   one (a profile that lost launches is taken again, up to 3 sessions;
+   a float32 launch or too many launches fail at once; so for slices 8 to
+   10).
 12. slice 7 — continuous batching of granite-3-2b at its published widths
    and full depth: a ``ContinuousBatcher`` (8 slots, pages of 16 tokens,
    ``max_len`` 2048, buckets ``default_buckets(16, 2048)``, ``warmup()``
@@ -201,7 +203,28 @@ through these phases, in order, and exits non-zero at the first failure:
    layers, 2 x 1024 tokens) and one step's gradients with remat on and off.
    Every phase before it trains with remat where its config sets it (the
    full configs do; the reduced ones do not), as the reference does.
-17. report — the run's time, one JSON line of kernels, the nvidia-smi line,
+17. slice 12 — decentralized training over the worker axes of a live mesh:
+   slice 1's training shape with remat on (granite-3-2b, 4 layers, M = 4
+   ring, ``momentum_sgd(0.01, 0.9)``, 8 x 512 tokens per worker) trained 5
+   steps meshless and through ``train(mesh=wm, param_specs=param_pspecs(
+   cfg, wm, 'gossip'))`` on a world-size-1 NCCL group's live 1 x 1
+   ``WorkerMesh`` (all 4 workers on the rank), in pairs from the same
+   seeds: with a monolithic checkpoint at the end (streamed to the mesh's
+   first rank), with asynchronous sharded checkpoints every 2 steps (the
+   mesh run through the bare DeviceMesh, whose shards keep the meshless
+   ``w{j}`` names, as the reference's train() names them for a raw mesh;
+   twice, since the first run pins the host snapshots' memory and the
+   second finds it in PyTorch's pinned-memory cache), and in
+   ``mode='allreduce'``. Gates: losses and final params bit-equal
+   to meshless, one gossip_mix launch per gossip step (none in allreduce
+   mode), the checkpoint files' npz members byte-equal to the meshless
+   run's, the async sharded save raising the device peak by less than
+   half the tree's bytes. Prints ms/step and the peaks (allocated and
+   reserved) of each pair. Then ``run_simulated(mesh=WorkerMesh)`` at
+   slice 1's width on an abstract (pod, data) = (2, 2) mesh, the hier
+   protocol on ``hier(2, 2)`` for 4 rounds: each link class's bytes equal
+   its messages times the mirrored ``sim_payload_bytes``.
+18. report — the run's time, one JSON line of kernels, the nvidia-smi line,
    and last the ``{"ok": true, ...}`` line.
 
 ``--collect`` runs ``gc.collect()`` before each part (and the microbatch=2
@@ -322,7 +345,7 @@ S10_TRAIN = (2, 2, 2, 512)
 # a world-size-1 NCCL mesh hosting slice 1's M workers.
 REMAT_BUDGET_GB = 75.0
 DEEP_PROBE = 6          # the second depth the bytes per layer are measured at
-MESH_PROFILES = 3       # profiler sessions allowed to show the mesh route's kernels
+PROFILE_SESSIONS = 3    # profiler sessions allowed to show a route's kernels (mesh, flash)
 S11_GATE_BATCH = 2
 S11_MOE = ("deepseek-v2-lite-16b", 2, 2, 1024)
 # ``--collect`` runs gc.collect() before each part, as the script did while
@@ -1167,8 +1190,8 @@ def phase_slice5(slice1: dict) -> dict:
         f"{st[2]:.1f} ms/step; step 4 (after the step-4 snapshot) {st[4]:.1f} ms; slice 1 "
         f"{slice1['step_s'] * 1e3:.1f} ms/step; peak memory {peak_gb:.1f} GB")
     log(f"[slice5] checkpoints after steps 2, 4, 5: writer-thread seconds "
-        f"{[round(x, 2) for x in hist.ckpt_write_s]} (device-to-host copy of each worker's "
-        f"slice and its npz)")
+        f"{[round(x, 2) for x in hist.ckpt_write_s]} (each worker's npz from its pinned host "
+        f"snapshot, copied on the loop's stream)")
 
     t0 = time.perf_counter()
     back = ckpt.restore_sharded(path, state.params, device="cuda")
@@ -1837,10 +1860,9 @@ def phase_serve() -> dict:
             f"{len(runs)} generate() runs), {SERVE_SLOTS / step_s:,.1f} generated tokens/s")
 
         check_prefill(params, cfg, tok, SERVE_MAX_LEN, "serve")
-        rows = profile_call("one prefill wave", lambda: Mo.prefill(params, cfg, tok,
-                                                                   max_len=SERVE_MAX_LEN),
-                            warmup=1)
-        check_flash_route(rows, cfg.n_layers)
+        profile_flash_route("one prefill wave",
+                            lambda: Mo.prefill(params, cfg, tok, max_len=SERVE_MAX_LEN),
+                            cfg.n_layers)
     del params
     return {"launches": launches}
 
@@ -2302,8 +2324,8 @@ def _mesh_check(params, cfg) -> dict:
                                      "per-shard mix) and 2 quant_pack (two int8 rounds)")
             # late in a whole run the profiler lost the start of its windows
             # (no gossip_mix in three sessions while the launch counts above
-            # held): one warm-up round first, and up to MESH_PROFILES sessions
-            for attempt in range(1, MESH_PROFILES + 1):
+            # held): one warm-up round first, and up to PROFILE_SESSIONS sessions
+            for attempt in range(1, PROFILE_SESSIONS + 1):
                 rows = profile_call("the fused mix and an int8 round over the mesh", lambda: (
                     mix_pytree(local, spec, wm),
                     bus.mix_bus_compressed(local, spec, wm, wire_dtype="int8")), warmup=1)
@@ -2313,7 +2335,7 @@ def _mesh_check(params, cfg) -> dict:
                 if all(seen.values()):
                     break
             else:
-                raise AssertionError(f"{tag}: {MESH_PROFILES} profiles of the mesh route show "
+                raise AssertionError(f"{tag}: {PROFILE_SESSIONS} profiles of the mesh route show "
                                      f"{seen}")
             m1, r1 = bus.mix_bus_compressed(params, flat, wire_dtype="int8")
             m2, r2 = bus.mix_bus_compressed(m1, flat, wire_dtype="int8", residual=r1)
@@ -2347,6 +2369,211 @@ def _mesh_check(params, cfg) -> dict:
         finally:
             dist.destroy_process_group()
     return launches
+
+
+def phase_slice12() -> dict:
+    """Slice 12: decentralized training over the worker axes of a live
+    mesh. Slice 1's training shape (granite-3-2b, 4 layers, remat on, M = 4
+    ring, momentum SGD, 8 x 512 tokens per worker) trained 5 steps meshless
+    and through ``train(mesh=wm, param_specs=...)`` on a world-size-1 NCCL
+    group's 1 x 1 WorkerMesh (all 4 workers on the rank), each pair from
+    the same seeds: a monolithic checkpoint at the end, then asynchronous
+    sharded checkpoints every 2 steps (on the mesh twice: the writer pins
+    its host memory on its own thread in each run, the second also finds
+    it in PyTorch's pinned-memory cache), then ``mode='allreduce'``. Gates:
+    losses and final params bit-equal to meshless, one gossip_mix launch
+    per step, the checkpoints' npz members byte-equal to the meshless
+    run's, the async sharded saves (meshless and mesh: one snapshot path,
+    a pinned host copy) raising the device peak by less than half the
+    tree's bytes. Then ``run_simulated(mesh=WorkerMesh)`` on an
+    abstract (pod, data) = (2, 2) mesh: each link class's bytes are its
+    messages times the mesh's payload. Returns launches by path."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import _tree
+    from repro_torch.core import topology as T
+    from repro_torch.core.gossip import GossipSpec
+    from repro_torch.launch.mesh import WorkerMesh, make_host_mesh
+    from repro_torch.launch.shardings import param_pspecs
+    from repro_torch.optim import momentum_sgd
+    from repro_torch.train import train
+
+    tag = "slice12"
+    t0 = time.perf_counter()
+    fresh_gb("training over the mesh", tag)
+    cfg = family_config("granite-3-2b", N_LAYERS, remat=True)
+    params0, next_batch, loss = family_setup(cfg, M_WORKERS, PER_WORKER_BATCH, SEQ_LEN)
+    batches = [next_batch() for _ in range(STEPS)]
+    tree_gb = sum(x.numel() * x.element_size() for x in _tree.leaves(params0)) / 1e9
+    spec = GossipSpec(topology=T.undirected_ring(M_WORKERS), backend="fused")
+    opt = momentum_sgd(LR, 0.9)
+    root = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(root, exist_ok=True)
+    by_path, runs = {}, {}
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            wm = WorkerMesh.from_mesh(make_host_mesh(data=1, model=1, device="cuda"))
+            specs = param_pspecs(cfg, wm, "gossip")
+            single = _tree.map(lambda x: x[0].clone(), params0)
+            rows = [{"tokens": b["tokens"].reshape((-1,) + b["tokens"].shape[2:])}
+                    for b in batches]
+            sharded = lambda d: dict(ckpt_path=f"{d}/ck.npz", ckpt_sharded=True, ckpt_every=2)
+            plans = [  # (label, where, mesh argument, train keywords)
+                ("mono", "meshless", None, dict(ckpt_path="flat-mono/ck.npz")),
+                ("mono", "mesh", wm, dict(ckpt_path="mesh-mono/ck.npz")),
+                ("sharded", "meshless", None, sharded("flat-sh")),
+                # a bare DeviceMesh: the shards keep the meshless w{j} names,
+                # as the reference's train() names them for a raw mesh (its
+                # worker_coords refuses 4 workers on a 1-worker WorkerMesh).
+                # Run twice: the second run finds the snapshots' pinned
+                # memory in PyTorch's pinned-memory cache
+                ("sharded", "mesh", wm.mesh, sharded("mesh-sh")),
+                ("sharded", "mesh, warm", wm.mesh, sharded("mesh-sh-warm")),
+                ("allreduce", "meshless", None, dict(mode="allreduce")),
+                ("allreduce", "mesh", wm, dict(mode="allreduce"))]
+            for label, where, mesh, kw in plans:
+                if "ckpt_path" in kw:
+                    kw["ckpt_path"] = os.path.join(tmp, kw["ckpt_path"])
+                allreduce = kw.get("mode") == "allreduce"
+                mesh_kw = {} if mesh is None else dict(
+                    mesh=mesh, param_specs=None if allreduce else specs)
+                collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches()
+                state, hist = train(loss, single if allreduce else params0, opt,
+                                    iter(rows if allreduce else batches), steps=STEPS,
+                                    gossip=None if allreduce else spec, log_every=STEPS,
+                                    device="cuda", verbose=False, **mesh_kw, **kw)
+                torch.cuda.synchronize()
+                # on the host, so every run starts from the same device memory
+                run = {"loss": hist.loss, "params": _tree.map(lambda x: x.cpu(), state.params),
+                       "launches": read_launches(),
+                       "ms": hist.step_time[-1] * 1e3,
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "reserved_gb": torch.cuda.max_memory_reserved() / 1e9}
+                runs[(label, where)] = run
+                del state
+                want = 0 if allreduce else STEPS
+                if run["launches"] != {"gossip_mix": want, "quant_pack": 0, "flash_attention": 0}:
+                    raise AssertionError(f"{tag} {label} {where}: {run['launches']} in {STEPS} "
+                                         f"steps, want {want} gossip_mix")
+                if not all(math.isfinite(x) for x in hist.loss):
+                    raise AssertionError(f"{tag} {label} {where}: non-finite loss {hist.loss}")
+                log(f"[{tag}] {label} {where}: losses {[round(x, 4) for x in hist.loss]}; "
+                    f"steps 1-{STEPS - 1} {run['ms']:.1f} ms/step; launches {run['launches']};"
+                    f" peak {run['peak_gb']:.2f} GB allocated, {run['reserved_gb']:.2f} GB "
+                    f"reserved")
+                if where != "meshless":
+                    by_path[f"slice12_train_{label}_{where.replace(', ', '_')}"] = run["launches"]
+            for (label, where), a in runs.items():
+                if where == "meshless":
+                    continue
+                b = runs[(label, "meshless")]
+                same = a["loss"] == b["loss"] and all(
+                    torch.equal(x, y) for x, y in zip(_tree.leaves(a["params"]),
+                                                      _tree.leaves(b["params"])))
+                if not same:
+                    err, _ = _params_err(a["params"], b["params"])
+                    raise AssertionError(f"{tag} {label} {where}: not bit-equal to meshless "
+                                         f"(losses {a['loss']} vs {b['loss']}, params max|err| "
+                                         f"{err})")
+                log(f"[{tag}] {label}, {where}: {a['ms']:.1f} ms/step vs meshless {b['ms']:.1f} "
+                    f"({100 * (a['ms'] / b['ms'] - 1):+.1f}%); peak allocated {a['peak_gb']:.2f} "
+                    f"vs {b['peak_gb']:.2f} GB, reserved {a['reserved_gb']:.2f} vs "
+                    f"{b['reserved_gb']:.2f} GB")
+            files = _same_checkpoints(os.path.join(tmp, "mesh-mono"),
+                                      os.path.join(tmp, "flat-mono"))
+            for d in ("mesh-sh", "mesh-sh-warm"):
+                files += _same_checkpoints(os.path.join(tmp, d), os.path.join(tmp, "flat-sh"))
+            rise = max(runs[("sharded", w)]["peak_gb"]
+                       for w in ("meshless", "mesh", "mesh, warm")) \
+                - min(runs[("mono", w)]["peak_gb"] for w in ("meshless", "mesh"))
+            if not rise < tree_gb / 2:
+                raise AssertionError(f"{tag}: the async sharded save raised the device peak by "
+                                     f"{rise:.3f} GB, the tree is {tree_gb:.3f} GB")
+            log(f"[{tag}] {wm.describe()} over {dist.get_backend()}: losses and params of the "
+                f"monolithic, sharded (twice) and allreduce runs bit-equal to meshless; {files} "
+                f"checkpoint "
+                f"files' npz members byte-equal to the meshless run's; the async sharded save "
+                f"raised the peak by {rise:+.3f} GB at most, meshless and on the mesh (tree "
+                f"{tree_gb:.3f} GB, gate < half)")
+        finally:
+            dist.destroy_process_group()
+    del runs, params0, batches
+    _sim_on_worker_mesh(tag)
+    log(f"[{tag}] the phase took {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
+def _same_checkpoints(got_dir: str, want_dir: str) -> int:
+    """The two directories hold the same files, each npz's members equal
+    byte for byte (the zip headers carry each write's time) and each meta
+    equal. Returns the number of files."""
+    import zipfile
+
+    names = sorted(os.listdir(want_dir))
+    if sorted(os.listdir(got_dir)) != names:
+        raise AssertionError(f"checkpoint files {sorted(os.listdir(got_dir))} vs {names}")
+    for name in names:
+        pair = [os.path.join(d, name) for d in (got_dir, want_dir)]
+        if name.endswith(".npz"):
+            content = []
+            for f in pair:
+                with zipfile.ZipFile(f) as z:
+                    content.append([(n, z.read(n)) for n in z.namelist()])
+        else:
+            content = [open(f, "rb").read() for f in pair]
+        if content[0] != content[1]:
+            raise AssertionError(f"checkpoint file {name} differs from the meshless run's")
+    return len(names)
+
+
+def _sim_on_worker_mesh(tag: str) -> None:
+    """``run_simulated(mesh=WorkerMesh)`` at slice 1's width: the hier
+    protocol on ``hier(2, 2)`` for SIM_ROUNDS rounds, the mesh an abstract
+    (pod, data) = (2, 2) WorkerMesh mirrored into the engine; each link
+    class's bytes must be its messages times the mesh's payload."""
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.core import topology as T
+    from repro_torch.core.gossip import GossipSpec
+    from repro_torch.launch.mesh import AbstractMesh, WorkerMesh
+    from repro_torch.optim import momentum_sgd
+    from repro_torch.sim import scenarios
+    from repro_torch.train.loop import run_simulated
+
+    fresh_gb("the simulator on a worker mesh", tag)
+    params0, batches, loss, _ = _sim_inputs(tag)
+    wm = WorkerMesh.from_mesh(AbstractMesh((2, 2), ("pod", "data")))
+    t0 = time.perf_counter()
+    run = run_simulated(loss, params0, momentum_sgd(LR, 0.9), batches(),
+                        gossip=GossipSpec(topology=T.hier(2, 2), backend="einsum"),
+                        protocol="hier", mesh=wm, rounds=SIM_ROUNDS, device="cuda",
+                        scenario=scenarios.Scenario(name="pods", link_classes=(
+                            scenarios.two_class_links(dci_latency=4.0))))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    template = _tree.map(lambda x: torch.empty(x.shape[1:], dtype=x.dtype, device="meta"),
+                         params0)
+    mirror = wm.sim_spec(params_template=template)
+    acct = run.trace.link_accounting()
+    bad = {c: a for c, a in acct.items() if a["bytes"] != a["messages"] * mirror.payload_for(c)}
+    if bad or not acct.get("dci", {}).get("messages") or not mirror.payload_bytes:
+        raise AssertionError(f"{tag} sim: link accounting {acct} against the payload "
+                             f"{mirror.payload_bytes}")
+    log(f"[{tag} sim] hier protocol on {wm.describe()} (abstract), {SIM_ROUNDS} rounds in "
+        f"{wall:.2f} s host: payload {mirror.payload_bytes:,} B per message; "
+        + "; ".join(f"{c}: {int(a['messages'])} messages, {int(a['bytes']):,} B"
+                    for c, a in sorted(acct.items()))
+        + " (bytes = messages x payload)")
 
 
 def _serve_encdec() -> dict:
@@ -2438,10 +2665,9 @@ def _serve_encdec() -> dict:
         del caches, cross_kvs, memory, logits
         check_prefill(params, cfg, tok, Lp + n_new, tag, enc=enc)
         _check_encdec_decode(params, cfg, tok, enc, tag)
-        rows = profile_call(f"{S10_NAME} prefill",
+        profile_flash_route(f"{S10_NAME} prefill",
                             lambda: Mo.prefill(params, cfg, tok, max_len=Lp + n_new,
-                                               enc_embeds=enc), warmup=1)
-        check_flash_route(rows, n_attn, tag)
+                                               enc_embeds=enc), n_attn, tag)
     del params, enc
     return launches
 
@@ -2587,10 +2813,9 @@ def _serve_wave(slice_tag, name, layers, slots, prompt_len, n_new) -> dict:
         check_prefill(params, cfg, tok, prompt_len + n_new, tag)
         if cfg.n_experts:
             count_route_flips(params, cfg, tok, prompt_len + n_new, tag)
-        rows = profile_call(f"{name} prefill wave",
+        profile_flash_route(f"{name} prefill wave",
                             lambda: Mo.prefill(params, cfg, tok, max_len=prompt_len + n_new),
-                            warmup=1)
-        check_flash_route(rows, n_attn, tag)
+                            n_attn, tag)
         fed = torch.from_numpy(res.tokens[:, :CHECK_STEPS]).cuda()
         if cfg.window:
             _check_ring(params, cfg, tok, fed, tag)
@@ -3091,6 +3316,24 @@ def count_route_flips(params, cfg, tok, max_len: int, tag: str) -> None:
         f"per MoE layer ({tok.numel()} tokens each): {flips} (total {sum(flips)}; not gated)")
 
 
+def profile_flash_route(label: str, fn, n_layers: int, tag: str = "serve") -> None:
+    """Profile ``fn`` (after one traced warm-up call) and hold its flash
+    route to :func:`check_flash_route`, in up to PROFILE_SESSIONS sessions:
+    late in a run the profiler can lose launches from a window while the
+    launch counters hold (17 of 18, 23 of 24 wgmma launches seen), so a
+    profile that shows fewer wgmma launches than layers, and nothing else
+    of the flash kernels, is taken again. A float32 launch or more launches
+    than layers fail at once."""
+    for attempt in range(1, PROFILE_SESSIONS + 1):
+        rows = profile_call(label, fn, warmup=1)
+        flash = [(name, count) for name, _, count in rows if "flash_attention_fwd" in name]
+        seen = sum(count for _, count in flash)
+        if not rows or seen >= n_layers or any("wgmma" not in name for name, _ in flash):
+            break
+        log(f"[{tag}] profile session {attempt}: {seen} of {n_layers} wgmma launches seen")
+    check_flash_route(rows, n_layers, tag)
+
+
 def check_flash_route(rows, n_layers: int, tag: str = "serve") -> None:
     """The profiled bf16 prefill ran the wgmma kernel once per attention
     layer (``n_layers``; none for an attention-free model) and never the
@@ -3217,6 +3460,7 @@ def main() -> int:
     by_path.update(phase_slice9())
     by_path.update(phase_slice10())
     by_path.update(phase_slice11())
+    by_path.update(phase_slice12())
     for e in entries:
         e["launches_by_path"] = {path: n[e["name"]] for path, n in by_path.items()}
         e["launches"] = sum(e["launches_by_path"].values())

@@ -2,7 +2,7 @@
 
     w_j(k+1) = Σ_{i∈N_j∪{j}} A_{i,j} w_i(k)  −  η(k) g_j(w_j(k))
 
-The port of the reference's ``repro/core/decentralized.py``, meshless.
+The port of the reference's ``repro/core/decentralized.py``.
 
 * gossip mode: every parameter leaf carries a leading worker dim of size M.
   The per-worker gradient is ``torch.func.vmap`` of ``grad_and_value`` over
@@ -13,6 +13,20 @@ The port of the reference's ``repro/core/decentralized.py``, meshless.
   kernel over the flat bus.
 * allreduce mode: the centralized baseline (one param copy, the whole
   batch), which the paper compares against.
+
+On a live worker mesh (``mesh=``, a ``launch.mesh.WorkerMesh`` or its
+``DeviceMesh``) each rank holds its own workers' whole replicas (a worker
+dim of ``M / n_workers``, ``launch.shardings.local_tree`` of the global
+tree) and their batches; the mix exchanges with the neighbours on other
+ranks, and :class:`StepMetrics` are global over all M workers (sums over
+the rank's workers, all-reduced over the worker groups). In allreduce mode
+the params are replicated and the batch is cut over the worker axes; the
+gradient is all-reduced as a mean, which is the whole batch's gradient for
+a loss that is a mean over rows. A layer that couples the rows of a call
+(an MoE layer routing the whole call, ``moe_dispatch='global'``) refuses
+there (``launch.mesh.require_whole_call``). A model axis (``model_factor > 1``) is
+refused: it needs the tensor-parallel forward (ROADMAP queue 1, item 3,
+step 6).
 
 ``microbatch > 1`` accumulates the gradient over that many chunks of the
 per-worker batch in float32 (:func:`_microbatched`). A spec with
@@ -35,12 +49,13 @@ from repro_torch import _tree
 from repro_torch.core import bus
 from repro_torch.core import gossip as gossip_lib
 from repro_torch.core.gossip import GossipSpec
+from repro_torch.launch.mesh import require_whole_replicas, rows_cut_over
 from repro_torch.optim import Optimizer
 
 PyTree = Any
 
 __all__ = ["TrainState", "StepMetrics", "init_state", "replicate_for_workers",
-           "gradient_stats", "param_spread", "make_train_step"]
+           "step_metrics", "make_train_step"]
 
 
 class TrainState(NamedTuple):
@@ -71,20 +86,57 @@ def _tree_sq_norm(t: PyTree) -> torch.Tensor:
     return sum(torch.sum(torch.square(x.float())) for x in _tree.leaves(t))
 
 
-def gradient_stats(grads_M: PyTree) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(E, E_sp, √M||ḡ||) from per-worker grads (leading M dim)."""
+def _all_sum(x: torch.Tensor, groups) -> torch.Tensor:
+    """``x`` summed in place over the worker groups, one all-reduce per
+    worker axis; no collective without groups (meshless)."""
+    import torch.distributed as dist
+
+    for group in groups:
+        dist.all_reduce(x, group=group)
+    return x
+
+
+def _spread(tree: PyTree, M: int, groups) -> tuple[torch.Tensor, torch.Tensor]:
+    """(Σ_j ||x_j − x̄||² over this process's workers, ||x̄||²) of a
+    worker-stacked tree. x̄ is the float32 sum over all M workers ÷ M,
+    rounded to each leaf's dtype as the reference's mean is: the rank's
+    sums of every leaf land in one flat float32 buffer, which one
+    all-reduce over ``groups`` completes (4 bytes per element of a
+    replica). The squares sum in float32."""
+    leaves = _tree.leaves(tree)
+    sizes = [x[0].numel() for x in leaves]
+    flat = torch.empty(sum(sizes), dtype=torch.float32, device=leaves[0].device)
+    means = [v.view(x.shape[1:]) for x, v in zip(leaves, flat.split(sizes))]
+    for x, v in zip(leaves, means):
+        torch.sum(x, 0, dtype=torch.float32, out=v)
+    _all_sum(flat, groups).div_(M)
+    spread = mean_sq = torch.zeros((), dtype=torch.float32, device=flat.device)
+    for x, v in zip(leaves, means):
+        mean = v.to(x.dtype)
+        spread = spread + torch.sum(torch.square((x - mean).float()))
+        mean_sq = mean_sq + torch.sum(torch.square(mean.float()))
+    return spread, mean_sq
+
+
+def step_metrics(losses: torch.Tensor, grads_M: PyTree, params_M: PyTree, M: int,
+                 groups=(), compute_stats: bool = True) -> StepMetrics:
+    """The gossip step's :class:`StepMetrics` over all M workers, from this
+    process's per-worker losses, gradients and new params (leading worker
+    dim: all M, or a rank's own on a mesh, whose ``groups`` are the worker
+    axes' process groups). The loss is the mean over the M workers,
+    E = Σ_j ||g_j||², E_sp = Σ_j ||g_j − ḡ||², H = √M·||ḡ||₂ and the
+    consensus spread Σ_j ||w_j − w̄||²: sums over the rank's workers,
+    all-reduced. ``compute_stats=False`` leaves E, E_sp, H and the spread
+    float32 zeros."""
+    loss_sum = losses.sum(dtype=torch.float32)
+    if not compute_stats:
+        z = torch.zeros((), dtype=torch.float32, device=losses.device)
+        return StepMetrics(_all_sum(loss_sum.reshape(1), groups)[0] / M, z, z, z, z)
     E = _tree_sq_norm(grads_M)
-    mean_g = _tree.map(lambda g: g.mean(0, keepdim=True), grads_M)
-    delta = _tree.map(lambda g, m: g - m, grads_M, mean_g)
-    E_sp = _tree_sq_norm(delta)
-    M = _tree.leaves(grads_M)[0].shape[0]
-    H_proxy = torch.sqrt(M * _tree_sq_norm(mean_g) / 1.0)
-    return E, E_sp, H_proxy
-
-
-def param_spread(params_M: PyTree) -> torch.Tensor:
-    mean_p = _tree.map(lambda p: p.mean(0, keepdim=True), params_M)
-    return _tree_sq_norm(_tree.map(lambda p, m: p - m, params_M, mean_p))
+    E_sp, mean_g_sq = _spread(grads_M, M, groups)
+    spread, _ = _spread(params_M, M, groups)
+    sums = _all_sum(torch.stack([loss_sum, E, E_sp, spread]), groups)
+    return StepMetrics(sums[0] / M, sums[1], sums[2], torch.sqrt(M * mean_g_sq), sums[3])
 
 
 def _add_updates(params: PyTree, updates: PyTree) -> PyTree:
@@ -123,14 +175,34 @@ def _microbatched(value_and_grad_fn, microbatch: int, batch_axis: int):
     return run
 
 
+def _step_mesh(mesh):
+    """The live WorkerMesh a step runs on (None meshless); a model axis is
+    refused (:func:`repro_torch.launch.mesh.require_whole_replicas`)."""
+    if mesh is None:
+        return None
+    wm = bus._live(mesh)
+    require_whole_replicas(wm, "a train step")
+    return wm
+
+
+def _mean_over_ranks(x: torch.Tensor, groups, n: int) -> torch.Tensor:
+    """The mean of ``x`` over the ``n`` ranks of the worker groups, summed
+    in float32 and cast back to ``x``'s dtype."""
+    if not groups:
+        return x
+    return (_all_sum(x.float().reshape(-1), groups).reshape(x.shape) / n).to(x.dtype)
+
+
 def make_train_step(
     loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
     optimizer: Optimizer,
     gossip: GossipSpec | None = None,
     mode: str = "gossip",
+    mesh=None,
+    compute_stats: bool = True,
     mix_first: bool = True,
     microbatch: int = 1,
-    compute_stats: bool = True,
+    param_specs: Any = None,
 ):
     """Build the train step ``step(state, batch) -> (state, StepMetrics)``.
 
@@ -139,12 +211,21 @@ def make_train_step(
       optimizer: a repro_torch.optim Optimizer.
       gossip: GossipSpec (required for mode='gossip').
       mode: 'gossip' | 'allreduce'.
+      mesh: a live ``launch.mesh.WorkerMesh`` (or its ``DeviceMesh``) whose
+        model factor is 1. Gossip mode: the state and batch are this rank's
+        workers' (``launch.shardings.local_tree``), the mix exchanges with
+        the other ranks and the metrics are global. Allreduce mode: the
+        params are replicated, the batch is this rank's cut of the global
+        batch (``shardings.batch_pspecs``) and the gradient is all-reduced
+        as a mean; a globally routed MoE layer refuses there.
+      compute_stats: gossip mode only; False skips the step's E, E_sp, H
+        and consensus spread, which are then float32 zeros (the loss stays).
       mix_first: paper's eq. (3) mixes the current params and subtracts the
         gradient taken at the current local params (True). False gives the
         adapt-then-combine variant — mix(w - η g).
       microbatch: gradient-accumulation factor over the per-worker batch.
-      compute_stats: gossip mode only; False skips the step's E, E_sp, H
-        and consensus spread, which are then float32 zeros (the loss stays).
+      param_specs: per-leaf PartitionSpecs of the (worker-stacked) params —
+        ``shardings.param_pspecs`` output; the gossip backends take them.
     """
     # torch.func imports torch._dynamo inside the first gradient; an
     # exception caught during that import leaves a traceback cycle that holds
@@ -152,9 +233,20 @@ def make_train_step(
     # here, before any step, keeps the first step free of cycles.
     import torch._dynamo  # noqa: F401
 
+    if mode == "fsdp":
+        raise ValueError(
+            "the 'fsdp' train mode is retired: shard the replica over the "
+            "WorkerMesh model axis instead (mode='gossip' with param_specs "
+            "from shardings.param_pspecs — see launch/mesh.WorkerMesh)")
+    if mode not in ("gossip", "allreduce"):
+        raise ValueError(f"unknown mode {mode!r}")
+    wm = _step_mesh(mesh)
+    groups = wm.worker_groups if wm is not None else []
+
     if mode == "gossip":
         if gossip is None:
             raise ValueError("gossip mode requires a GossipSpec")
+        M = gossip.topology.M
         # mix + update in ONE kernel pass over the flat bus (mix_first only:
         # adapt-then-combine needs the update applied before the mix; a
         # hierarchical spec runs two staged mixes, then adds the update)
@@ -167,17 +259,18 @@ def make_train_step(
             gossip.one_peer_specs   # build the rounds' specs once, here
 
         def step(state: TrainState, batch: PyTree) -> tuple[TrainState, StepMetrics]:
-            # batch leaves: (M, per_worker_batch, ...)
+            # batch leaves: (M, per_worker_batch, ...), this rank's workers on a mesh
             grads, losses = vg(state.params, batch)
             with torch.no_grad():
                 updates, opt_state = optimizer.update(
-                    grads, state.opt_state, state.params, state.step)
+                    grads, state.opt_state, state.params, state.step, cuts=groups or None)
                 mix_now = state.step % gossip.period == 0
 
                 def do_mix(p):
                     if gossip.time_varying:
-                        return gossip_lib.mix_pytree_time_varying(p, gossip, state.step)
-                    return gossip_lib.mix_pytree(p, gossip)
+                        return gossip_lib.mix_pytree_time_varying(
+                            p, gossip, state.step, wm, param_specs=param_specs)
+                    return gossip_lib.mix_pytree(p, gossip, wm, param_specs=param_specs)
 
                 if fuse_update:
                     # updates already carry −lr ⇒ eta = −1 gives mix(p) + u
@@ -185,10 +278,11 @@ def make_train_step(
                         new_params = _add_updates(state.params, updates)
                     elif gossip.time_varying:
                         new_params = bus.mix_and_update_time_varying(
-                            state.params, gossip, updates, state.step, eta=-1.0)
+                            state.params, gossip, updates, state.step, wm, eta=-1.0,
+                            param_specs=param_specs)
                     else:
-                        new_params = bus.mix_bus(state.params, gossip,
-                                                 updates=updates, eta=-1.0)
+                        new_params = bus.mix_bus(state.params, gossip, wm, updates=updates,
+                                                 eta=-1.0, param_specs=param_specs)
                 elif mix_first:
                     mixed = do_mix(state.params) if mix_now else state.params
                     new_params = _add_updates(mixed, updates)
@@ -197,36 +291,34 @@ def make_train_step(
                     if gossip.period == 1:
                         # the reference's quirk: the static topology, even
                         # under time_varying (ROADMAP queue 3)
-                        new_params = gossip_lib.mix_pytree(stepped, gossip)
+                        new_params = gossip_lib.mix_pytree(stepped, gossip, wm,
+                                                           param_specs=param_specs)
                     else:
                         new_params = do_mix(stepped) if mix_now else stepped
-                if compute_stats:
-                    E, E_sp, H = gradient_stats(grads)
-                    spread = param_spread(new_params)
-                else:
-                    E = E_sp = H = spread = torch.zeros((), device=losses.device)
-            metrics = StepMetrics(losses.mean(), E, E_sp, H, spread)
+                metrics = step_metrics(losses, grads, new_params, M, groups, compute_stats)
             return TrainState(state.step + 1, new_params, opt_state), metrics
 
         return step
 
-    if mode == "allreduce":
-        # Centralized equivalent: a single param copy over the whole batch.
-        vg = torch.func.grad_and_value(loss_fn)
-        if microbatch > 1:
-            vg = _microbatched(vg, microbatch, batch_axis=0)
+    # allreduce: the centralized equivalent, a single param copy over the
+    # whole batch (on a mesh, this rank's cut of it)
+    vg = torch.func.grad_and_value(loss_fn)
+    if microbatch > 1:
+        vg = _microbatched(vg, microbatch, batch_axis=0)
+    n = wm.n_workers if wm is not None else 1
 
-        def step(state: TrainState, batch: PyTree) -> tuple[TrainState, StepMetrics]:
+    def step(state: TrainState, batch: PyTree) -> tuple[TrainState, StepMetrics]:
+        with rows_cut_over(wm):
             grads, loss = vg(state.params, batch)
-            with torch.no_grad():
-                updates, opt_state = optimizer.update(
-                    grads, state.opt_state, state.params, state.step)
-                new_params = _add_updates(state.params, updates)
-                z = torch.zeros((), device=loss.device)
-                gn = _tree_sq_norm(grads)
-            metrics = StepMetrics(loss, gn, z, torch.sqrt(gn), z)
-            return TrainState(state.step + 1, new_params, opt_state), metrics
+        with torch.no_grad():
+            grads = _tree.map(lambda g: _mean_over_ranks(g, groups, n), grads)
+            loss = _mean_over_ranks(loss, groups, n)
+            updates, opt_state = optimizer.update(
+                grads, state.opt_state, state.params, state.step)
+            new_params = _add_updates(state.params, updates)
+            z = torch.zeros((), device=loss.device)
+            gn = _tree_sq_norm(grads)
+        metrics = StepMetrics(loss, gn, z, torch.sqrt(gn), z)
+        return TrainState(state.step + 1, new_params, opt_state), metrics
 
-        return step
-
-    raise ValueError(f"unknown mode {mode!r}")
+    return step

@@ -30,7 +30,7 @@ the train step's fused path is :func:`repro_torch.core.bus.mix_and_update_time_v
 partial fleet with the repaired matrices of :mod:`repro_torch.core.topology`.
 
 ``GossipSpec(hierarchical=True)`` runs a Kronecker (multi-pod) topology as
-its two factored stages, intra-pod then cross-pod (:func:`hierarchical_mix`);
+its two factorized stages, intra-pod then cross-pod (:func:`hierarchical_mix`);
 :func:`hierarchical_mix_compressed` sends the cross-pod stage over the
 compressed wire of :func:`repro_torch.core.bus.mix_bus_compressed`.
 """
@@ -75,7 +75,7 @@ class GossipSpec:
     time_varying: None (static topology) or 'one_peer_exp': the step-k
       matrix pairs node i with node i + 2^(k mod log2 M) (degree 1, exact
       consensus every log2 M rounds); M must be a power of two.
-    hierarchical: run a kronecker/`hier` topology as its two factored
+    hierarchical: run a kronecker/`hier` topology as its two factorized
       stages (:func:`split_hierarchical`), intra-pod then cross-pod, instead
       of one mix with the product matrix: the same consensus matrix.
     """

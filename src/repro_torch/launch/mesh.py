@@ -23,6 +23,8 @@ over the model axis, its 1/k piece (``launch.shardings.local_tree``).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 from typing import Any
 
@@ -33,7 +35,8 @@ from repro_torch import _tree
 
 __all__ = ["AbstractMesh", "WorkerMesh", "SINGLE_POD", "MULTI_POD", "MODEL_AXIS",
            "make_production_mesh", "make_worker_mesh", "make_host_mesh",
-           "worker_axes", "n_workers"]
+           "worker_axes", "n_workers", "require_whole_replicas", "rows_cut_over",
+           "require_whole_call"]
 
 SINGLE_POD = (16, 16)                  # 256 chips
 MULTI_POD = (2, 16, 16)                # 2 pods × 256 chips = 512
@@ -77,7 +80,7 @@ def _names_and_shape(mesh) -> tuple[tuple[str, ...], dict[str, int]]:
 
 @dataclasses.dataclass(frozen=True)
 class WorkerMesh:
-    """A mesh factored into worker axes × an intra-replica model axis.
+    """A mesh factorized into worker axes × an intra-replica model axis.
 
     Attributes:
       mesh: an :class:`AbstractMesh` or a live ``DeviceMesh``.
@@ -273,6 +276,46 @@ class WorkerMesh:
     def describe(self) -> str:
         w = "×".join(f"{a}={self.shape[a]}" for a in self.worker_axes)
         return f"workers[{w}]={self.n_workers} × {self.model_axis or '-'}={self.model_factor}"
+
+
+def require_whole_replicas(wm: "WorkerMesh | None", what: str) -> None:
+    """Refuse ``what`` on a mesh whose replicas are sharded over the model
+    axis: training and saving there need the tensor-parallel forward."""
+    if wm is not None and wm.model_factor > 1:
+        raise NotImplementedError(
+            f"{what} over {wm.describe()}: a replica sharded over the model axis needs "
+            "the tensor-parallel forward (ROADMAP queue 1, item 3, step 6); the worker "
+            "axes train with model factor 1")
+
+
+# the live WorkerMesh whose ranks each hold a cut of the rows of the call
+# running now (allreduce mode's forward on a mesh), else None
+_ROWS_CUT: contextvars.ContextVar = contextvars.ContextVar("rows_cut_over", default=None)
+
+
+@contextlib.contextmanager
+def rows_cut_over(wm: "WorkerMesh | None"):
+    """Within it, the call running on this rank sees only its cut of the
+    batch's rows, the others' rows being on the other ranks of ``wm`` (None:
+    the call is whole). A layer whose function couples the rows of a call
+    refuses there (:func:`require_whole_call`)."""
+    token = _ROWS_CUT.set(wm)
+    try:
+        yield
+    finally:
+        _ROWS_CUT.reset(token)
+
+
+def require_whole_call(what: str) -> None:
+    """Refuse ``what``, a computation over all the rows of a call together,
+    inside :func:`rows_cut_over` a mesh of several ranks: each rank would
+    compute it over its own rows, a different function."""
+    wm = _ROWS_CUT.get()
+    if wm is not None and wm.n_workers > 1:
+        raise NotImplementedError(
+            f"{what} with the batch's rows cut over {wm.describe()} (allreduce mode): "
+            "computing it over the whole call across ranks comes with the model axis's "
+            "forward (ROADMAP queue 1, item 3, step 6)")
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:

@@ -3,7 +3,7 @@ of a global tree into a rank's local tree.
 
 The port of the reference's ``repro/launch/shardings.py``. Every function
 takes a :class:`~repro_torch.launch.mesh.WorkerMesh` (raw meshes are
-factored on entry): worker axes host the gossip workers, the model axis
+factorized on entry): worker axes host the gossip workers, the model axis
 shards each worker's replica. Specs are
 :class:`~repro_torch.models.params.PartitionSpec` trees equal, spec for
 spec, to the reference's.

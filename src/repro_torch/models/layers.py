@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import require_whole_call
 from repro_torch.models.params import ParamDef
 
 PyTree = Any
@@ -215,8 +216,13 @@ def moe_apply(params: PyTree, cfg: ModelConfig, x: torch.Tensor):
     ``"per_sequence"`` routes each sequence on its own (capacity per
     sequence) and averages the aux losses; ``"per_sequence_smap"`` is
     ``"per_sequence"`` without a mesh, as in the reference's fallback.
+    Global routing refuses a call whose rows are cut over the ranks of a
+    mesh (``launch.mesh.require_whole_call``): capacity, the tokens dropped
+    and the aux loss depend on all of its tokens.
     """
     B, L, D = x.shape
+    if cfg.moe_dispatch == "global":
+        require_whole_call("an MoE layer routing the whole call (moe_dispatch='global')")
     if cfg.moe_dispatch in ("per_sequence", "per_sequence_smap"):
         outs, auxs = zip(*(_moe_tokens(params, cfg, x[b]) for b in range(B)))
         out, aux = torch.stack(outs), torch.stack(auxs).mean()

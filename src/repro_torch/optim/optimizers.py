@@ -2,7 +2,7 @@
 
 The port of ``repro/optim/optimizers.py``: plain (sub)gradient descent
 (DSM) and classical momentum, the paper's two optimizers, plus Adam and a
-factored second-moment optimizer. Updates are
+factorized second-moment optimizer. Updates are
 elementwise over leaves, so they apply unchanged to gossip-mode params that
 carry a leading worker dimension, and they already include −lr: the fused
 gossip step adds them with ``eta = -1``.
@@ -23,6 +23,12 @@ bf16 rounding follows the reference's type promotion, written out:
 
 Adam and Adafactor walk the leaves one at a time, so only one leaf's float32
 temporaries are alive at once; the state is never updated in place.
+
+Every ``update`` takes ``cuts``: on a worker mesh, the process groups the
+leading worker dim is cut over (``WorkerMesh.worker_groups``, first axis
+major), None when this process holds every worker. Only Adafactor's
+statistics that run across workers read it; the elementwise optimizers
+ignore it.
 """
 from __future__ import annotations
 
@@ -69,13 +75,14 @@ def _div_f32(x: torch.Tensor, c: float) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
-    """init(params) -> state; update(grads, state, params, step) -> (updates, state).
+    """init(params) -> state;
+    update(grads, state, params, step, cuts=None) -> (updates, state).
 
     ``updates`` are deltas to add to the params (they already include -lr).
     """
 
     init: Callable[[PyTree], PyTree]
-    update: Callable[[PyTree, PyTree, PyTree, int], tuple[PyTree, PyTree]]
+    update: Callable[..., tuple[PyTree, PyTree]]
     name: str = "optimizer"
 
 
@@ -85,7 +92,7 @@ def sgd(lr) -> Optimizer:
     def init(params):
         return ()
 
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, cuts=None):
         eta = sched(step)
         return _tree.map(lambda g: _scale_f32(g, -eta), grads), state
 
@@ -99,7 +106,7 @@ def momentum_sgd(lr, mu: float = 0.9, nesterov: bool = False) -> Optimizer:
     def init(params):
         return _tree.map(torch.zeros_like, params)
 
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, cuts=None):
         eta = sched(step)
         new_u = _tree.map(lambda u, g: (u * _weak(mu, u.dtype) + g).to(u.dtype),
                           state, grads)
@@ -122,7 +129,7 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
         return {"m": _tree.map(zeros, params), "v": _tree.map(zeros, params)}
 
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, cuts=None):
         eta = sched(step)
         t = f32(step) + f32(1.0)
         c1 = float(f32(1.0) - f32(b1) ** t)
@@ -150,12 +157,30 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
     return Optimizer(init, update, "adam")
 
 
-def adafactor_like(lr, eps: float = 1e-30, decay: float = 0.8) -> Optimizer:
-    """Memory-lean second-moment optimizer (row/col factored for 2-D leaves).
+def _all_workers(x: torch.Tensor, cuts) -> torch.Tensor:
+    """The rows of every worker, in worker order: ``x`` (leading dim this
+    rank's workers) all-gathered over each worker axis, the last first, so
+    the first axis ends up major. Without cuts, ``x`` itself."""
+    import torch.distributed as dist
 
-    Leaves are factored by their own rank, so a gossip-mode leaf with its
-    leading worker dimension is factored too: a 1-D parameter arrives 2-D
+    for group in reversed(cuts or ()):
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        x = torch.cat(parts, 0)
+    return x
+
+
+def adafactor_like(lr, eps: float = 1e-30, decay: float = 0.8) -> Optimizer:
+    """Memory-lean second-moment optimizer (row/col factorized for 2-D leaves).
+
+    Leaves are factorized by their own rank, so a gossip-mode leaf with its
+    leading worker dimension is factorized too: a 1-D parameter arrives 2-D
     and its row/column statistics run across workers, as in the reference.
+    On a worker mesh (``cuts``) those two means, the column statistic and
+    the row statistic's mean, are taken over every worker's rows, gathered
+    (a 1-D parameter's size per worker), in the meshless order, so the
+    update equals the meshless one bit for bit; the column statistic is
+    then the same on every rank.
     """
     sched = _as_schedule(lr)
 
@@ -167,7 +192,7 @@ def adafactor_like(lr, eps: float = 1e-30, decay: float = 0.8) -> Optimizer:
             return {"v": z(p.shape)}
         return _tree.map(leaf, params)
 
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, cuts=None):
         eta = sched(step)
         b2 = f32(1.0) - (f32(step) + f32(1.0)) ** f32(-decay)
         keep = float(b2)
@@ -177,11 +202,13 @@ def adafactor_like(lr, eps: float = 1e-30, decay: float = 0.8) -> Optimizer:
             g32 = g.float()
             g2 = g32.square().add_(eps)
             if g.ndim >= 2:
+                # a 2-D leaf's dim -2 is the worker dim: on a mesh it spans ranks
+                across = cuts if g.ndim == 2 else None
                 row = s["row"] * keep + g2.mean(-1) * fresh
-                col = s["col"] * keep + g2.mean(-2) * fresh
+                col = s["col"] * keep + _all_workers(g2, across).mean(-2) * fresh
                 del g2
                 denom = row[..., :, None] * col[..., None, :]
-                denom = denom.div_(row.mean(-1)[..., None, None] + eps)
+                denom = denom.div_(_all_workers(row, across).mean(-1)[..., None, None] + eps)
                 u = g32 / denom.sqrt_().add_(eps)
                 return u.mul_(-eta).to(p.dtype), {"row": row, "col": col}
             v = s["v"] * keep + g2 * fresh

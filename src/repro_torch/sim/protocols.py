@@ -158,7 +158,7 @@ def _coupled_opt_state(optimizer, params0: PyTree) -> bool:
     state is worker-elementwise — row j of ``init(W)`` equals ``init(W[j])``
     — so that slicing/updating one row reproduces the full program.
     Optimizers like ``adafactor_like`` break this: a per-worker 1-D leaf is
-    2-D once stacked, so its second moment is row/col-factored *across the
+    2-D once stacked, so its second moment is row/col-factorized *across the
     worker axis*. Detected without allocating (tensors on the ``meta``
     device): the stacked init must have the per-slice init's tree structure
     with every leaf gaining exactly the leading (M,) dim."""
@@ -1030,7 +1030,7 @@ class SyncGossip(_BarrierGossip):
         S = self._assemble_from_W(j, k, fix_missing=False)
         if ex.coupled:
             # worker j owns a FULL optimizer state of its own: committing
-            # "row j" of cross-worker-factored state (adafactor row/col
+            # "row j" of cross-worker-factorized state (adafactor row/col
             # moments) would splice together different workers' statistics.
             opt_prev = ex._opt_full.get(j, ex.opt)
             state = TrainState(k - 1, S, opt_prev)

@@ -1,8 +1,8 @@
 """Composable scenario specs for the event-driven simulator.
 
-A numpy-only copy of the reference's ``repro/sim/scenarios.py``; the
-mirror of a device mesh (``WorkerMesh``) comes with the mesh's simulator
-(ROADMAP queue 1, item 3, step 7), so :meth:`MeshSpec.ensure` refuses one.
+A numpy-only copy of the reference's ``repro/sim/scenarios.py``:
+:meth:`MeshSpec.ensure` mirrors a ``launch.mesh.WorkerMesh`` (abstract or
+live, any model factor) through ``WorkerMesh.sim_spec``.
 
 A :class:`Scenario` bundles everything *about the environment* (as opposed to
 the algorithm) that shapes a simulated run:
@@ -276,19 +276,22 @@ class MeshSpec:
                    name=f"mesh({topo.name})")
 
     @classmethod
-    def ensure(cls, mesh, topology: Topology | None = None) -> "MeshSpec | None":
-        """Normalize: a MeshSpec passes through, None stays None, and a
-        topology that carries pod metadata (``group_of``) is adopted. Any
-        other mesh (a device mesh of workers) raises: the port has no device
-        mesh yet (ROADMAP queue 1, item 3, step 7)."""
+    def ensure(cls, mesh, topology: Topology | None = None,
+               params_template=None, param_specs=None) -> "MeshSpec | None":
+        """Normalize: MeshSpec passes through; a WorkerMesh is mirrored
+        (group = coordinate along the leading worker axis, payload from the
+        bus layout plan when ``params_template`` is given); a topology that
+        carries pod metadata (``group_of``) is adopted; None stays None."""
         if mesh is None or isinstance(mesh, cls):
             return mesh
+        from repro_torch.launch.mesh import WorkerMesh
+
+        if isinstance(mesh, WorkerMesh):
+            return mesh.sim_spec(params_template=params_template,
+                                 param_specs=param_specs)
         if topology is not None and getattr(mesh, "group_of", None) is not None:
             return cls.from_topology(mesh)
-        raise NotImplementedError(
-            f"cannot build a MeshSpec from {type(mesh).__name__}: a device mesh of "
-            "workers comes with the mesh's simulator (ROADMAP queue 1, "
-            "item 3, step 7); pass a MeshSpec, mesh='topology' or None")
+        raise TypeError(f"cannot build a MeshSpec from {type(mesh).__name__}")
 
     def describe(self) -> dict:
         out = {"name": self.name, "workers": self.M,

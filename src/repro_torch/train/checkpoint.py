@@ -1,6 +1,6 @@
 """Parameter-tree checkpoints in the reference's npz format.
 
-The port of the reference's ``repro/train/checkpoint.py``, meshless: one
+The port of the reference's ``repro/train/checkpoint.py``: one
 ``.npz`` whose keys are the leaves' tree paths (``"segments/0/mix/wq"``) in
 JAX's leaf order, bf16 leaves stored as their raw 16 bits (a ``uint16``
 view) under the key suffix ``::bf16``, and an optional
@@ -13,16 +13,27 @@ shards; :func:`restore`, :func:`export_consensus` and
 :func:`consensus_from_sharded` read it. ``consensus_params`` collapses a
 worker-stacked tree (the leading M dim the decentralized trainer keeps) to
 the paper's output model w̄ = (1/M) Σ_j w_j, averaging in float32 and
-casting back. :class:`AsyncCheckpointWriter` moves the device-to-host copy
-and the disk write off the training loop's thread.
+casting back. :class:`AsyncCheckpointWriter` snapshots into pinned host
+memory and moves the disk write off the training loop's thread.
 
-The reference's ``WorkerMesh`` shard coordinates come with the mesh's
-checkpoints (ROADMAP queue 1, item 3, step 5).
+On a live worker mesh (``wmesh=``, model factor 1) each rank passes its own
+workers' part of the tree (``launch.shardings.local_tree``):
+:func:`save_sharded` has every rank write its own workers' files, keyed by
+the reference's ``WorkerMesh`` coordinates (:func:`worker_coords`, e.g.
+``shard-pod1-data3``; ``w{j}`` for a bare ``DeviceMesh``), and the mesh's
+first rank the meta once every rank's files are written; :func:`save` streams every worker's leaves to the
+mesh's first rank, one worker's leaf at a time, which writes the
+monolithic file, the reference's format byte for byte; the asynchronous
+writer snapshots the rank's own workers. :func:`restore` cuts a checkpoint to the rank
+(a sharded one: reading only its workers' files) and
+:func:`consensus_from_sharded` lands w̄ as the rank's piece; both only
+cut, so they work at any model factor, where a save refuses.
 """
 from __future__ import annotations
 
 import collections
 import concurrent.futures
+import functools
 import json
 import os
 import time
@@ -31,6 +42,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import _tree
 from repro_torch.convert import resolve_device
@@ -67,33 +79,46 @@ def _flatten_with_paths(tree: PyTree) -> dict[str, np.ndarray]:
         host.append((_path_key(path), t.cpu().contiguous()))
     for stream in pending:
         stream.synchronize()
-    flat = {}
-    for key, t in host:
-        if t.dtype == torch.bfloat16:
-            key, arr = key + _BF16_TAG, t.view(torch.int16).numpy().view(np.uint16)
-        else:
-            arr = t.numpy()
-        flat[key] = arr
-    return flat
+    return {_stored_key(key, t.dtype): _host_array(t) for key, t in host}
 
 
-def _write_npz(path: str, arrays: dict[str, np.ndarray]) -> None:
-    """``np.savez(path, **arrays)``'s file (a stored zip of ``.npy``
-    members, ``.npz`` appended when missing), each array written from its
-    own buffer in one call. np.savez copies every array through Python in
-    16 MiB chunks with the GIL held, which stalls a training loop's kernel
-    launches on another thread; a buffer write and the zip's CRC release
-    it."""
+def _stored_key(key: str, dtype: torch.dtype) -> str:
+    return key + _BF16_TAG if dtype == torch.bfloat16 else key
+
+
+def _host_array(t: torch.Tensor) -> np.ndarray:
+    """A host tensor as the array stored for it: bf16 as its uint16 bits."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _write_npz_members(path: str, members) -> None:
+    """``np.savez``'s file (a stored zip of ``.npy`` members, ``.npz``
+    appended when missing) from ``(name, shape, numpy dtype, chunks)``
+    members, each member's data the concatenation of its ``chunks``
+    (C-contiguous arrays, written from their buffers)."""
     if not path.endswith(".npz"):
         path += ".npz"
     with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_STORED,
                          allowZip64=True) as zf:
-        for name, arr in arrays.items():
-            arr = np.ascontiguousarray(arr)
+        for name, shape, dtype, chunks in members:
             with zf.open(name + ".npy", "w", force_zip64=True) as f:
-                np.lib.format.write_array_header_1_0(
-                    f, np.lib.format.header_data_from_array_1_0(arr))
-                f.write(arr.reshape(-1).view(np.uint8).data)
+                np.lib.format.write_array_header_1_0(f, {
+                    "descr": np.lib.format.dtype_to_descr(np.dtype(dtype)),
+                    "fortran_order": False, "shape": tuple(shape)})
+                for chunk in chunks:
+                    f.write(np.ascontiguousarray(chunk).reshape(-1).view(np.uint8).data)
+
+
+def _write_npz(path: str, arrays: dict[str, np.ndarray]) -> None:
+    """``np.savez(path, **arrays)``'s file, each array written from its own
+    buffer in one call. np.savez copies every array through Python in
+    16 MiB chunks with the GIL held, which stalls a training loop's kernel
+    launches on another thread; a buffer write and the zip's CRC release
+    it."""
+    _write_npz_members(path, ((name, arr.shape, arr.dtype, [arr])
+                              for name, arr in arrays.items()))
 
 
 def _base_key(stored: str) -> str:
@@ -117,12 +142,75 @@ def _stored_tensor(raw: np.ndarray, stored: str, device: torch.device) -> torch.
     return torch.from_numpy(np.ascontiguousarray(raw)).to(device)
 
 
-def save(path: str, tree: PyTree, step: int | None = None) -> None:
+def save(path: str, tree: PyTree, step: int | None = None, *, wmesh=None) -> None:
+    """Write ``tree`` as one npz (and the step's ``.meta.json``). With a live
+    ``wmesh`` (a WorkerMesh or its DeviceMesh, model factor 1) ``tree`` is
+    this rank's workers' part of a worker-stacked tree and every rank
+    calls this: the mesh's first rank writes the whole file, each leaf's
+    workers in order, receiving each other rank's workers one leaf at a
+    time (:func:`_stream_to_first_rank`), so neither host nor device holds
+    more than one worker's leaf beyond the rank's own tree."""
+    if wmesh is not None:
+        return _stream_to_first_rank(path, tree, step, _live_mesh(wmesh, "a checkpoint save"))
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     _write_npz(path, _flatten_with_paths(tree))
+    _write_step(path, step)
+
+
+def _write_step(path: str, step: int | None) -> None:
     if step is not None:
         with open(path + ".meta.json", "w") as f:
             json.dump({"step": int(step)}, f)
+
+
+def _live_mesh(wmesh, what: str):
+    """The live WorkerMesh of ``wmesh``; a model axis is refused."""
+    from repro_torch.launch.mesh import WorkerMesh, require_whole_replicas
+
+    wm = WorkerMesh.ensure(wmesh)
+    wm._require_live()
+    require_whole_replicas(wm, what)
+    return wm
+
+
+def _rank_workers(wm, m: int) -> range:
+    """The global indices of the ``m`` workers this rank holds."""
+    return range(wm.worker_index * m, (wm.worker_index + 1) * m)
+
+
+def _stream_to_first_rank(path: str, tree: PyTree, step: int | None, wm) -> None:
+    """:func:`save` over a mesh: per leaf, worker by worker, each worker's
+    slice sent by the rank holding it (``dist.send``) to the mesh's first
+    rank, which copies it to the host and appends it to the leaf's member."""
+    paths = _tree.flatten_with_path(tree)
+    m = int(paths[0][1].shape[0])
+    M = m * wm.n_workers
+    first, me = wm.rank_of(0), dist.get_rank()
+    if me != first:
+        for _, x in paths:
+            for i in range(m):
+                dist.send(x[i].contiguous(), dst=first)
+        return
+    mine = _rank_workers(wm, m)
+
+    def slices(x):
+        buf = torch.empty_like(x[0])
+        for j in range(M):
+            if j in mine:
+                yield _host_array(x[j - mine.start].cpu())
+            else:
+                dist.recv(buf, src=wm.rank_of(j // m))
+                yield _host_array(buf.cpu())
+
+    def members():
+        for p, x in paths:
+            dtype = _host_array(torch.empty((0,), dtype=x.dtype)).dtype
+            yield (_stored_key(_path_key(p), x.dtype), (M,) + tuple(x.shape[1:]), dtype,
+                   slices(x))
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    _write_npz_members(path, members())
+    _write_step(path, step)
 
 
 def _check_keys(path: str, stored_by_key: dict, paths: list) -> None:
@@ -138,7 +226,8 @@ def _check_shape(path: str, key: str, t, leaf) -> None:
                          f"{tuple(leaf.shape)}")
 
 
-def restore(path: str, like: PyTree, device: str | torch.device = "cuda") -> PyTree:
+def restore(path: str, like: PyTree, device: str | torch.device = "cuda", *,
+            wmesh=None, param_specs: PyTree | None = None) -> PyTree:
     """Restore into the structure of ``like`` (shapes and dtypes kept).
 
     A leaf may be stored tagged (bf16 bits) or plain, whatever the dtype of
@@ -146,7 +235,15 @@ def restore(path: str, like: PyTree, device: str | torch.device = "cuda") -> PyT
     ``.shape`` and ``.dtype``, so tensors on the ``meta`` device will do. A
     worker-sharded checkpoint (:func:`save_sharded`) is found by its meta
     and reassembled by :func:`restore_sharded`.
+
+    With a live ``wmesh`` (a WorkerMesh or its DeviceMesh) ``like`` is the
+    global worker-stacked template and this rank's part comes back, cut by
+    ``param_specs`` (default: the worker dim over the worker axes) as
+    ``launch.shardings.local_tree`` cuts: of a sharded checkpoint the rank
+    reads only its own workers' files.
     """
+    if wmesh is not None:
+        return _restore_on_mesh(path, like, resolve_device(device), wmesh, param_specs)
     if _is_sharded(path):
         return restore_sharded(path, like, device)
     dev = resolve_device(device)
@@ -163,13 +260,37 @@ def restore(path: str, like: PyTree, device: str | torch.device = "cuda") -> PyT
     return _tree.unflatten(_tree.flatten(like)[1], out)
 
 
+def _restore_on_mesh(path: str, like: PyTree, dev: torch.device, wmesh,
+                     param_specs: PyTree | None) -> PyTree:
+    """:func:`restore` with ``wmesh``: the rank's cut of the checkpoint."""
+    from repro_torch.launch.mesh import WorkerMesh
+    from repro_torch.launch.shardings import local_tree
+    from repro_torch.models.params import PartitionSpec
+
+    wm = WorkerMesh.ensure(wmesh)
+    paths = _tree.flatten_with_path(like)
+    treedef = _tree.flatten(like)[1]
+    specs = (_tree.flatten_up_to(treedef, param_specs) if param_specs is not None
+             else [wm.worker_spec()] * len(paths))
+    if not _is_sharded(path):
+        full = restore(path, like, device=dev)
+        return local_tree(full, _tree.unflatten(treedef, specs), wm)
+    _, files, _ = _shard_files(path)
+    m = len(files) // wm.n_workers
+    if m * wm.n_workers != len(files):
+        raise ValueError(f"{path}: {len(files)} worker shards do not split over "
+                         f"{wm.describe()}")
+    mine = [files[j] for j in _rank_workers(wm, m)]
+    like_mine = _tree.map(lambda x: torch.empty((m,) + tuple(x.shape[1:]), dtype=x.dtype,
+                                                device="meta"), like)
+    stacked = _restore_stacked(path, mine, like_mine, dev)
+    rest = [PartitionSpec(None, *tuple(s)[1:]) for s in specs]
+    return local_tree(stacked, _tree.unflatten(treedef, rest), wm)
+
+
 # ---------------------------------------------------------------------------
 # Worker-sharded checkpoints: one worker's replica on the host at a time
 # ---------------------------------------------------------------------------
-
-
-_NO_MESH = ("WorkerMesh shard coordinates come with the mesh's checkpoints "
-            "(ROADMAP queue 1, item 3, step 5)")
 
 
 def _strip_npz(path: str) -> str:
@@ -177,40 +298,113 @@ def _strip_npz(path: str) -> str:
 
 
 def worker_coords(wmesh, M: int) -> list[str]:
-    """Shard keys in worker-index order: ``'w{j}'`` for meshless stacked
-    state (the reference's names with no mesh)."""
-    if wmesh is not None:
-        raise NotImplementedError(_NO_MESH)
-    return [f"w{j}" for j in range(M)]
+    """Shard keys in worker-index order: the WorkerMesh coordinates along
+    the worker axes (row-major, e.g. ``'pod1-data3'`` on a pod×data mesh),
+    or plain ``'w{j}'`` when no mesh is given (meshless stacked state)."""
+    if wmesh is None:
+        return [f"w{j}" for j in range(M)]
+    axes = list(wmesh.worker_axes)
+    sizes = [int(wmesh.shape[a]) for a in axes]
+    if int(np.prod(sizes)) != M:
+        raise ValueError(f"mesh hosts {int(np.prod(sizes))} workers, "
+                         f"tree is stacked over {M}")
+    out = []
+    for j in range(M):
+        rem, parts = j, []
+        for a, s in zip(reversed(axes), reversed(sizes)):
+            parts.append(f"{a}{rem % s}")
+            rem //= s
+        out.append("-".join(reversed(parts)))
+    return out
 
 
 def save_sharded(path: str, tree: PyTree, step: int | None = None, *,
                  wmesh=None) -> None:
-    """Write one npz per worker (``{base}.shard-w{j}.npz``) and a
-    ``{base}.meta.json`` listing the shards: each worker's slice is copied
-    to the host and written on its own, so at most one replica is resident
-    there at a time. A monolithic checkpoint at the same base is removed, so
-    :func:`restore` cannot prefer the older file."""
+    """Write one npz per worker (``{base}.shard-{coord}.npz``, keys from
+    :func:`worker_coords`) and a ``{base}.meta.json`` listing the shards:
+    each worker's slice is copied to the host and written on its own, so at
+    most one replica is resident there at a time. A monolithic checkpoint
+    at the same base is removed, so :func:`restore` cannot prefer the older
+    file.
+
+    ``wmesh``: a WorkerMesh names the shards by its coordinates. On a live
+    mesh (a WorkerMesh, or a bare DeviceMesh, whose shards keep the
+    ``w{j}`` names as the reference's train loop gives a raw mesh) ``tree``
+    is this rank's workers' part and every rank calls this: each writes its
+    own workers' files, then the ranks report them written to each other
+    (:func:`_report_group`), and only then does the mesh's first rank write
+    the meta, so a meta never lists a shard that is not yet on disk."""
+    for write, _ in _sharded_writes(path, tree, step, wmesh):
+        write()
+
+
+def _sharded_writes(path: str, tree: PyTree, step: int | None, wmesh) -> list:
+    """:func:`save_sharded`'s writes in order, as ``(write, retry)``: this
+    process's shard files; on a live mesh of several ranks the report that
+    they are on disk (``retry`` False: every rank makes it exactly once per
+    save); then, on the first rank, the meta and the stale files' removal.
+    The report's group is made here, on the calling thread."""
+    from repro_torch.launch.mesh import WorkerMesh
+
     leaves = _tree.leaves(tree)
     if not leaves:
         raise ValueError("cannot shard an empty tree")
-    M = int(leaves[0].shape[0])
-    if any(tuple(x.shape[:1]) != (M,) for x in leaves):
+    m = int(leaves[0].shape[0])
+    if any(tuple(x.shape[:1]) != (m,) for x in leaves):
         raise ValueError("sharded save needs a stacked tree (leading M dim)")
+    named = wmesh if isinstance(wmesh, WorkerMesh) else None
+    wm = WorkerMesh.ensure(wmesh)
+    M, mine, writes_meta, group = m, range(m), True, None
+    if wm is not None and wm.live:
+        wm = _live_mesh(wm, "a sharded checkpoint save")
+        M, mine = m * wm.n_workers, _rank_workers(wm, m)
+        writes_meta = dist.get_rank() == wm.rank_of(0)
+        group = _report_group(wm)
     base = _strip_npz(path)
-    os.makedirs(os.path.dirname(base) or ".", exist_ok=True)
-    coords = worker_coords(wmesh, M)
-    for j, coord in enumerate(coords):
-        slice_j = _tree.map(lambda x: x[j], tree)
-        _write_npz(f"{base}.shard-{coord}.npz", _flatten_with_paths(slice_j))
-    meta: dict[str, Any] = {"sharded": {"shards": coords}}
-    if step is not None:
-        meta["step"] = int(step)
-    with open(base + ".meta.json", "w") as f:
-        json.dump(meta, f)
-    for stale in (base + ".npz", base + ".npz.meta.json"):
-        if os.path.exists(stale):
-            os.remove(stale)
+    coords = worker_coords(named, M)
+
+    def shards():
+        os.makedirs(os.path.dirname(base) or ".", exist_ok=True)
+        for i, j in enumerate(mine):
+            slice_j = _tree.map(lambda x: x[i], tree)
+            _write_npz(f"{base}.shard-{coords[j]}.npz", _flatten_with_paths(slice_j))
+
+    def meta():
+        d: dict[str, Any] = {"sharded": {"shards": coords}}
+        if step is not None:
+            d["step"] = int(step)
+        with open(base + ".meta.json", "w") as f:
+            json.dump(d, f)
+        for stale in (base + ".npz", base + ".npz.meta.json"):
+            if os.path.exists(stale):
+                os.remove(stale)
+
+    writes = [(shards, True)]
+    if group is not None:
+        writes.append((lambda: dist.barrier(group=group), False))
+    if writes_meta:
+        writes.append((meta, True))
+    return writes
+
+
+# the gloo groups over which a live mesh's ranks report their shards
+# written, by default group and ranks: a group of its own, so the report can
+# run on a writer's thread beside the loop's collectives
+_REPORT_GROUPS: dict = {}
+
+
+def _report_group(wm):
+    """The gloo group of ``wm``'s ranks for :func:`save_sharded`'s report
+    (None on a mesh of one rank), made at the mesh's first sharded save by
+    its ranks alone."""
+    ranks = tuple(sorted(int(r) for r in wm.mesh.mesh.flatten().tolist()))
+    if len(ranks) == 1:
+        return None
+    key = (dist.group.WORLD, ranks)
+    if key not in _REPORT_GROUPS:
+        _REPORT_GROUPS[key] = dist.new_group(list(ranks), backend="gloo",
+                                             use_local_synchronization=True)
+    return _REPORT_GROUPS[key]
 
 
 def _sharded_meta(path: str) -> dict | None:
@@ -237,8 +431,12 @@ def restore_sharded(path: str, like: PyTree,
     structure (a stacked tree with leading M dim; ``meta`` tensors will do)
     by stacking the per-worker bit patterns in shard order: bit-exact, bf16
     tags included."""
-    dev = resolve_device(device)
     _, files, _ = _shard_files(path)
+    return _restore_stacked(path, files, like, resolve_device(device))
+
+
+def _restore_stacked(path: str, files: list[str], like: PyTree, dev: torch.device) -> PyTree:
+    """The shard ``files``' trees stacked on a leading dim, in their order."""
     shards = [np.load(f) for f in files]
     stored_by_key = {_base_key(f): f for f in shards[0].files}
     paths = _tree.flatten_with_path(like)
@@ -255,7 +453,8 @@ def restore_sharded(path: str, like: PyTree,
 
 
 def consensus_from_sharded(path: str, like: PyTree,
-                           device: str | torch.device = "cuda") -> PyTree:
+                           device: str | torch.device = "cuda", *,
+                           shardings: tuple[PyTree, Any] | None = None) -> PyTree:
     """w̄ = (1/M) Σ_j w_j straight from a worker-sharded checkpoint, with at
     most one worker replica on the host at a time.
 
@@ -263,10 +462,23 @@ def consensus_from_sharded(path: str, like: PyTree,
     ``device`` as float32 and add into a running sum in shard order; the sum
     is divided by float32(M) once at the end, a true division as in the
     reference (not :func:`consensus_params`' product with fl32(1/M); the two
-    agree when M is a power of two), then cast back to ``like``'s dtypes."""
+    agree when M is a power of two), then cast back to ``like``'s dtypes.
+
+    ``shardings=(param_specs, mesh)`` (a live WorkerMesh or DeviceMesh, any
+    model factor) lands w̄ as this rank's piece of it: each shard's leaves
+    are cut by ``param_specs`` (``launch.shardings.local_tree``) as they
+    arrive."""
     dev = resolve_device(device)
     _, files, _ = _shard_files(path)
     paths = _tree.flatten_with_path(like)
+    cut = lambda xs: xs
+    if shardings is not None:
+        from repro_torch.launch.mesh import WorkerMesh
+        from repro_torch.launch.shardings import local_tree
+
+        specs, wm = shardings[0], WorkerMesh.ensure(shardings[1])
+        spec_leaves = _tree.flatten_up_to(_tree.flatten(like)[1], specs)
+        cut = lambda xs: _tree.leaves(local_tree(xs, spec_leaves, wm))
     acc: list | None = None
     stored_by_key: dict[str, str] | None = None
     for f in files:
@@ -280,7 +492,8 @@ def consensus_from_sharded(path: str, like: PyTree,
                 stored = stored_by_key[key]
                 t = _stored_tensor(z[stored], stored, dev)
                 _check_shape(path, key, t, leaf)
-                cur.append(t.float())
+                cur.append(t)
+        cur = [t.float() for t in cut(cur)]
         acc = cur if acc is None else [a.add_(b) for a, b in zip(acc, cur)]
     Mw = torch.full((), float(len(files)), dtype=torch.float32, device=dev)
     out = [(a / Mw).to(leaf.dtype) for a, (_, leaf) in zip(acc, paths)]
@@ -290,25 +503,33 @@ def consensus_from_sharded(path: str, like: PyTree,
 class AsyncCheckpointWriter:
     """Background checkpoint writer: snapshot on call, the npz write off-thread.
 
-    ``save()`` clones every leaf on the caller's current CUDA stream, so the
-    snapshot is ordered after the step that produced the params and is safe
-    from whatever the loop does to them afterwards, and records an event
-    behind the clones. It never waits on the device: that stall is what the
-    writer exists to avoid. A single background thread makes its
-    device-to-host copies (into pinned memory, :func:`_flatten_with_paths`)
-    on a side stream that first waits on that event,
-    so they start only once the clones have finished and do not queue behind
-    (or hold up) the steps the loop launches meanwhile; then it writes.
+    ``save()`` snapshots the tree into pinned host memory and returns
+    without waiting on the device: that stall is what the writer exists to
+    avoid. Each CUDA leaf is copied without blocking on the caller's
+    current stream, so the copy comes after the step that produced the
+    params and before whatever the caller launches next, an in-place update
+    of the params included: the stream spends the copy's time at the host
+    link's rate, and no device memory, so a save in flight does not raise
+    the device peak. A single background thread waits on an event behind
+    the copies, then writes. A tree on the CPU is cloned.
+
+    The pinned buffers return to the writer after each write and serve the
+    next snapshot of the same shapes. :meth:`_reserve` pins them ahead, on
+    the writer's thread (``train()`` calls it before its first step), so
+    the first saves do not pin memory on the caller's.
 
     At most ``max_pending`` snapshots are in flight; a further ``save()``
     first waits on the oldest (bounded snapshot memory). ``wait()`` drains
     the queue and re-raises any writer-thread exception.
 
     ``OSError``s are retried up to ``io_retries`` times with exponential
-    backoff from ``io_backoff`` seconds. A write that exhausts its retries
-    puts the writer in terminal failure: the next ``save()`` raises (as do
-    ``wait()``/``close()``), so training cannot run on while every
-    checkpoint is lost. ``sharded=True`` writes through :func:`save_sharded`.
+    backoff from ``io_backoff`` seconds, each write of a sharded save on
+    its own (the ranks' report that their shards are written is made once).
+    A write that exhausts its retries puts the writer in terminal failure:
+    the next ``save()`` raises (as do ``wait()``/``close()``), so training
+    cannot run on while every checkpoint is lost. ``sharded=True`` (or a
+    ``wmesh``, as in the reference) writes through :func:`save_sharded`; on
+    a live mesh (``wmesh``) the tree is the rank's own workers'.
     ``write_seconds`` holds each finished write's time on the thread.
     """
 
@@ -321,29 +542,76 @@ class AsyncCheckpointWriter:
         self._io_retries = max(1, int(io_retries))
         self._io_backoff = io_backoff
         self._terminal: BaseException | None = None
-        self._streams: dict = {}
+        # pinned host buffers free for a snapshot, by leaf shapes and dtypes
+        # (appended on the writer's thread, taken by save()), and the
+        # reservations still pinning them
+        self._pinned: dict = collections.defaultdict(list)
+        self._reserving: dict = {}
         self.write_seconds: list[float] = []
 
-    def _write(self, ready, fn, *args):
+    @staticmethod
+    def _cuda_device(leaves):
+        cuda = {x.device for x in leaves if torch.is_tensor(x) and x.device.type == "cuda"}
+        if len(cuda) > 1:
+            raise ValueError(f"a snapshot spans several devices: {sorted(map(str, cuda))}")
+        return cuda.pop() if cuda else None
+
+    def _reserve(self, tree: PyTree) -> None:
+        """Pin ``max_pending`` snapshots' host buffers for trees of
+        ``tree``'s shapes and dtypes, on the writer's thread (nothing for a
+        tree on the CPU)."""
+        leaves = _tree.leaves(tree)
+        if self._cuda_device(leaves) is None:
+            return
+        key = tuple((tuple(x.shape), x.dtype) for x in leaves)
+        free = self._pinned[key]
+
+        def pin():
+            for _ in range(self._max_pending):
+                free.append([torch.empty(shape, dtype=dtype, pin_memory=True)
+                             for shape, dtype in key])
+
+        self._reserving[key] = self._pool.submit(pin)
+
+    def _snapshot(self, tree: PyTree):
+        """(snapshot, event behind its copies or None, release) of ``tree``
+        (class docstring)."""
+        leaves, treedef = _tree.flatten(tree)
+        dev = self._cuda_device(leaves)
+        if dev is None:
+            return _tree.map(lambda x: x.detach().clone() if torch.is_tensor(x) else x,
+                             tree), None, None
+        key = tuple((tuple(x.shape), x.dtype) for x in leaves)
+        free = self._pinned[key]
+        if not free and key in self._reserving:
+            self._reserving.pop(key).result()
+        bufs = free.pop() if free else [torch.empty(shape, dtype=dtype, pin_memory=True)
+                                        for shape, dtype in key]
+        for b, x in zip(bufs, leaves):
+            b.copy_(x, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(dev))
+        return _tree.unflatten(treedef, bufs), done, lambda: free.append(bufs)
+
+    def _write(self, done, writes, release):
         t0 = time.perf_counter()
-        delay = self._io_backoff
-        for attempt in range(self._io_retries):
-            try:
-                if ready is None:
-                    fn(*args)
-                else:
-                    event, stream = ready
-                    with torch.cuda.stream(stream):
-                        stream.wait_event(event)
-                        fn(*args)
-                self.write_seconds.append(time.perf_counter() - t0)
-                return
-            except OSError as e:
-                if attempt == self._io_retries - 1:
-                    self._terminal = e
-                    raise
-                time.sleep(delay)
-                delay *= 2
+        if done is not None:
+            done.synchronize()
+        for fn, retry in writes:
+            delay = self._io_backoff
+            for attempt in range(self._io_retries if retry else 1):
+                try:
+                    fn()
+                    break
+                except OSError as e:
+                    if attempt == self._io_retries - 1 or not retry:
+                        self._terminal = e
+                        raise
+                    time.sleep(delay)
+                    delay *= 2
+        self.write_seconds.append(time.perf_counter() - t0)
+        if release is not None:
+            release()
 
     def save(self, path: str, tree: PyTree, step: int | None = None, *,
              wmesh=None, sharded: bool = False) -> None:
@@ -352,26 +620,19 @@ class AsyncCheckpointWriter:
                 f"checkpoint writer failed terminally after "
                 f"{self._io_retries} attempts: {self._terminal}"
             ) from self._terminal
-        if wmesh is not None:
-            raise NotImplementedError(_NO_MESH)
-        snap = _tree.map(lambda x: x.detach().clone() if torch.is_tensor(x) else x,
-                         tree)
-        cuda = {x.device for x in _tree.leaves(snap)
-                if torch.is_tensor(x) and x.device.type == "cuda"}
-        if len(cuda) > 1:
-            raise ValueError(f"a snapshot spans several devices: {sorted(map(str, cuda))}")
-        ready = None
-        if cuda:
-            dev = cuda.pop()
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(dev))
-            if dev not in self._streams:
-                self._streams[dev] = torch.cuda.Stream(dev)
-            ready = (event, self._streams[dev])
+        from repro_torch.launch.mesh import WorkerMesh
+
+        if wmesh is not None and WorkerMesh.ensure(wmesh).live:
+            _live_mesh(wmesh, "a sharded checkpoint save")    # before any snapshot
         while len(self._pending) >= self._max_pending:
             self._pending.popleft().result()
-        fn = save_sharded if sharded else save
-        self._pending.append(self._pool.submit(self._write, ready, fn, path, snap, step))
+        snap, done, release = self._snapshot(tree)
+        if sharded or wmesh is not None:
+            # the ranks' report group is made here, on the caller's thread
+            writes = _sharded_writes(path, snap, step, wmesh)
+        else:
+            writes = [(functools.partial(save, path, snap, step), True)]
+        self._pending.append(self._pool.submit(self._write, done, writes, release))
 
     def wait(self) -> None:
         while self._pending:

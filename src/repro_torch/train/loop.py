@@ -1,9 +1,11 @@
 """Training loop: drives the decentralized (or baseline) train step and logs
 the paper's gradient statistics.
 
-The port of the meshless path of the reference's ``repro/train/loop.py``:
-:func:`train`, and :func:`run_simulated` with its :class:`RecoveryPolicy`,
-which trains on the event-driven simulator (:mod:`repro_torch.sim`).
+The port of the reference's ``repro/train/loop.py``: :func:`train`, meshless
+or over the worker axes of a live ``WorkerMesh`` (every rank runs it on the
+same global arguments and keeps its own part of the state), and
+:func:`run_simulated` with its :class:`RecoveryPolicy`, which trains on the
+event-driven simulator (:mod:`repro_torch.sim`).
 Metrics stay on the device and come to the host once per ``log_every``
 window (plus the last step), one transfer for the whole window, so the
 host queues steps ahead of the device instead of waiting on every step.
@@ -29,6 +31,9 @@ from repro_torch.convert import resolve_device, to_device
 from repro_torch.core.decentralized import (StepMetrics, TrainState, init_state,
                                             make_train_step)
 from repro_torch.core.gossip import GossipSpec
+from repro_torch.launch.mesh import WorkerMesh
+from repro_torch.launch.shardings import local_tree
+from repro_torch.models.params import PartitionSpec
 from repro_torch.optim import Optimizer
 from repro_torch.train import checkpoint as ckpt_lib
 
@@ -85,6 +90,8 @@ def train(
     steps: int,
     gossip: GossipSpec | None = None,
     mode: str = "gossip",
+    mesh=None,
+    param_specs: PyTree | None = None,
     log_every: int = 50,
     ckpt_path: str | None = None,
     ckpt_every: int = 0,
@@ -96,14 +103,40 @@ def train(
     (numpy arrays or tensors), which are moved to ``device`` with the
     params. Returns the final state and the History.
 
+    ``mesh`` is a live :class:`~repro_torch.launch.mesh.WorkerMesh` (or its
+    ``DeviceMesh``) with model factor 1, and every rank calls ``train``
+    with the same global ``params0`` and batches as the meshless call;
+    each keeps its part (``launch.shardings.local_tree``): gossip mode cuts
+    the worker dim by ``param_specs`` (default: the worker dim alone) and
+    the batch by ``shardings.batch_pspecs``' gossip layout; allreduce mode
+    replicates the params and cuts the batch rows. The returned state is
+    the rank's; every rank's History is the same, global one. The mesh's
+    ranks meet at one barrier before it returns.
+
     With ``ckpt_path``, ``state.params`` is saved after every
     ``ckpt_every``-th step (0: only at the end) and after the last, each
     save preceded by a metrics flush, through the asynchronous writer;
     ``ckpt_sharded`` writes one file per worker
-    (``checkpoint.save_sharded``). A writer error surfaces when the loop
-    ends, but never masks the loop's own exception."""
+    (``checkpoint.save_sharded``; on a mesh each rank its own workers',
+    keyed by the WorkerMesh coordinates as the reference's are). A
+    monolithic checkpoint from a mesh streams to the mesh's first rank,
+    one worker's leaf at a time (``checkpoint.save``), on the loop's
+    thread; in allreduce mode the first rank writes its replica. A writer
+    error surfaces when the loop ends, but never masks the loop's own
+    exception."""
     dev = resolve_device(device)
-    step_fn = make_train_step(loss_fn, optimizer, gossip=gossip, mode=mode)
+    step_fn = make_train_step(loss_fn, optimizer, gossip=gossip, mode=mode, mesh=mesh,
+                              param_specs=param_specs)
+    wm = WorkerMesh.ensure(mesh)
+    cut_batch = lambda b: b
+    if wm is not None:
+        # every batch leaf splits on its leading dim: the workers (gossip)
+        # or the rows (allreduce)
+        cut_batch = lambda b: local_tree(b, _tree.map(lambda _: wm.worker_spec(), b), wm)
+        if param_specs is None:
+            spec = wm.worker_spec() if mode == "gossip" else PartitionSpec()
+            param_specs = _tree.map(lambda _: spec, params0)
+        params0 = local_tree(params0, param_specs, wm)
     params0 = _tree.map(lambda x: x.to(dev, copy=True), params0)
     state = init_state(params0, optimizer)
     hist = History()
@@ -130,9 +163,28 @@ def train(
         t_win = time.perf_counter()
 
     writer = ckpt_lib.AsyncCheckpointWriter() if ckpt_path else None
+
+    # allreduce mode replicates the params: the mesh's first rank writes
+    # them as the meshless loop does
+    writes = wm is None or mode == "gossip" or torch.distributed.get_rank() == wm.rank_of(0)
+
+    # a monolithic save from a mesh in gossip mode streams on this thread
+    streams = wm is not None and mode == "gossip" and not ckpt_sharded
+    if writer is not None and writes and not streams:
+        writer._reserve(state.params)    # pin the snapshots' host memory meanwhile
+
+    def save(params, step: int) -> None:
+        if streams:
+            ckpt_lib.save(ckpt_path, params, step=step, wmesh=wm)
+        elif writes:
+            kw = dict(sharded=True, wmesh=mesh if mode == "gossip" else None) \
+                if ckpt_sharded else {}
+            writer.save(ckpt_path, params, step=step, **kw)
+        tel.counter("train.checkpoints")
+
     try:
         for k in range(steps):
-            state, metrics = step_fn(state, to_device(next(it), dev))
+            state, metrics = step_fn(state, cut_batch(to_device(next(it), dev)))
             pending.append(metrics)
             if k % log_every == 0 or k == steps - 1:
                 flush()
@@ -142,12 +194,10 @@ def train(
                           f"spread {hist.param_spread[-1]:.3e}")
             if ckpt_path and ckpt_every and (k + 1) % ckpt_every == 0:
                 flush()
-                writer.save(ckpt_path, state.params, step=k + 1, sharded=ckpt_sharded)
-                tel.counter("train.checkpoints")
+                save(state.params, k + 1)
         flush()
         if ckpt_path:
-            writer.save(ckpt_path, state.params, step=steps, sharded=ckpt_sharded)
-            tel.counter("train.checkpoints")
+            save(state.params, steps)
         if writer is not None:
             writer.close()        # surfaces background write errors
             hist.ckpt_write_s = list(writer.write_seconds)
@@ -160,6 +210,10 @@ def train(
             except Exception:
                 pass
         raise
+    if wm is not None:
+        # one barrier over the mesh: each worker axis's in turn
+        for group in wm.worker_groups:
+            torch.distributed.barrier(group=group)
     return state, hist
 
 
@@ -218,6 +272,8 @@ class _RecoveryManager:
         self.stats = {"step_failures": 0, "retries": 0, "restores": 0,
                       "rejoins": 0, "checkpoints": 0}
         self.writer = ckpt_lib.AsyncCheckpointWriter() if policy.ckpt_path else None
+        if self.writer is not None:
+            self.writer._reserve(executor.W)
         self._saved_any = False
         self._commits = 0
 
@@ -364,10 +420,11 @@ def run_simulated(
         (see ``repro_torch.sim.protocols``).
       scenario: ``repro_torch.sim.Scenario`` (default: ideal unit-time world).
       mesh: makes the engine mesh-aware (two link classes): a
-        ``sim.MeshSpec``, or the string ``'topology'`` to adopt a
-        hierarchical (kronecker) topology's own pod assignment (per-message
-        payload bytes from the bus layout plan over ``params0``). A device
-        mesh of workers raises (ROADMAP queue 1, item 3, step 7).
+        ``sim.MeshSpec``, a ``launch.mesh.WorkerMesh`` (abstract or live;
+        mirrored: worker groups from the pod axis, per-message payload bytes
+        from the bus layout plan over ``params0``), or the string
+        ``'topology'`` to adopt a hierarchical (kronecker) topology's own pod
+        assignment.
       rounds: per-worker round budget (protocols stop scheduling past it).
       eval_fn: optional (mean-params tree) -> float global loss; recorded
         per round (sync/hier: every `eval_every` rounds when the whole round
@@ -385,7 +442,7 @@ def run_simulated(
         ``commit_batch=True`` same-instant completions ride ONE vmapped
         per-slice step (disabled automatically when a recovery manager is
         attached). ``commit='full'`` runs the full M-row program per
-        commit (required for ``adafactor_like``, whose factored second
+        commit (required for ``adafactor_like``, whose factorized second
         moment couples the workers).
       dci_dtype: 'bfloat16' | 'int8' | None — compress the cross-pod (DCI)
         stage of the ``hier`` protocol through the bus wire format with
@@ -441,6 +498,8 @@ def run_simulated(
             lambda x: torch.empty(x.shape[1:], dtype=x.dtype, device="meta"), params0)
         if isinstance(mesh, str) and mesh == "topology":
             mesh = sim.MeshSpec.from_topology(gossip.topology)
+        elif isinstance(mesh, WorkerMesh):
+            mesh = mesh.sim_spec(params_template=template, dci_dtype=dci_dtype)
         mesh = sim.MeshSpec.ensure(mesh, gossip.topology)
         if not mesh.payload_bytes:
             # fill in the per-message wire bytes from the bus layout plan so

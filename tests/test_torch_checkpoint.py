@@ -36,6 +36,29 @@ from repro_torch.serving import load_consensus_params  # noqa: E402
 from repro_torch.train import checkpoint as TC  # noqa: E402
 
 
+def _worker_meshes(shape, names):
+    """The reference's and the port's WorkerMesh on one abstract mesh."""
+    from jax.sharding import AbstractMesh as JAbstractMesh
+
+    from repro.launch.mesh import WorkerMesh as JWorkerMesh
+    from repro_torch.launch.mesh import AbstractMesh, WorkerMesh
+
+    return (JWorkerMesh.from_mesh(JAbstractMesh(shape, names)),
+            WorkerMesh.from_mesh(AbstractMesh(shape, names)))
+
+
+def _members(path: str):
+    """A file's bytes, an npz as its (member name, member bytes) list: the
+    zip headers carry each write's time."""
+    import zipfile
+
+    if not path.endswith(".npz"):
+        with open(path, "rb") as f:
+            return f.read()
+    with zipfile.ZipFile(path) as z:
+        return [(n, z.read(n)) for n in z.namelist()]
+
+
 def _bits_equal(t: torch.Tensor, j) -> bool:
     """Same dtype, shape and bits (the port's tensor against a JAX array)."""
     want = np.asarray(j)
@@ -246,8 +269,13 @@ def test_sharded_save_replaces_stale_monolithic_and_one_replica_at_a_time(
     assert TC.latest_step(path[:-len(".npz")]) is None
     with pytest.raises(ValueError, match="stacked"):
         TC.save_sharded(path, {"a": torch.ones(4, 2), "b": torch.ones(3)})
-    with pytest.raises(NotImplementedError, match="queue 1, item 3, step 5"):
-        TC.worker_coords(object(), 4)
+    # a mesh hosting 2 workers refuses a tree of 4 with the reference's error
+    (jwm, twm) = _worker_meshes((2, 2), ("data", "model"))
+    with pytest.raises(ValueError) as want:
+        JC.worker_coords(jwm, 4)
+    with pytest.raises(ValueError, match="mesh hosts 2 workers, tree is stacked over 4") as got:
+        TC.worker_coords(twm, 4)
+    assert str(got.value) == str(want.value)
     with pytest.raises(FileNotFoundError):
         TC.restore_sharded(os.path.join(tmp_path, "none"), new, device="cpu")
 
@@ -271,8 +299,18 @@ def test_async_writer_roundtrip_and_sharded_path(tmp_path):
         assert all(torch.equal(back[k], tree[k]) for k in tree)
     assert TC.latest_step(path) == 3 and TC.latest_step(spath[:-4]) == 4
     assert not os.path.exists(spath)
-    with pytest.raises(NotImplementedError, match="queue 1, item 3, step 5"):
-        TC.AsyncCheckpointWriter().save(path, tree, wmesh=object())
+    # a save with an (abstract) WorkerMesh is sharded and keyed by its
+    # coordinates, as the reference's writer does with the same mesh
+    jwm, twm = _worker_meshes((3, 1), ("data", "model"))
+    tdir, jdir = os.path.join(tmp_path, "t"), os.path.join(tmp_path, "j")
+    with TC.AsyncCheckpointWriter() as w:
+        w.save(os.path.join(tdir, "m.npz"), tree, step=5, wmesh=twm)
+    with JC.AsyncCheckpointWriter() as w:
+        w.save(os.path.join(jdir, "m.npz"), convert.params_to_numpy(tree), step=5, wmesh=jwm)
+    assert sorted(os.listdir(tdir)) == sorted(os.listdir(jdir)) == [
+        "m.meta.json", "m.shard-data0.npz", "m.shard-data1.npz", "m.shard-data2.npz"]
+    for name in sorted(os.listdir(tdir)):
+        assert _members(os.path.join(tdir, name)) == _members(os.path.join(jdir, name))
 
 
 def test_async_writer_propagates_write_errors(tmp_path):

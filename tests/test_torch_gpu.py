@@ -864,3 +864,130 @@ def test_world_size_one_mesh_mix_on_card_equals_meshless(cuda, tmp_path):
             assert torch.equal(a, b)
     finally:
         dist.destroy_process_group()
+
+
+def _granite_tiny(cuda, M=4):
+    """A 2-layer granite at narrow widths in bf16, different weights per
+    worker from a numpy seed, and 3 batches of (M, 2, 16) tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as Mo
+
+    cfg = get_config("granite-3-2b", reduced=True, n_layers=2, d_model=64, n_heads=4,
+                     n_kv_heads=2, head_dim=16, d_ff=128, vocab_size=256,
+                     param_dtype="bfloat16", compute_dtype="bfloat16")
+    rng = np.random.default_rng(4)
+    params = _tree.map(lambda d: torch.from_numpy(
+        (0.05 * rng.normal(size=(M,) + tuple(d.shape)) + (d.init == "ones")).astype(np.float32)
+    ).to(cuda, BF16), Mo.model_defs(cfg))
+    toks = torch.from_numpy(rng.integers(0, 256, size=(3, M, 2, 16))).to(cuda)
+    return cfg, params, [{"tokens": toks[k]} for k in range(3)], (
+        lambda p, b: Mo.loss_fn(p, cfg, b))
+
+
+@pytest.mark.gpu
+def test_world_size_one_mesh_train_step_on_card_equals_meshless(cuda, tmp_path):
+    """make_train_step(mesh=, param_specs=) on the live 1 x 1 NCCL mesh
+    hosting M = 4 workers: 3 fused steps equal the meshless step's params
+    and losses bit for bit, one gossip_mix launch per step."""
+    import torch.distributed as dist
+
+    from repro_torch.core.decentralized import init_state, make_train_step
+    from repro_torch.launch.mesh import WorkerMesh, make_host_mesh
+    from repro_torch.launch.shardings import param_pspecs
+    from repro_torch.optim import momentum_sgd
+
+    cfg, params, batches, loss = _granite_tiny(cuda)
+    opt = momentum_sgd(0.05, 0.9)
+    spec = GossipSpec(topology=T.undirected_ring(4), backend="fused")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        wm = WorkerMesh.from_mesh(make_host_mesh(data=1, model=1, device="cuda"))
+        runs = {}
+        for mesh in (None, wm):
+            step = make_train_step(loss, opt, gossip=spec, mesh=mesh,
+                                   param_specs=param_pspecs(cfg, wm, "gossip") if mesh else None)
+            s, losses = init_state(params, opt), []
+            g0 = gossip_mix_2d.launches
+            for b in batches:
+                s, m = step(s, b)
+                losses.append(m.loss)
+            torch.cuda.synchronize()
+            assert gossip_mix_2d.launches - g0 == len(batches)
+            runs[mesh is None] = (s.params, torch.stack(losses))
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(_tree.leaves(runs[False]), _tree.leaves(runs[True])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_async_sharded_save_on_a_mesh_holds_no_device_memory(cuda, tmp_path):
+    """AsyncCheckpointWriter.save(wmesh=) on the 1 x 1 NCCL mesh: the
+    snapshot is a pinned host copy (the device's allocation does not grow),
+    the params changed in place right after do not reach the files, which
+    equal the meshless save's member for member; they restore bit for bit."""
+    import zipfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import WorkerMesh, make_host_mesh
+    from repro_torch.train import checkpoint as ckpt
+
+    _, params, _, _ = _granite_tiny(cuda)
+    want = _tree.map(lambda x: x.clone(), params)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        wm = WorkerMesh.from_mesh(make_host_mesh(data=1, model=1, device="cuda")).mesh
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        with ckpt.AsyncCheckpointWriter() as w:
+            w.save(str(tmp_path / "mesh"), params, step=2, wmesh=wm)
+            grown = torch.cuda.memory_allocated() - before
+            _tree.map(lambda x: x.add_(1.0), params)          # the next step, in place
+    finally:
+        dist.destroy_process_group()
+    assert grown == 0
+    ckpt.save_sharded(str(tmp_path / "flat"), want, step=2)
+    for j in range(4):
+        files = [str(tmp_path / f"{b}.shard-w{j}.npz") for b in ("mesh", "flat")]
+        members = []
+        for f in files:
+            with zipfile.ZipFile(f) as z:
+                members.append([(n, z.read(n)) for n in z.namelist()])
+        assert members[0] == members[1]
+    back = ckpt.restore(str(tmp_path / "mesh"), want, device=cuda)
+    for a, b in zip(_tree.leaves(back), _tree.leaves(want)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_async_save_snapshots_to_reserved_pinned_memory(cuda, tmp_path):
+    """Meshless saves, monolithic and sharded, take the same snapshot as a
+    mesh's: pinned host buffers, reserved ahead on the writer's thread and
+    returned after each write, no device memory; the params changed in
+    place right after reach no file."""
+    from repro_torch.train import checkpoint as ckpt
+
+    _, params, _, _ = _granite_tiny(cuda)
+    want = _tree.map(lambda x: x.clone(), params)
+    key = tuple((tuple(x.shape), x.dtype) for x in _tree.leaves(params))
+    with ckpt.AsyncCheckpointWriter() as w:
+        w._reserve(params)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        w.save(str(tmp_path / "mono.npz"), params, step=1)
+        w.save(str(tmp_path / "sharded"), params, step=1, sharded=True)
+        grown = torch.cuda.memory_allocated() - before
+        _tree.map(lambda x: x.add_(1.0), params)          # the next step, in place
+        w.wait()
+        assert len(w._pinned[key]) == 2           # the reserved sets, returned
+        assert all(b.is_pinned() for bufs in w._pinned[key] for b in bufs)
+    assert grown == 0
+    for f in ("mono.npz", "sharded"):
+        back = ckpt.restore(str(tmp_path / f), want, device=cuda)
+        for a, b in zip(_tree.leaves(back), _tree.leaves(want)):
+            assert torch.equal(a, b)

@@ -185,3 +185,28 @@ def test_state_specs_mirror_the_optimizer_state():
     specs = TS.param_pspecs(cfg, tmesh)
     st = TS.state_pspecs(cfg, tmesh, joptim.adam(1e-3).init({"x": np.zeros(2)}), specs)
     assert st.step == TPa.PartitionSpec() and st.opt_state["m"] is specs
+
+
+@pytest.mark.parametrize("dispatch, shape, refuses", [
+    ("global", (4, 1), True), ("global", (1, 1), False), ("per_sequence", (4, 1), False)],
+    ids=["global-4-ranks", "global-1-rank", "per-sequence-4-ranks"])
+def test_a_globally_routed_moe_refuses_rows_cut_over_ranks(dispatch, shape, refuses):
+    """Inside ``rows_cut_over`` a mesh of several ranks (allreduce mode's
+    forward on a mesh), an MoE layer routing the whole call refuses, naming
+    the step that brings it; one rank, or routing per sequence, computes
+    the loss as without the context."""
+    cfg = tget_config("mixtral-8x7b", reduced=True, n_layers=1, d_model=32, n_heads=2,
+                      n_kv_heads=1, head_dim=16, d_ff_expert=32, vocab_size=64,
+                      moe_dispatch=dispatch)
+    params = TM.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(0).integers(0, 64, (2, 9)))}
+    wm = TLM.WorkerMesh.from_mesh(TLM.AbstractMesh(shape, ("data", "model")))
+    want = TM.loss_fn(params, cfg, batch)
+    with TLM.rows_cut_over(wm):
+        if refuses:
+            with pytest.raises(NotImplementedError,
+                               match=r"moe_dispatch='global'.*ROADMAP queue 1, item 3, step 6"):
+                TM.loss_fn(params, cfg, batch)
+        else:
+            assert torch.equal(TM.loss_fn(params, cfg, batch), want)
+    assert torch.equal(TM.loss_fn(params, cfg, batch), want)     # the context is left

@@ -258,7 +258,16 @@ def test_mesh_topology_payload_is_the_bus_plan():
 
 
 def test_mesh_spec_ensure_refuses_a_device_mesh():
+    """A MeshSpec and None pass through, a topology's pods are adopted, a
+    WorkerMesh is mirrored field by field as the reference mirrors its own,
+    and anything else raises the reference's TypeError."""
     from types import SimpleNamespace
+
+    from jax.sharding import AbstractMesh as JAbstractMesh
+
+    from repro.launch.mesh import WorkerMesh as JWorkerMesh
+    from repro.sim.scenarios import MeshSpec as JMeshSpec
+    from repro_torch.launch.mesh import AbstractMesh, WorkerMesh
 
     topo = TT.undirected_ring(4)
     assert MeshSpec.ensure(None, topo) is None
@@ -266,10 +275,25 @@ def test_mesh_spec_ensure_refuses_a_device_mesh():
     assert MeshSpec.ensure(spec, topo) is spec
     hier = TT.hier(2, 2)
     assert MeshSpec.ensure(hier, hier).group_of == tuple(hier.group_of)
+    template = {"w": torch.empty(64, 96, device="meta"),
+                "b": torch.empty(33, dtype=torch.bfloat16, device="meta")}
+    jtemplate = {"w": jax.ShapeDtypeStruct((64, 96), jnp.float32),
+                 "b": jax.ShapeDtypeStruct((33,), jnp.bfloat16)}
+    shape, names = (2, 2, 2), ("pod", "data", "model")
+    got = MeshSpec.ensure(WorkerMesh.from_mesh(AbstractMesh(shape, names)), topo,
+                          params_template=template)
+    want = JMeshSpec.ensure(JWorkerMesh.from_mesh(JAbstractMesh(shape, names)), JT.undirected_ring(4),
+                            params_template=jtemplate)
+    assert got.payload_bytes > 0
+    for field in ("group_of", "payload_bytes", "dci_payload_bytes", "name"):
+        assert getattr(got, field) == getattr(want, field), field
     device_mesh = SimpleNamespace(axis_names=("data",), shape={"data": 4})
-    with pytest.raises(NotImplementedError, match="item 3, step 7"):
+    with pytest.raises(TypeError) as jerr:
+        JMeshSpec.ensure(device_mesh, JT.undirected_ring(4))
+    with pytest.raises(TypeError, match="cannot build a MeshSpec from SimpleNamespace") as err:
         MeshSpec.ensure(device_mesh, topo)
-    with pytest.raises(NotImplementedError, match="item 3, step 7"):
+    assert str(err.value) == str(jerr.value)
+    with pytest.raises(TypeError, match="cannot build a MeshSpec"):
         _port(topo, rounds=2, mesh=device_mesh)
 
 
