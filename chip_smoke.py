@@ -79,7 +79,8 @@ through these phases, in order, and exits non-zero at the first failure:
    the ``bus.fused_mix`` range around the gossip_mix launch.
 11. slice 3 — serving granite-3-2b at its published widths and full depth
    (40 layers, bf16, seeded random weights): a ``WaveBatcher`` with 4 slots
-   serves 8 requests of a 3072-token prompt and 128 new tokens. Checks
+   serves 8 requests of a 3072-token prompt and 64 new tokens (128 until
+   slice 13 needed the time). Checks
    exactly one flash_attention launch per layer in each wave's prefill,
    finite logprobs, and that one wave's last-position prefill logits
    through the kernel agree with the same prefill through the training
@@ -212,10 +213,8 @@ through these phases, in order, and exits non-zero at the first failure:
    seeds: with a monolithic checkpoint at the end (streamed to the mesh's
    first rank), with asynchronous sharded checkpoints every 2 steps (the
    mesh run through the bare DeviceMesh, whose shards keep the meshless
-   ``w{j}`` names, as the reference's train() names them for a raw mesh;
-   twice, since the first run pins the host snapshots' memory and the
-   second finds it in PyTorch's pinned-memory cache), and in
-   ``mode='allreduce'``. Gates: losses and final params bit-equal
+   ``w{j}`` names, as the reference's train() names them for a raw mesh),
+   and in ``mode='allreduce'``. Gates: losses and final params bit-equal
    to meshless, one gossip_mix launch per gossip step (none in allreduce
    mode), the checkpoint files' npz members byte-equal to the meshless
    run's, the async sharded save raising the device peak by less than
@@ -224,7 +223,24 @@ through these phases, in order, and exits non-zero at the first failure:
    slice 1's width on an abstract (pod, data) = (2, 2) mesh, the hier
    protocol on ``hier(2, 2)`` for 4 rounds: each link class's bytes equal
    its messages times the mirrored ``sim_payload_bytes``.
-18. report — the run's time, one JSON line of kernels, the nvidia-smi line,
+18. slice 13 — tensor-parallel training over the model axis: slice 1's
+   training shape with remat on, 5 steps of ``train(mesh=..., param_specs=
+   param_pspecs(cfg, wm, 'gossip'))`` on a live (data=1, model=2)
+   ``WorkerMesh`` of two processes that share the card (the script run
+   as ``chip_smoke.py --tp-rank R DIR``) in a gloo group on CUDA tensors,
+   NCCL refusing two ranks on one device; one asynchronous sharded
+   checkpoint. Each rank holds half of every leaf the specs shard (the
+   attention heads and the MLP's ``ff``; vocab 49155 is odd, so the
+   embedding stays whole) and the workers' whole batches. Rank 0 then
+   trains the meshless twins of the same seeds, bf16 and float32. Gates:
+   finite losses, the same on both ranks; one gossip_mix launch per step
+   per rank, over the rank's half of the bus rows; the ranks' params
+   (gathered over the model group) and losses within twice the meshless
+   bf16 run's distance from the float32 run; the checkpoint restored
+   onto the mesh bit-equal to each rank's params; each rank's peak
+   allocated below the meshless run's. Prints ms/step (gloo-staged, not
+   NCCL), the peaks and the save's write time.
+19. report — the run's time, one JSON line of kernels, the nvidia-smi line,
    and last the ``{"ok": true, ...}`` line.
 
 ``--collect`` runs ``gc.collect()`` before each part (and the microbatch=2
@@ -278,7 +294,7 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 SERVE_SLOTS = 4         # slice 3: WaveBatcher slots
 SERVE_REQUESTS = 8
 PROMPT_LEN = 3072       # a multiple of blockwise_attention's 1024 chunk
-NEW_TOKENS = 128
+NEW_TOKENS = 64         # 128 until slice 13's phase needed the time
 SERVE_MAX_LEN = PROMPT_LEN + NEW_TOKENS   # inside granite's 4096 context
 CB_SLOTS = 8            # slice 7: ContinuousBatcher (and WaveBatcher) slots
 CB_PAGE = 16
@@ -348,6 +364,11 @@ DEEP_PROBE = 6          # the second depth the bytes per layer are measured at
 PROFILE_SESSIONS = 3    # profiler sessions allowed to show a route's kernels (mesh, flash)
 S11_GATE_BATCH = 2
 S11_MOE = ("deepseek-v2-lite-16b", 2, 2, 1024)
+# slice 13: slice 1's training shape over a live (data=1, model=2) mesh of
+# two processes sharing the card, a gloo group on CUDA tensors (NCCL
+# refuses two ranks on one device); each rank's share of the phase's time
+S13_RANKS = 2
+S13_TIMEOUT = 600
 # ``--collect`` runs gc.collect() before each part, as the script did while
 # the tree helpers held leaves in reference cycles: each part's peak with
 # and without it shows whether a cycle holds device memory again.
@@ -2378,9 +2399,8 @@ def phase_slice12() -> dict:
     and through ``train(mesh=wm, param_specs=...)`` on a world-size-1 NCCL
     group's 1 x 1 WorkerMesh (all 4 workers on the rank), each pair from
     the same seeds: a monolithic checkpoint at the end, then asynchronous
-    sharded checkpoints every 2 steps (on the mesh twice: the writer pins
-    its host memory on its own thread in each run, the second also finds
-    it in PyTorch's pinned-memory cache), then ``mode='allreduce'``. Gates:
+    sharded checkpoints every 2 steps (the writer pins its host memory on
+    its own thread), then ``mode='allreduce'``. Gates:
     losses and final params bit-equal to meshless, one gossip_mix launch
     per step, the checkpoints' npz members byte-equal to the meshless
     run's, the async sharded saves (meshless and mesh: one snapshot path,
@@ -2430,11 +2450,8 @@ def phase_slice12() -> dict:
                 ("sharded", "meshless", None, sharded("flat-sh")),
                 # a bare DeviceMesh: the shards keep the meshless w{j} names,
                 # as the reference's train() names them for a raw mesh (its
-                # worker_coords refuses 4 workers on a 1-worker WorkerMesh).
-                # Run twice: the second run finds the snapshots' pinned
-                # memory in PyTorch's pinned-memory cache
+                # worker_coords refuses 4 workers on a 1-worker WorkerMesh)
                 ("sharded", "mesh", wm.mesh, sharded("mesh-sh")),
-                ("sharded", "mesh, warm", wm.mesh, sharded("mesh-sh-warm")),
                 ("allreduce", "meshless", None, dict(mode="allreduce")),
                 ("allreduce", "mesh", wm, dict(mode="allreduce"))]
             for label, where, mesh, kw in plans:
@@ -2490,16 +2507,15 @@ def phase_slice12() -> dict:
                     f"{b['reserved_gb']:.2f} GB")
             files = _same_checkpoints(os.path.join(tmp, "mesh-mono"),
                                       os.path.join(tmp, "flat-mono"))
-            for d in ("mesh-sh", "mesh-sh-warm"):
-                files += _same_checkpoints(os.path.join(tmp, d), os.path.join(tmp, "flat-sh"))
-            rise = max(runs[("sharded", w)]["peak_gb"]
-                       for w in ("meshless", "mesh", "mesh, warm")) \
+            files += _same_checkpoints(os.path.join(tmp, "mesh-sh"),
+                                       os.path.join(tmp, "flat-sh"))
+            rise = max(runs[("sharded", w)]["peak_gb"] for w in ("meshless", "mesh")) \
                 - min(runs[("mono", w)]["peak_gb"] for w in ("meshless", "mesh"))
             if not rise < tree_gb / 2:
                 raise AssertionError(f"{tag}: the async sharded save raised the device peak by "
                                      f"{rise:.3f} GB, the tree is {tree_gb:.3f} GB")
             log(f"[{tag}] {wm.describe()} over {dist.get_backend()}: losses and params of the "
-                f"monolithic, sharded (twice) and allreduce runs bit-equal to meshless; {files} "
+                f"monolithic, sharded and allreduce runs bit-equal to meshless; {files} "
                 f"checkpoint "
                 f"files' npz members byte-equal to the meshless run's; the async sharded save "
                 f"raised the peak by {rise:+.3f} GB at most, meshless and on the mesh (tree "
@@ -2510,6 +2526,239 @@ def phase_slice12() -> dict:
     _sim_on_worker_mesh(tag)
     log(f"[{tag}] the phase took {time.perf_counter() - t0:.1f} s")
     return by_path
+
+
+def phase_slice13() -> dict:
+    """Slice 13: tensor-parallel training over the model axis. Slice 1's
+    training shape (granite-3-2b, 4 layers, remat on, M = 4 ring, momentum
+    SGD, 8 x 512 tokens per worker) on a live (data=1, model=2)
+    ``WorkerMesh``: two processes on the one card in a gloo group on CUDA
+    tensors (``make_host_mesh(device='cuda', backend='gloo')``), each
+    running ``train(mesh=..., param_specs=param_pspecs(cfg, wm, 'gossip'))``
+    with one asynchronous sharded checkpoint at the end; every worker's
+    neighbours are on the rank, so the collectives are gloo's all_reduce
+    (the tensor-parallel layers, the metrics) and all_gather (the bus's
+    row-split leaves, the checkpoint's gather). Rank 0 then trains the
+    meshless twin from the same seeds in bf16 and in float32 (:func:`_tp_rank`).
+    Gates: finite losses, the same on both ranks; per rank one gossip_mix
+    launch per step, each over the rows of the rank's half of the bus
+    (tensor-sharded leaves as local shards, the others row-split); the
+    ranks' params gathered and the losses within twice the meshless bf16
+    run's distance from the float32 run; the checkpoint restored onto the
+    mesh bit-equal to each rank's params; each rank's peak allocated
+    memory below the meshless run's. The ranks' ms/step are gloo's staging
+    through host memory, not NCCL's. Returns launches by path."""
+    import tempfile
+
+    import torch
+
+    tag = "slice13"
+    t0 = time.perf_counter()
+    fresh_gb("two tensor-parallel ranks", tag)
+    root = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(root, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-rank",
+                                   str(r), tmp], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(S13_RANKS)]
+        logs = []
+        try:
+            for proc in procs:
+                logs.append(proc.communicate(timeout=S13_TIMEOUT)[0])
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for r, (proc, out) in enumerate(zip(procs, logs)):
+            for line in out.splitlines():
+                log(f"[{tag}] rank {r}: {line}")
+        bad = [r for r, proc in enumerate(procs) if proc.returncode]
+        if bad:
+            raise AssertionError(f"{tag}: ranks {bad} failed (exit codes "
+                                 f"{[p.returncode for p in procs]})")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(S13_RANKS)]
+        twins = torch.load(os.path.join(tmp, "twins.pt"))
+    flat, f32 = twins["bf16"], twins["float32"]
+    by_path = {}
+    for i, r in enumerate(ranks):
+        if r["launches"] != {"gossip_mix": STEPS, "quant_pack": 0, "flash_attention": 0}:
+            raise AssertionError(f"{tag} rank {i}: {r['launches']} in {STEPS} steps, want "
+                                 f"one gossip_mix per step")
+        if r["rows"] != [r["planned_rows"]] * STEPS or \
+                not r["planned_rows"] <= 0.51 * r["whole_rows"]:
+            raise AssertionError(f"{tag} rank {i}: gossip_mix over {r['rows']} rows, the rank's "
+                                 f"half of the bus is {r['planned_rows']} of "
+                                 f"{r['whole_rows']}")
+        if not all(math.isfinite(x) for x in r["loss"]) or r["loss"] != ranks[0]["loss"]:
+            raise AssertionError(f"{tag} rank {i}: losses {r['loss']} vs rank 0's "
+                                 f"{ranks[0]['loss']}")
+        if not r["restored_equal"]:
+            raise AssertionError(f"{tag} rank {i}: the checkpoint restored onto the mesh "
+                                 f"differs from the rank's params")
+        if not r["peak_gb"] < flat["peak_gb"]:
+            raise AssertionError(f"{tag} rank {i}: peak {r['peak_gb']:.2f} GB allocated, the "
+                                 f"meshless run's {flat['peak_gb']:.2f} GB")
+        by_path[f"slice13_train_tp_rank{i}"] = r["launches"]
+    err, own = twins["err"], twins["own"]
+    loss_own = max(abs(a - b) for a, b in zip(flat["loss"], f32["loss"]))
+    loss_err = max(abs(a - b) for a, b in zip(ranks[0]["loss"], f32["loss"]))
+    if not twins["finite"] or err > 2 * own or loss_err > 2 * loss_own:
+        raise AssertionError(f"{tag}: the ranks' params are {err:.4g} from the float32 run "
+                             f"(meshless bf16: {own:.4g}), their losses {loss_err:.4g} "
+                             f"(meshless bf16: {loss_own:.4g}); gate twice")
+    log(f"[{tag}] losses, tensor parallel {[round(x, 4) for x in ranks[0]['loss']]}, meshless "
+        f"{[round(x, 4) for x in flat['loss']]}, float32 {[round(x, 4) for x in f32['loss']]}")
+    log(f"[{tag}] data=1 x model=2, two ranks on one card over gloo: params max|err| "
+        f"{err:.4g} from the float32 run (meshless bf16 {own:.4g}), losses {loss_err:.4g} "
+        f"({loss_own:.4g}); gate twice: held")
+    for i, r in enumerate(ranks):
+        log(f"[{tag}] rank {i}: steps 1-{STEPS - 1} {r['ms']:.1f} ms/step (gloo-staged, not "
+            f"NCCL); peak {r['peak_gb']:.2f} GB allocated ({r['peak_gb'] / flat['peak_gb']:.3f}"
+            f" of meshless), {r['reserved_gb']:.2f} GB reserved; gossip_mix over "
+            f"{r['planned_rows']:,} of {r['whole_rows']:,} bus rows; the async sharded save's "
+            f"write {r['write_s']:.2f} s on the writer's thread")
+    log(f"[{tag}] meshless bf16: {flat['ms']:.1f} ms/step, peak {flat['peak_gb']:.2f} GB "
+        f"allocated, {flat['reserved_gb']:.2f} GB reserved; float32: {f32['ms']:.1f} ms/step, "
+        f"peak {f32['peak_gb']:.2f} GB")
+    log(f"[{tag}] the phase took {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
+def _tp_rank(rank: int, tmp: str) -> None:
+    """One rank of slice 13 (``chip_smoke.py --tp-rank RANK DIR``): trains
+    on the (data=1, model=2) mesh and writes its numbers to ``DIR``; rank 0
+    keeps the params gathered over the model group on the host and, once
+    rank 1 has left the card, trains the meshless twins (bf16, float32)
+    and writes their numbers and the distances of the params from the
+    float32 run."""
+    import dataclasses
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import _tree
+    from repro_torch.core import bus
+    from repro_torch.core import topology as T
+    from repro_torch.core.gossip import GossipSpec
+    from repro_torch.launch.mesh import WorkerMesh, make_host_mesh
+    from repro_torch.launch.shardings import param_pspecs
+    from repro_torch.launch.tensor_parallel import model_cut, whole_leaves
+    from repro_torch.models import model as Mo
+    from repro_torch.optim import momentum_sgd
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train import train
+
+    t0, marks = time.perf_counter(), []
+
+    def mark(label: str) -> None:      # where the rank's time goes
+        marks.append(f"{label} {time.perf_counter() - t0:.1f}")
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = family_config("granite-3-2b", N_LAYERS, remat=True)
+    params0, next_batch, loss = family_setup(cfg, M_WORKERS, PER_WORKER_BATCH, SEQ_LEN)
+    batches = [next_batch() for _ in range(STEPS)]
+    spec = GossipSpec(topology=T.undirected_ring(M_WORKERS), backend="fused")
+    opt = momentum_sgd(LR, 0.9)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"),
+                                                         S13_RANKS),
+                            rank=rank, world_size=S13_RANKS, timeout=timedelta(seconds=300))
+    wm = WorkerMesh.from_mesh(make_host_mesh(data=1, model=S13_RANKS, device="cuda",
+                                             backend="gloo"))
+    specs = param_pspecs(cfg, wm, "gossip")
+    # bound to the mesh: the bus gossips per model shard
+    mesh_spec = GossipSpec.for_mesh(spec.topology, wm, backend="fused")
+    rows, launch = [], bus.gossip_mix_2d
+
+    def counted(w, *args, **kw):      # the rows of each launch on the bus
+        rows.append(int(w.shape[-2]))
+        return launch(w, *args, **kw)
+
+    bus.gossip_mix_2d = counted
+    ck = os.path.join(tmp, "tp", "ck.npz")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    mark("set-up")
+    # the bare DeviceMesh: the shards keep the meshless w{j} names (a
+    # WorkerMesh of one worker refuses to name 4, as the reference's)
+    state, hist = train(loss, params0, opt, iter(batches), steps=STEPS, gossip=mesh_spec,
+                        mesh=wm.mesh, param_specs=specs, ckpt_path=ck, ckpt_sharded=True,
+                        log_every=STEPS, device="cuda", verbose=False)
+    torch.cuda.synchronize()
+    bus.gossip_mix_2d = launch
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    reserved_gb = torch.cuda.max_memory_reserved() / 1e9
+    mark(f"5 steps (step 0 {hist.step_time[0]:.1f} s) and the save")
+    like = _tree.map(lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta"), params0)
+    back = ckpt_lib.restore(ck, like, device="cuda", wmesh=wm, param_specs=specs)
+    mark("restore")
+    leaves, treedef = _tree.flatten(state.params)
+    flags = bus.sharded_leaf_flags(specs, wm.model_axis, treedef=treedef)
+    planned = bus.plan_layout(state.params, shards=S13_RANKS, leaf_sharded=flags)
+    m = M_WORKERS // wm.n_workers      # a launch covers the rank's workers' rows
+    out = {"loss": hist.loss, "launches": launches, "rows": rows,
+           "planned_rows": m * planned.groups[0].rows,
+           "whole_rows": M_WORKERS * bus.plan_layout(params0).groups[0].rows,
+           "ms": hist.step_time[-1] * 1e3, "peak_gb": peak_gb, "reserved_gb": reserved_gb,
+           "write_s": sum(hist.ckpt_write_s),
+           "restored_equal": all(torch.equal(a, b) for a, b in
+                                 zip(_tree.leaves(back), leaves))}
+    print(f"{wm.describe()} over {dist.get_backend()} on {torch.cuda.get_device_name(0)}; "
+          f"losses {[round(x, 4) for x in hist.loss]}; launches {launches}", flush=True)
+    whole = [x.cpu() for x in whole_leaves(leaves, model_cut(specs, treedef, wm))]
+    mark("gather")
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    del state, back, leaves
+    left = os.path.join(tmp, "rank1.left")
+    if rank:
+        del params0, batches, whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        open(left, "w").close()
+        return
+    t_wait = time.perf_counter()
+    while not os.path.exists(left):
+        if time.perf_counter() - t_wait > 120:
+            raise RuntimeError("rank 1 did not leave the card")
+        time.sleep(0.5)
+    mark("rank 1 gone")
+    twins, kept = {}, {}
+    for dtype in ("bf16", "float32"):
+        c = cfg if dtype == "bf16" else dataclasses.replace(
+            cfg, param_dtype="float32", compute_dtype="float32")
+        p0 = params0 if dtype == "bf16" else _tree.map(lambda x: x.float(), params0)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, hist = train(lambda p, b, c=c: Mo.loss_fn(p, c, b), p0, opt, iter(batches),
+                            steps=STEPS, gossip=spec, log_every=STEPS, device="cuda",
+                            verbose=False)
+        torch.cuda.synchronize()
+        twins[dtype] = {"loss": hist.loss, "ms": hist.step_time[-1] * 1e3,
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                        "reserved_gb": torch.cuda.max_memory_reserved() / 1e9}
+        kept[dtype] = _tree.leaves(state.params) if dtype == "float32" else \
+            [x.cpu() for x in _tree.leaves(state.params)]
+        del state, p0
+        print(f"meshless {dtype}: losses {[round(x, 4) for x in hist.loss]}", flush=True)
+        mark(f"{dtype} twin")
+    # each leaf's distance from the float32 run, one leaf on the card at a time
+    twins["err"] = max((a.to(b.device).float() - b).abs().max().item()
+                       for a, b in zip(whole, kept["float32"]))
+    twins["own"] = max((a.to(b.device).float() - b).abs().max().item()
+                       for a, b in zip(kept["bf16"], kept["float32"]))
+    twins["finite"] = all(bool(torch.isfinite(x).all()) for x in whole)
+    mark("distances")
+    print(f"seconds since start: {', '.join(marks)}", flush=True)
+    torch.save(twins, os.path.join(tmp, "twins.pt"))
 
 
 def _same_checkpoints(got_dir: str, want_dir: str) -> int:
@@ -3461,6 +3710,7 @@ def main() -> int:
     by_path.update(phase_slice10())
     by_path.update(phase_slice11())
     by_path.update(phase_slice12())
+    by_path.update(phase_slice13())
     for e in entries:
         e["launches_by_path"] = {path: n[e["name"]] for path, n in by_path.items()}
         e["launches"] = sum(e["launches_by_path"].values())
@@ -3476,4 +3726,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-rank"]:
+        _tp_rank(int(sys.argv[2]), sys.argv[3])
+        sys.exit(0)
     sys.exit(main())

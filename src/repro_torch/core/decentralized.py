@@ -24,9 +24,16 @@ the params are replicated and the batch is cut over the worker axes; the
 gradient is all-reduced as a mean, which is the whole batch's gradient for
 a loss that is a mean over rows. A layer that couples the rows of a call
 (an MoE layer routing the whole call, ``moe_dispatch='global'``) refuses
-there (``launch.mesh.require_whole_call``). A model axis (``model_factor > 1``) is
-refused: it needs the tensor-parallel forward (ROADMAP queue 1, item 3,
-step 6).
+there (``launch.mesh.require_whole_call``).
+
+With a model axis (``model_factor`` k > 1) a rank holds its 1/k shard of
+every leaf that ``param_specs`` shards over it (and the rest whole) and its
+workers' whole batches; the gradient runs inside
+``launch.mesh.model_parallel``, where the dense decoders' layers compute on
+their shards with collectives over the model group
+(``launch.tensor_parallel``); the other families refuse there. The metrics
+sum a sharded leaf's squares over the model group and count a replicated
+leaf once.
 
 ``microbatch > 1`` accumulates the gradient over that many chunks of the
 per-worker batch in float32 (:func:`_microbatched`). A spec with
@@ -49,7 +56,8 @@ from repro_torch import _tree
 from repro_torch.core import bus
 from repro_torch.core import gossip as gossip_lib
 from repro_torch.core.gossip import GossipSpec
-from repro_torch.launch.mesh import require_whole_replicas, rows_cut_over
+from repro_torch.launch.mesh import model_parallel, rows_cut_over
+from repro_torch.launch.tensor_parallel import ModelCut, model_cut
 from repro_torch.optim import Optimizer
 
 PyTree = Any
@@ -82,27 +90,49 @@ def replicate_for_workers(params: PyTree, M: int) -> PyTree:
                      params)
 
 
-def _tree_sq_norm(t: PyTree) -> torch.Tensor:
-    return sum(torch.sum(torch.square(x.float())) for x in _tree.leaves(t))
+def _sq_norms(leaves, cut: ModelCut | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(Σ ||x||² over the leaves ``cut`` shards over the model axis, Σ over
+    the others), float32: the first is this rank's part of a sum over the
+    model group; without a cut every leaf is whole."""
+    z = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    parts = [z, z]
+    for x, sharded in zip(leaves, cut.sharded if cut is not None else (False,) * len(leaves)):
+        i = 0 if sharded else 1
+        parts[i] = parts[i] + torch.sum(torch.square(x.float()))
+    return parts[0], parts[1]
+
+
+def _model_sum(parts, cut: ModelCut | None) -> torch.Tensor:
+    """Sums whose ``parts`` are (sharded, whole) pairs of float32 scalars
+    (:func:`_sq_norms`): the sharded parts all-reduced over the model
+    group (one all-reduce), the whole parts added once."""
+    sharded = torch.stack([p[0] for p in parts])
+    if cut is not None:
+        sharded = _all_sum(sharded, [cut.group])
+    return sharded + torch.stack([p[1] for p in parts])
 
 
 def _all_sum(x: torch.Tensor, groups) -> torch.Tensor:
     """``x`` summed in place over the worker groups, one all-reduce per
-    worker axis; no collective without groups (meshless)."""
+    worker axis of more than one rank; no collective without groups
+    (meshless)."""
     import torch.distributed as dist
 
     for group in groups:
-        dist.all_reduce(x, group=group)
+        if dist.get_world_size(group) > 1:
+            dist.all_reduce(x, group=group)
     return x
 
 
-def _spread(tree: PyTree, M: int, groups) -> tuple[torch.Tensor, torch.Tensor]:
+def _spread(tree: PyTree, M: int, groups, cut: ModelCut | None = None):
     """(Σ_j ||x_j − x̄||² over this process's workers, ||x̄||²) of a
-    worker-stacked tree. x̄ is the float32 sum over all M workers ÷ M,
-    rounded to each leaf's dtype as the reference's mean is: the rank's
-    sums of every leaf land in one flat float32 buffer, which one
-    all-reduce over ``groups`` completes (4 bytes per element of a
-    replica). The squares sum in float32."""
+    worker-stacked tree, each as a :func:`_sq_norms` pair (over the
+    leaves ``cut`` shards over the model axis, over the others). x̄ is
+    the float32 sum over all M workers ÷ M, rounded to each leaf's dtype
+    as the reference's mean is: the rank's sums of every leaf land in one
+    flat float32 buffer, which one all-reduce over ``groups`` completes
+    (4 bytes per element of the rank's part of a replica). The squares sum
+    in float32."""
     leaves = _tree.leaves(tree)
     sizes = [x[0].numel() for x in leaves]
     flat = torch.empty(sum(sizes), dtype=torch.float32, device=leaves[0].device)
@@ -110,31 +140,38 @@ def _spread(tree: PyTree, M: int, groups) -> tuple[torch.Tensor, torch.Tensor]:
     for x, v in zip(leaves, means):
         torch.sum(x, 0, dtype=torch.float32, out=v)
     _all_sum(flat, groups).div_(M)
-    spread = mean_sq = torch.zeros((), dtype=torch.float32, device=flat.device)
-    for x, v in zip(leaves, means):
-        mean = v.to(x.dtype)
-        spread = spread + torch.sum(torch.square((x - mean).float()))
-        mean_sq = mean_sq + torch.sum(torch.square(mean.float()))
-    return spread, mean_sq
+    flags = cut.sharded if cut is not None else (False,) * len(leaves)
+    z = torch.zeros((), dtype=torch.float32, device=flat.device)
+    spread, mean_sq = [z, z], [z, z]
+    for x, v, sharded in zip(leaves, means, flags):
+        mean, i = v.to(x.dtype), 0 if sharded else 1
+        spread[i] = spread[i] + torch.sum(torch.square((x - mean).float()))
+        mean_sq[i] = mean_sq[i] + torch.sum(torch.square(mean.float()))
+    return tuple(spread), tuple(mean_sq)
 
 
 def step_metrics(losses: torch.Tensor, grads_M: PyTree, params_M: PyTree, M: int,
-                 groups=(), compute_stats: bool = True) -> StepMetrics:
+                 groups=(), compute_stats: bool = True,
+                 cut: ModelCut | None = None) -> StepMetrics:
     """The gossip step's :class:`StepMetrics` over all M workers, from this
     process's per-worker losses, gradients and new params (leading worker
     dim: all M, or a rank's own on a mesh, whose ``groups`` are the worker
     axes' process groups). The loss is the mean over the M workers,
     E = Σ_j ||g_j||², E_sp = Σ_j ||g_j − ḡ||², H = √M·||ḡ||₂ and the
     consensus spread Σ_j ||w_j − w̄||²: sums over the rank's workers,
-    all-reduced. ``compute_stats=False`` leaves E, E_sp, H and the spread
-    float32 zeros."""
+    all-reduced. With a model axis (``cut``, ``launch.tensor_parallel``) a
+    leaf sharded over it sums its squares over the model group and a
+    replicated one counts once; the loss is every model rank's own.
+    ``compute_stats=False`` leaves E, E_sp, H and the spread float32
+    zeros."""
     loss_sum = losses.sum(dtype=torch.float32)
     if not compute_stats:
         z = torch.zeros((), dtype=torch.float32, device=losses.device)
         return StepMetrics(_all_sum(loss_sum.reshape(1), groups)[0] / M, z, z, z, z)
-    E = _tree_sq_norm(grads_M)
-    E_sp, mean_g_sq = _spread(grads_M, M, groups)
-    spread, _ = _spread(params_M, M, groups)
+    E = _sq_norms(_tree.leaves(grads_M), cut)
+    E_sp, mean_g_sq = _spread(grads_M, M, groups, cut)
+    spread, _ = _spread(params_M, M, groups, cut)
+    E, E_sp, mean_g_sq, spread = _model_sum([E, E_sp, mean_g_sq, spread], cut)
     sums = _all_sum(torch.stack([loss_sum, E, E_sp, spread]), groups)
     return StepMetrics(sums[0] / M, sums[1], sums[2], torch.sqrt(M * mean_g_sq), sums[3])
 
@@ -175,13 +212,15 @@ def _microbatched(value_and_grad_fn, microbatch: int, batch_axis: int):
     return run
 
 
-def _step_mesh(mesh):
-    """The live WorkerMesh a step runs on (None meshless); a model axis is
-    refused (:func:`repro_torch.launch.mesh.require_whole_replicas`)."""
+def _step_mesh(mesh, param_specs):
+    """The live WorkerMesh a step runs on (None meshless); a model axis
+    needs the ``param_specs`` that cut the replica over it."""
     if mesh is None:
         return None
     wm = bus._live(mesh)
-    require_whole_replicas(wm, "a train step")
+    if wm.model_factor > 1 and param_specs is None:
+        raise ValueError(f"a train step over {wm.describe()} needs the param_specs that "
+                         "cut each replica over the model axis (shardings.param_pspecs)")
     return wm
 
 
@@ -211,13 +250,17 @@ def make_train_step(
       optimizer: a repro_torch.optim Optimizer.
       gossip: GossipSpec (required for mode='gossip').
       mode: 'gossip' | 'allreduce'.
-      mesh: a live ``launch.mesh.WorkerMesh`` (or its ``DeviceMesh``) whose
-        model factor is 1. Gossip mode: the state and batch are this rank's
-        workers' (``launch.shardings.local_tree``), the mix exchanges with
-        the other ranks and the metrics are global. Allreduce mode: the
-        params are replicated, the batch is this rank's cut of the global
-        batch (``shardings.batch_pspecs``) and the gradient is all-reduced
-        as a mean; a globally routed MoE layer refuses there.
+      mesh: a live ``launch.mesh.WorkerMesh`` (or its ``DeviceMesh``).
+        Gossip mode: the state and batch are this rank's workers'
+        (``launch.shardings.local_tree``), the mix exchanges with the other
+        ranks and the metrics are global. Allreduce mode: the params are
+        replicated over the worker axes, the batch is this rank's cut of
+        the global batch (``shardings.batch_pspecs``) and the gradient is
+        all-reduced as a mean over the worker groups; a globally routed MoE
+        layer refuses there. At model factor k > 1 the params are also cut
+        over the model axis by ``param_specs`` (required there), every
+        model rank of a worker group sees the group's whole batch, and the
+        layers run tensor parallel (module docstring).
       compute_stats: gossip mode only; False skips the step's E, E_sp, H
         and consensus spread, which are then float32 zeros (the loss stays).
       mix_first: paper's eq. (3) mixes the current params and subtracts the
@@ -240,8 +283,11 @@ def make_train_step(
             "from shardings.param_pspecs — see launch/mesh.WorkerMesh)")
     if mode not in ("gossip", "allreduce"):
         raise ValueError(f"unknown mode {mode!r}")
-    wm = _step_mesh(mesh)
+    wm = _step_mesh(mesh, param_specs)
     groups = wm.worker_groups if wm is not None else []
+
+    def cut_of(tree) -> ModelCut | None:
+        return model_cut(param_specs, _tree.flatten(tree)[1], wm)
 
     if mode == "gossip":
         if gossip is None:
@@ -260,10 +306,13 @@ def make_train_step(
 
         def step(state: TrainState, batch: PyTree) -> tuple[TrainState, StepMetrics]:
             # batch leaves: (M, per_worker_batch, ...), this rank's workers on a mesh
-            grads, losses = vg(state.params, batch)
+            with model_parallel(wm):
+                grads, losses = vg(state.params, batch)
+            cut = cut_of(state.params)
             with torch.no_grad():
                 updates, opt_state = optimizer.update(
-                    grads, state.opt_state, state.params, state.step, cuts=groups or None)
+                    grads, state.opt_state, state.params, state.step, cuts=groups or None,
+                    model=cut)
                 mix_now = state.step % gossip.period == 0
 
                 def do_mix(p):
@@ -295,7 +344,8 @@ def make_train_step(
                                                            param_specs=param_specs)
                     else:
                         new_params = do_mix(stepped) if mix_now else stepped
-                metrics = step_metrics(losses, grads, new_params, M, groups, compute_stats)
+                metrics = step_metrics(losses, grads, new_params, M, groups, compute_stats,
+                                       cut)
             return TrainState(state.step + 1, new_params, opt_state), metrics
 
         return step
@@ -308,16 +358,17 @@ def make_train_step(
     n = wm.n_workers if wm is not None else 1
 
     def step(state: TrainState, batch: PyTree) -> tuple[TrainState, StepMetrics]:
-        with rows_cut_over(wm):
+        with rows_cut_over(wm), model_parallel(wm):
             grads, loss = vg(state.params, batch)
+        cut = cut_of(state.params)
         with torch.no_grad():
             grads = _tree.map(lambda g: _mean_over_ranks(g, groups, n), grads)
             loss = _mean_over_ranks(loss, groups, n)
             updates, opt_state = optimizer.update(
-                grads, state.opt_state, state.params, state.step)
+                grads, state.opt_state, state.params, state.step, model=cut)
             new_params = _add_updates(state.params, updates)
             z = torch.zeros((), device=loss.device)
-            gn = _tree_sq_norm(grads)
+            gn = _model_sum([_sq_norms(_tree.leaves(grads), cut)], cut)[0]
         metrics = StepMetrics(loss, gn, z, torch.sqrt(gn), z)
         return TrainState(state.step + 1, new_params, opt_state), metrics
 

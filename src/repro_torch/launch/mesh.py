@@ -14,19 +14,23 @@ A mesh comes in two forms, as the reference's does:
 * **live**: a ``torch.distributed.device_mesh.DeviceMesh`` over the ranks of
   the default process group (:func:`make_host_mesh`). Its device type is
   ``"cuda"`` unless the caller asks for ``"cpu"``, and the process group's
-  backend must match it: NCCL on the card, gloo on the CPU. Nothing here
-  switches device or backend.
+  backend must match it: NCCL on the card, gloo on the CPU, or gloo on
+  CUDA tensors where the caller names it (ranks sharing one card). Nothing
+  here switches device or backend.
 
 On a live mesh each rank holds the tensors of ``M / n_workers`` consecutive
 workers (one when the mesh has a worker per rank) and, for a leaf sharded
 over the model axis, its 1/k piece (``launch.shardings.local_tree``).
+Inside :func:`model_parallel` the layers compute on those pieces with
+collectives over the model group (``launch.tensor_parallel``); a layer with
+no sharded form refuses there (:func:`require_dense_model`).
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
 import dataclasses
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -35,8 +39,8 @@ from repro_torch import _tree
 
 __all__ = ["AbstractMesh", "WorkerMesh", "SINGLE_POD", "MULTI_POD", "MODEL_AXIS",
            "make_production_mesh", "make_worker_mesh", "make_host_mesh",
-           "worker_axes", "n_workers", "require_whole_replicas", "rows_cut_over",
-           "require_whole_call"]
+           "worker_axes", "n_workers", "rows_cut_over", "require_whole_call",
+           "ModelShard", "model_parallel", "model_shard", "require_dense_model"]
 
 SINGLE_POD = (16, 16)                  # 256 chips
 MULTI_POD = (2, 16, 16)                # 2 pods × 256 chips = 512
@@ -45,6 +49,10 @@ MODEL_AXIS = "model"
 
 # the process-group backend each device type of a live mesh runs on
 _BACKEND = {"cuda": "nccl", "cpu": "gloo"}
+# the one other pairing a caller may ask for by name: gloo on CUDA tensors,
+# for several ranks sharing one card (NCCL refuses two ranks on a device;
+# gloo stages each collective through host memory)
+_NAMED = {("cuda", "gloo")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -278,14 +286,54 @@ class WorkerMesh:
         return f"workers[{w}]={self.n_workers} × {self.model_axis or '-'}={self.model_factor}"
 
 
-def require_whole_replicas(wm: "WorkerMesh | None", what: str) -> None:
-    """Refuse ``what`` on a mesh whose replicas are sharded over the model
-    axis: training and saving there need the tensor-parallel forward."""
+class ModelShard(NamedTuple):
+    """This rank's place on the model axis of a live mesh: the axis's
+    process group, its size k and this rank's index along it."""
+
+    group: Any
+    k: int
+    index: int
+
+
+# this rank's ModelShard while the call running now computes on its model
+# shards of the replica (the train step on a mesh with k > 1), else None
+_MODEL: contextvars.ContextVar = contextvars.ContextVar("model_parallel", default=None)
+
+
+@contextlib.contextmanager
+def model_parallel(wm: "WorkerMesh | None"):
+    """Within it, the layers compute on this rank's model shards of the
+    replica with collectives over ``wm``'s model group (Megatron-style
+    tensor parallelism, ``launch.tensor_parallel``); a mesh of model factor
+    1, or None, leaves the layers meshless. The state is a context
+    variable: a computation replayed on another thread (a recomputed layer
+    in the backward pass, which the card's autograd engine runs on its
+    device thread) must run in a copy of the caller's context."""
+    shard = None
     if wm is not None and wm.model_factor > 1:
+        shard = ModelShard(wm.model_group, wm.model_factor, wm.model_index)
+    token = _MODEL.set(shard)
+    try:
+        yield
+    finally:
+        _MODEL.reset(token)
+
+
+def model_shard() -> "ModelShard | None":
+    """The :class:`ModelShard` of the :func:`model_parallel` context running
+    now (None outside one, or at model factor 1)."""
+    return _MODEL.get()
+
+
+def require_dense_model(what: str) -> None:
+    """Refuse ``what``, a layer with no tensor-parallel form yet, inside
+    :func:`model_parallel` at model factor k > 1."""
+    shard = _MODEL.get()
+    if shard is not None:
         raise NotImplementedError(
-            f"{what} over {wm.describe()}: a replica sharded over the model axis needs "
-            "the tensor-parallel forward (ROADMAP queue 1, item 3, step 6); the worker "
-            "axes train with model factor 1")
+            f"{what} with the replica sharded {shard.k} ways over the model axis: its "
+            "sharded layers come with ROADMAP queue 1, item 3, step 6b; the dense "
+            "decoders train at k > 1")
 
 
 # the live WorkerMesh whose ranks each hold a cut of the rows of the call
@@ -314,8 +362,8 @@ def require_whole_call(what: str) -> None:
     if wm is not None and wm.n_workers > 1:
         raise NotImplementedError(
             f"{what} with the batch's rows cut over {wm.describe()} (allreduce mode): "
-            "computing it over the whole call across ranks comes with the model axis's "
-            "forward (ROADMAP queue 1, item 3, step 6)")
+            "computing it over the whole call across ranks comes with the rows-cut "
+            "global MoE (ROADMAP queue 1, item 3, step 6b)")
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
@@ -332,22 +380,26 @@ def make_worker_mesh(*, multi_pod: bool = False) -> WorkerMesh:
 
 
 def make_host_mesh(data: int = 2, model: int = 2, pod: int | None = None, *,
-                   device: str = "cuda"):
+                   device: str = "cuda", backend: str | None = None):
     """A live mesh over the first ``(pod ×) data × model`` ranks of the
     default process group, which the caller has initialized (NCCL for
     ``device='cuda'``, gloo for ``'cpu'``); every rank calls this. Ranks
-    past the mesh get no coordinate."""
+    past the mesh get no coordinate. ``backend='gloo'`` with
+    ``device='cuda'`` asks for gloo on CUDA tensors by name (ranks sharing
+    one card); the mesh never picks another backend itself."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
     if device not in _BACKEND:
         raise ValueError(f"device {device!r}: expected one of {sorted(_BACKEND)}")
+    want = backend or _BACKEND[device]
+    if want != _BACKEND[device] and (device, want) not in _NAMED:
+        raise ValueError(f"a {device} mesh does not run on {want}")
     if not dist.is_initialized():
         raise RuntimeError("make_host_mesh needs an initialized default process group")
-    backend = dist.get_backend()
-    if backend != _BACKEND[device]:
-        raise ValueError(f"a {device} mesh runs on {_BACKEND[device]}; the default "
-                         f"process group is {backend}")
+    if dist.get_backend() != want:
+        raise ValueError(f"a {device} mesh runs on {want}; the default process group "
+                         f"is {dist.get_backend()}")
     shape, names = ((pod, data, model), ("pod", "data", "model")) if pod else \
         ((data, model), ("data", "model"))
     n = int(np.prod(shape))

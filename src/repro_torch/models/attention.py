@@ -15,8 +15,10 @@ encoder's) and cross-attention over an encoder's ``memory``, and
 DeepSeek-V2's multi-head latent attention: ``mla_defs``/``mla_apply`` with
 its compressed cache (``MLACache``, and ``PagedMLACache`` for the
 continuous batcher), expanded for training and prefill, absorbed for
-decode. Tensors keep the reference's ``(B, L, H, hd)`` layout. The mesh
-decode is not ported yet.
+decode. Tensors keep the reference's ``(B, L, H, hd)`` layout. On a
+mesh's model axis (``launch.mesh.model_parallel``) the cache-free GQA
+branch runs on the rank's heads (:func:`gqa_apply`); MLA, the caches and
+the mesh decode refuse there.
 
 Paged decode keeps the reference's formulation: q is scored against the
 whole page pool, the block table gathers each slot's (NB, page) scores, and
@@ -52,6 +54,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.launch import tensor_parallel as tp
+from repro_torch.launch.mesh import model_shard, require_dense_model
 from repro_torch.models.layers import rmsnorm_apply, rmsnorm_defs, rope
 from repro_torch.models.params import ParamDef
 
@@ -349,6 +353,23 @@ def _ring_decode_attention(q, ck, cv, pos: int, window: int, q_pos=None) -> torc
     return torch.einsum("bhqs,bshd->bqhd", p, repeat_kv(cv, H))
 
 
+def _tree_copy_to_model(params: PyTree) -> PyTree:
+    return {name: tp.copy_to_model(t) for name, t in params.items()}
+
+
+def _local_kv_heads(t: torch.Tensor, cfg: ModelConfig, index: int, Hl: int) -> torch.Tensor:
+    """The kv heads that model shard ``index``'s ``Hl`` q heads read, of a
+    replicated (B, L, K, hd) k or v: local q head i is global head
+    ``index·Hl + i``, which reads kv head ``(index·Hl + i) // (H/K)``.
+    Where the rank's q heads span whole groups of H/K, or fall in one,
+    those kv heads are a contiguous run that ``repeat_kv`` maps as the
+    meshless layer does (every config's case)."""
+    G = cfg.n_heads // cfg.n_kv_heads
+    if Hl % G and G % Hl:
+        raise NotImplementedError(f"{Hl} q heads per model shard over groups of {G}")
+    return t.narrow(2, index * Hl // G, max(Hl // G, 1))
+
+
 def gqa_apply(params, cfg: ModelConfig, x, *, positions=None, q_base: int = 0,
               causal: bool = True, window: int | None = None, cache: KVCache | PagedKVCache | None = None,
               memory: torch.Tensor | None = None, flash: bool = False,
@@ -377,16 +398,41 @@ def gqa_apply(params, cfg: ModelConfig, x, *, positions=None, q_base: int = 0,
     masked, so batched ragged decode matches unbatched. With a
     :class:`PagedKVCache` (decode only): one token per slot at the slot's
     own position ``cache.lengths[s]``.
+
+    Inside ``launch.mesh.model_parallel``, with ``wq`` cut to this rank's
+    q heads (``params`` are the rank's shards; ``cfg``'s head counts stay
+    global), the cache-free self-attention is tensor parallel: ``x``
+    enters through ``copy_to_model``, the rank attends with its q heads
+    (and its kv heads where they shard, else the replicated kv heads those
+    q heads read, entering through ``copy_to_model``), and the output
+    projection's partial sum leaves through ``reduce_from_model``.
     """
     B, L, _ = x.shape
     paged = isinstance(cache, PagedKVCache)
     kv_src = memory if memory is not None else x
+    # on the model axis: this rank's q heads, and its kv heads where they
+    # shard too (else every kv head, replicated)
+    shard = model_shard() if params["wq"].shape[-2] < cfg.n_heads else None
+    kv_sharded = shard is not None and params["wk"].shape[-2] < cfg.n_kv_heads
+    if shard is not None:
+        if cache is not None or memory is not None:
+            require_dense_model("attention with a cache or over a memory")
+        x = tp.copy_to_model(x)
+        if kv_sharded:
+            kv_src = x
     q = torch.einsum("bld,dhk->blhk", x, params["wq"])
     k = torch.einsum("bld,dhk->blhk", kv_src, params["wk"])
     v = torch.einsum("bld,dhk->blhk", kv_src, params["wv"])
     if cfg.qk_norm:
-        q = rmsnorm_apply(params["q_norm"], q, cfg.norm_eps)
-        k = rmsnorm_apply(params["k_norm"], k, cfg.norm_eps)
+        q_norm = params["q_norm"]
+        k_norm = params["k_norm"]
+        if shard is not None:
+            # a replicated scale over this rank's heads: a partial gradient
+            q_norm = _tree_copy_to_model(q_norm)
+            if kv_sharded:
+                k_norm = _tree_copy_to_model(k_norm)
+        q = rmsnorm_apply(q_norm, q, cfg.norm_eps)
+        k = rmsnorm_apply(k_norm, k, cfg.norm_eps)
     if memory is None:                          # rope only for self-attention
         if positions is not None:
             q_pos = positions
@@ -403,11 +449,16 @@ def gqa_apply(params, cfg: ModelConfig, x, *, positions=None, q_base: int = 0,
 
     if cache is None:
         causal = causal and memory is None
+        if shard is not None and not kv_sharded:
+            k, v = (_local_kv_heads(tp.copy_to_model(t), cfg, shard.index, q.shape[2])
+                    for t in (k, v))
         if flash and q_base == 0 and k.shape[1] > BLOCK_THRESHOLD:
             o = flash_ops.attention(q, k, v, causal=causal, window=window)
         else:
             o = attention_any(q, k, v, q_base, causal=causal, window=window)
-        return torch.einsum("blhk,hkd->bld", o, params["wo"]), None
+        out = torch.einsum("blhk,hkd->bld", o, params["wo"])
+        # this rank's heads give a partial sum of the output projection
+        return (out if shard is None else tp.reduce_from_model(out)), None
 
     if paged:
         if L != 1:
@@ -569,6 +620,7 @@ def mla_apply(params, cfg: ModelConfig, x, *, q_base: int = 0,
     ``q_base``: the position of the first token of the expanded form's chunk
     (rope positions and causal offset), as in the reference.
     """
+    require_dense_model("multi-head latent attention (MLA)")
     B, L, _ = x.shape
     H = cfg.n_heads
     r, dn, dr = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim

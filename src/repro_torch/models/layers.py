@@ -26,7 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.mesh import require_whole_call
+from repro_torch.launch import tensor_parallel as tp
+from repro_torch.launch.mesh import model_shard, require_dense_model, require_whole_call
 from repro_torch.models.params import ParamDef
 
 PyTree = Any
@@ -92,6 +93,15 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp_apply(params: PyTree, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The MLP over (B, L, D). Inside ``launch.mesh.model_parallel``, with
+    the ``ff`` dim cut to this rank's columns (``w_up``'s last dim below
+    ``cfg.d_ff``), it is tensor parallel: ``x`` enters through
+    ``copy_to_model``, the rank's ``ff`` columns go through the activation
+    and its rows of ``w_down``, and the partial sum leaves through
+    ``reduce_from_model``."""
+    sharded = params["w_up"].shape[-1] < cfg.d_ff and model_shard() is not None
+    if sharded:
+        x = tp.copy_to_model(x)
     if cfg.mlp_type == "swiglu":
         h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
     elif cfg.mlp_type == "geglu":
@@ -102,7 +112,8 @@ def mlp_apply(params: PyTree, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor
         h = _gelu(x @ params["w_up"])
     else:
         raise ValueError(cfg.mlp_type)
-    return h @ params["w_down"]
+    out = h @ params["w_down"]
+    return tp.reduce_from_model(out) if sharded else out
 
 
 def moe_defs(cfg: ModelConfig) -> PyTree:
@@ -221,6 +232,7 @@ def moe_apply(params: PyTree, cfg: ModelConfig, x: torch.Tensor):
     and the aux loss depend on all of its tokens.
     """
     B, L, D = x.shape
+    require_dense_model("an MoE layer")
     if cfg.moe_dispatch == "global":
         require_whole_call("an MoE layer routing the whole call (moe_dispatch='global')")
     if cfg.moe_dispatch in ("per_sequence", "per_sequence_smap"):

@@ -36,6 +36,18 @@ rule. With ``cfg.remat`` a training forward recomputes each layer in the
 backward pass, as the reference's ``jax.checkpoint`` does, at the same three
 sites: every decoder layer, list or scanned, and every layer of a stacked
 encoder; a list encoder's layers are not wrapped (:mod:`.remat`).
+
+Inside ``launch.mesh.model_parallel`` (the train step on a mesh of model
+factor k > 1) the dense decoders' training forward is tensor parallel, as
+GSPMD computes the reference's from its specs: attention over the rank's
+heads and the MLP over its ``ff`` columns (``attention.gqa_apply``,
+``layers.mlp_apply``), and, where the vocab is cut over the model axis
+(k divides it), a masked lookup of the rank's embedding rows and a
+vocab-parallel cross entropy (:func:`_embed`, :func:`cross_entropy_chunked`).
+Between blocks the activations stay whole on every rank: the reference's
+``shard_activations`` pin (``_act_shard``), a layout with no numerical
+effect, has no counterpart. MoE, MLA, Mamba-2, RG-LRU and the encoder
+refuse there (``launch.mesh.require_dense_model``).
 """
 from __future__ import annotations
 
@@ -47,6 +59,8 @@ import torch
 
 from repro_torch import _tree
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import tensor_parallel as tp
+from repro_torch.launch.mesh import model_shard, require_dense_model
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models import remat as remat_lib
@@ -242,9 +256,33 @@ def _cross_apply(bp: PyTree, cfg: ModelConfig, x, memory, cross_kv):
     return torch.einsum("blhk,hkd->bld", o, bp["cross"]["wo"])
 
 
+def _vocab_shard(table_rows: int, cfg: ModelConfig):
+    """This rank's ModelShard where the vocab is cut over the model axis
+    (a table of fewer rows than ``cfg.vocab_size`` inside
+    ``launch.mesh.model_parallel``), else None."""
+    return model_shard() if table_rows < cfg.vocab_size else None
+
+
+def _local_ids(ids, shard, n: int):
+    """(ids within this rank's ``n`` vocab rows, clamped; the mask of the
+    ids it owns)."""
+    t = ids.long() - shard.index * n
+    ok = (t >= 0) & (t < n)
+    return t.clamp(0, n - 1), ok
+
+
 def _embed(params, cfg: ModelConfig, tokens):
+    """The embedding lookup. With the vocab cut over the model axis each
+    rank looks up the tokens in its rows, zeros elsewhere, and the rows
+    meet in ``reduce_from_model`` (one rank's row plus zeros: exact)."""
     dtype = getattr(torch, cfg.compute_dtype)
-    x = params["embed"][tokens.long()].to(dtype)
+    table = params["embed"]
+    shard = _vocab_shard(table.shape[0], cfg)
+    if shard is None:
+        x = table[tokens.long()].to(dtype)
+    else:
+        ids, ok = _local_ids(tokens, shard, table.shape[0])
+        x = tp.reduce_from_model(torch.where(ok[..., None], table[ids], 0.0)).to(dtype)
     if cfg.emb_scale:
         # the reference multiplies by a weak-typed Python float, which JAX
         # rounds to the compute dtype first (45.25 for gemma's √2048 in bf16)
@@ -281,6 +319,7 @@ def encode(params, cfg: ModelConfig, enc_embeds: torch.Tensor, *,
     as in the reference, which the training path needs: the kernel is
     forward only. With ``cfg.remat`` a stacked encoder's layers are
     recomputed in the backward pass of a training forward."""
+    require_dense_model("the encoder-decoder")
     x = enc_embeds.to(getattr(torch, cfg.compute_dtype))
     enc = params["encoder"]
     scanned = not isinstance(enc["layers"], list)
@@ -372,20 +411,37 @@ def logits_from_hidden(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tenso
 
 def cross_entropy_chunked(params, cfg: ModelConfig, h, labels,
                           n_chunks: int = 8) -> torch.Tensor:
-    """Mean next-token CE, a sequence chunk at a time (never (B, L, V) at once)."""
+    """Mean next-token CE, a sequence chunk at a time (never (B, L, V) at once).
+
+    With the vocab cut over the model axis the CE is vocab parallel: ``h``
+    enters through ``copy_to_model``, each rank takes its vocab columns'
+    logits, the max is all-reduced (no gradient), then Σexp and the gold
+    logit (from the rank owning each label, a masked sum) in one
+    all-reduce; no rank holds (B, L, V)."""
     B, Ltot, _ = h.shape
     n_chunks = min(n_chunks, Ltot)
     while Ltot % n_chunks:
         n_chunks -= 1
     ck = Ltot // n_chunks
     W = _unembed(params, cfg).to(h.dtype)
+    shard = _vocab_shard(W.shape[-1], cfg)
+    if shard is not None:
+        h = tp.copy_to_model(h)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(n_chunks):
         hs = h[:, i * ck:(i + 1) * ck]
         ls = labels[:, i * ck:(i + 1) * ck]
         logits = attn_lib.f32_product("bld,dv->blv", hs, W)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, ls[..., None].long())[..., 0]
+        if shard is None:
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, ls[..., None].long())[..., 0]
+        else:
+            m = tp.max_over_model(logits.amax(-1))
+            ids, ok = _local_ids(ls, shard, W.shape[-1])
+            mine = torch.gather(logits, -1, ids[..., None])[..., 0]
+            sums = tp.reduce_from_model(torch.stack(
+                [torch.exp(logits - m[..., None]).sum(-1), torch.where(ok, mine, 0.0)]))
+            logz, gold = torch.log(sums[0]) + m, sums[1]
         total = total + torch.sum(logz - gold)
     return total / (B * Ltot)
 

@@ -24,9 +24,16 @@ is what saves the memory (without it the peak does not move). The
 recomputation itself still runs with grad enabled, as the plain layer's
 backward does, so it takes the same kernels. The price: no second-order
 gradient flows through a recomputed layer (the train step takes none).
+
+The recomputation runs in a copy of the forward's context variables
+(``contextvars``), the model-parallel state of ``launch.mesh`` among them:
+on the card the autograd engine runs the backward on its device thread,
+which does not inherit the caller's context, and a tensor-parallel layer
+recomputed without it would skip its collectives.
 """
 from __future__ import annotations
 
+import contextvars
 from typing import Any, Callable
 
 import torch
@@ -47,6 +54,7 @@ class _Checkpoint(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         fn, treedef, *leaves = inputs
         ctx.fn, ctx.treedef = fn, treedef
+        ctx.context = contextvars.copy_context()
         ctx.save_for_backward(*leaves)
 
     @staticmethod
@@ -56,8 +64,11 @@ class _Checkpoint(torch.autograd.Function):
         def flat_fn(*leaves):
             return fn(*_tree.unflatten(treedef, list(leaves)))
 
-        _, vjp_fn = torch.func.vjp(flat_fn, *ctx.saved_tensors)
-        cts = vjp_fn(grads if len(grads) > 1 else grads[0])
+        def recompute(saved):
+            _, vjp_fn = torch.func.vjp(flat_fn, *saved)
+            return vjp_fn(grads if len(grads) > 1 else grads[0])
+
+        cts = ctx.context.run(recompute, ctx.saved_tensors)
         return (None, None) + tuple(c.detach() for c in cts)
 
 

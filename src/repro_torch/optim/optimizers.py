@@ -26,9 +26,11 @@ temporaries are alive at once; the state is never updated in place.
 
 Every ``update`` takes ``cuts``: on a worker mesh, the process groups the
 leading worker dim is cut over (``WorkerMesh.worker_groups``, first axis
-major), None when this process holds every worker. Only Adafactor's
-statistics that run across workers read it; the elementwise optimizers
-ignore it.
+major), None when this process holds every worker; and ``model``: with a
+model axis, how the leaves are cut over it (a
+``launch.tensor_parallel.ModelCut``), else None. Only Adafactor's
+statistics that run across workers or along a sharded dim read them; the
+elementwise optimizers ignore both.
 """
 from __future__ import annotations
 
@@ -76,7 +78,7 @@ def _div_f32(x: torch.Tensor, c: float) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     """init(params) -> state;
-    update(grads, state, params, step, cuts=None) -> (updates, state).
+    update(grads, state, params, step, cuts=None, model=None) -> (updates, state).
 
     ``updates`` are deltas to add to the params (they already include -lr).
     """
@@ -92,7 +94,7 @@ def sgd(lr) -> Optimizer:
     def init(params):
         return ()
 
-    def update(grads, state, params, step, cuts=None):
+    def update(grads, state, params, step, cuts=None, model=None):
         eta = sched(step)
         return _tree.map(lambda g: _scale_f32(g, -eta), grads), state
 
@@ -106,7 +108,7 @@ def momentum_sgd(lr, mu: float = 0.9, nesterov: bool = False) -> Optimizer:
     def init(params):
         return _tree.map(torch.zeros_like, params)
 
-    def update(grads, state, params, step, cuts=None):
+    def update(grads, state, params, step, cuts=None, model=None):
         eta = sched(step)
         new_u = _tree.map(lambda u, g: (u * _weak(mu, u.dtype) + g).to(u.dtype),
                           state, grads)
@@ -129,7 +131,7 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
         return {"m": _tree.map(zeros, params), "v": _tree.map(zeros, params)}
 
-    def update(grads, state, params, step, cuts=None):
+    def update(grads, state, params, step, cuts=None, model=None):
         eta = sched(step)
         t = f32(step) + f32(1.0)
         c1 = float(f32(1.0) - f32(b1) ** t)
@@ -170,6 +172,19 @@ def _all_workers(x: torch.Tensor, cuts) -> torch.Tensor:
     return x
 
 
+def _mean(x: torch.Tensor, dim: int, sharded: tuple[int, ...], model) -> torch.Tensor:
+    """``x.mean(dim)``; where ``dim`` is among the ``sharded`` dims (counted
+    from the end) the mean over the whole dim: this rank's sum all-reduced
+    over ``model``'s group, divided by the global size."""
+    if dim not in sharded:
+        return x.mean(dim)
+    import torch.distributed as dist
+
+    total = x.sum(dim)
+    dist.all_reduce(total, group=model.group)
+    return total.div_(x.shape[dim] * model.k)
+
+
 def adafactor_like(lr, eps: float = 1e-30, decay: float = 0.8) -> Optimizer:
     """Memory-lean second-moment optimizer (row/col factorized for 2-D leaves).
 
@@ -180,7 +195,10 @@ def adafactor_like(lr, eps: float = 1e-30, decay: float = 0.8) -> Optimizer:
     the row statistic's mean, are taken over every worker's rows, gathered
     (a 1-D parameter's size per worker), in the meshless order, so the
     update equals the meshless one bit for bit; the column statistic is
-    then the same on every rank.
+    then the same on every rank. With a model axis (``model``) a mean
+    along a dim sharded over it is this rank's sum, all-reduced over the
+    model group and divided by the global size (another summation order
+    than meshless).
     """
     sched = _as_schedule(lr)
 
@@ -192,23 +210,27 @@ def adafactor_like(lr, eps: float = 1e-30, decay: float = 0.8) -> Optimizer:
             return {"v": z(p.shape)}
         return _tree.map(leaf, params)
 
-    def update(grads, state, params, step, cuts=None):
+    def update(grads, state, params, step, cuts=None, model=None):
         eta = sched(step)
         b2 = f32(1.0) - (f32(step) + f32(1.0)) ** f32(-decay)
         keep = float(b2)
         fresh = float(f32(1.0) - b2)
 
-        def leaf(g, s, p):
+        def leaf(g, s, p, dims):
             g32 = g.float()
             g2 = g32.square().add_(eps)
             if g.ndim >= 2:
                 # a 2-D leaf's dim -2 is the worker dim: on a mesh it spans ranks
                 across = cuts if g.ndim == 2 else None
-                row = s["row"] * keep + g2.mean(-1) * fresh
-                col = s["col"] * keep + _all_workers(g2, across).mean(-2) * fresh
+                row = s["row"] * keep + _mean(g2, -1, dims, model) * fresh
+                col = s["col"] * keep + _mean(_all_workers(g2, across), -2, dims,
+                                              model) * fresh
                 del g2
                 denom = row[..., :, None] * col[..., None, :]
-                denom = denom.div_(_all_workers(row, across).mean(-1)[..., None, None] + eps)
+                # the row statistic's last dim is the leaf's dim -2
+                row_mean = _mean(_all_workers(row, across), -1,
+                                 (-1,) if -2 in dims else (), model)
+                denom = denom.div_(row_mean[..., None, None] + eps)
                 u = g32 / denom.sqrt_().add_(eps)
                 return u.mul_(-eta).to(p.dtype), {"row": row, "col": col}
             v = s["v"] * keep + g2 * fresh
@@ -218,7 +240,8 @@ def adafactor_like(lr, eps: float = 1e-30, decay: float = 0.8) -> Optimizer:
         flat_g, treedef = _tree.flatten(grads)
         flat_s = _tree.flatten_up_to(treedef, state)
         flat_p = _tree.leaves(params)
-        outs = [leaf(g, s, p) for g, s, p in zip(flat_g, flat_s, flat_p)]
+        flat_d = model.dims if model is not None else ((),) * len(flat_g)
+        outs = [leaf(g, s, p, d) for g, s, p, d in zip(flat_g, flat_s, flat_p, flat_d)]
         return (_tree.unflatten(treedef, [o[0] for o in outs]),
                 _tree.unflatten(treedef, [o[1] for o in outs]))
 

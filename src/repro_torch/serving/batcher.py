@@ -106,7 +106,7 @@ class ContinuousBatcher:
         if mesh is not None:
             raise NotImplementedError(
                 "ContinuousBatcher(mesh=...) waits for serving over the mesh "
-                "(ROADMAP queue 1, item 3, step 6)")
+                "(ROADMAP queue 1, item 3, step 6c)")
         self.cfg, self.pad_id, self.params = cfg, pad_id, params
         self.S, self.max_len, self.max_new = batch_slots, max_len, max_new
         self.temperature = temperature

@@ -16,18 +16,22 @@ the paper's output model w̄ = (1/M) Σ_j w_j, averaging in float32 and
 casting back. :class:`AsyncCheckpointWriter` snapshots into pinned host
 memory and moves the disk write off the training loop's thread.
 
-On a live worker mesh (``wmesh=``, model factor 1) each rank passes its own
-workers' part of the tree (``launch.shardings.local_tree``):
+On a live worker mesh (``wmesh=``) each rank passes its own workers' part
+of the tree (``launch.shardings.local_tree``):
 :func:`save_sharded` has every rank write its own workers' files, keyed by
 the reference's ``WorkerMesh`` coordinates (:func:`worker_coords`, e.g.
 ``shard-pod1-data3``; ``w{j}`` for a bare ``DeviceMesh``), and the mesh's
-first rank the meta once every rank's files are written; :func:`save` streams every worker's leaves to the
-mesh's first rank, one worker's leaf at a time, which writes the
-monolithic file, the reference's format byte for byte; the asynchronous
-writer snapshots the rank's own workers. :func:`restore` cuts a checkpoint to the rank
+first rank the meta once every rank's files are written; :func:`save`
+streams every worker's leaves to the mesh's first rank, one worker's leaf
+at a time, which writes the monolithic file, the reference's format byte
+for byte; the asynchronous writer snapshots the rank's own workers. With a
+model axis (model factor k > 1, ``param_specs`` required) each leaf that
+the specs shard over it is first all-gathered over the model group, one
+leaf at a time, and the group's model rank 0 writes (or sends) the
+worker's whole leaves, in the meshless format: the files equal a meshless
+save of the gathered tree. :func:`restore` cuts a checkpoint to the rank
 (a sharded one: reading only its workers' files) and
-:func:`consensus_from_sharded` lands w̄ as the rank's piece; both only
-cut, so they work at any model factor, where a save refuses.
+:func:`consensus_from_sharded` lands w̄ as the rank's piece.
 """
 from __future__ import annotations
 
@@ -46,6 +50,8 @@ import torch.distributed as dist
 
 from repro_torch import _tree
 from repro_torch.convert import resolve_device
+from repro_torch.launch.mesh import WorkerMesh
+from repro_torch.launch.tensor_parallel import model_cut, whole_leaves, whole_shape
 
 PyTree = Any
 
@@ -142,16 +148,19 @@ def _stored_tensor(raw: np.ndarray, stored: str, device: torch.device) -> torch.
     return torch.from_numpy(np.ascontiguousarray(raw)).to(device)
 
 
-def save(path: str, tree: PyTree, step: int | None = None, *, wmesh=None) -> None:
+def save(path: str, tree: PyTree, step: int | None = None, *, wmesh=None,
+         param_specs: PyTree | None = None) -> None:
     """Write ``tree`` as one npz (and the step's ``.meta.json``). With a live
-    ``wmesh`` (a WorkerMesh or its DeviceMesh, model factor 1) ``tree`` is
-    this rank's workers' part of a worker-stacked tree and every rank
-    calls this: the mesh's first rank writes the whole file, each leaf's
-    workers in order, receiving each other rank's workers one leaf at a
-    time (:func:`_stream_to_first_rank`), so neither host nor device holds
-    more than one worker's leaf beyond the rank's own tree."""
+    ``wmesh`` (a WorkerMesh or its DeviceMesh) ``tree`` is this rank's
+    workers' part of a worker-stacked tree, cut by ``param_specs`` over a
+    model axis of k > 1, and every rank calls this: the mesh's first rank
+    writes the whole file, each leaf's workers in order, receiving each
+    other worker group's workers one leaf at a time
+    (:func:`_stream_to_first_rank`), so neither host nor device holds more
+    than one (gathered) leaf beyond the rank's own tree."""
     if wmesh is not None:
-        return _stream_to_first_rank(path, tree, step, _live_mesh(wmesh, "a checkpoint save"))
+        wm = _live_mesh(wmesh)
+        return _stream_to_first_rank(path, tree, step, wm, _cut(tree, param_specs, wm))
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     _write_npz(path, _flatten_with_paths(tree))
     _write_step(path, step)
@@ -163,14 +172,20 @@ def _write_step(path: str, step: int | None) -> None:
             json.dump({"step": int(step)}, f)
 
 
-def _live_mesh(wmesh, what: str):
-    """The live WorkerMesh of ``wmesh``; a model axis is refused."""
-    from repro_torch.launch.mesh import WorkerMesh, require_whole_replicas
-
+def _live_mesh(wmesh):
+    """The live WorkerMesh of ``wmesh``."""
     wm = WorkerMesh.ensure(wmesh)
     wm._require_live()
-    require_whole_replicas(wm, what)
     return wm
+
+
+def _cut(tree: PyTree, param_specs: PyTree | None, wm):
+    """The ``launch.tensor_parallel.ModelCut`` of the rank's ``tree`` (None
+    at model factor 1); a model axis needs the ``param_specs``."""
+    if wm.model_factor > 1 and param_specs is None:
+        raise ValueError(f"a save over {wm.describe()} needs the param_specs that cut "
+                         "each replica over the model axis")
+    return model_cut(param_specs, _tree.flatten(tree)[1], wm)
 
 
 def _rank_workers(wm, m: int) -> range:
@@ -178,18 +193,22 @@ def _rank_workers(wm, m: int) -> range:
     return range(wm.worker_index * m, (wm.worker_index + 1) * m)
 
 
-def _stream_to_first_rank(path: str, tree: PyTree, step: int | None, wm) -> None:
-    """:func:`save` over a mesh: per leaf, worker by worker, each worker's
-    slice sent by the rank holding it (``dist.send``) to the mesh's first
-    rank, which copies it to the host and appends it to the leaf's member."""
-    paths = _tree.flatten_with_path(tree)
-    m = int(paths[0][1].shape[0])
+def _stream_to_first_rank(path: str, tree: PyTree, step: int | None, wm, cut) -> None:
+    """:func:`save` over a mesh: per leaf, gathered whole over the model
+    group (``cut``, k > 1), worker by worker, each worker's slice sent by
+    the model rank 0 of the worker group holding it (``dist.send``) to the
+    mesh's first rank, which copies it to the host and appends it to the
+    leaf's member."""
+    paths = [p for p, _ in _tree.flatten_with_path(tree)]
+    whole = whole_leaves(_tree.leaves(tree), cut)
+    m = int(_tree.leaves(tree)[0].shape[0])
     M = m * wm.n_workers
     first, me = wm.rank_of(0), dist.get_rank()
     if me != first:
-        for _, x in paths:
-            for i in range(m):
-                dist.send(x[i].contiguous(), dst=first)
+        for x in whole:
+            if wm.model_index == 0:
+                for i in range(m):
+                    dist.send(x[i].contiguous(), dst=first)
         return
     mine = _rank_workers(wm, m)
 
@@ -203,7 +222,7 @@ def _stream_to_first_rank(path: str, tree: PyTree, step: int | None, wm) -> None
                 yield _host_array(buf.cpu())
 
     def members():
-        for p, x in paths:
+        for p, x in zip(paths, whole):
             dtype = _host_array(torch.empty((0,), dtype=x.dtype)).dtype
             yield (_stored_key(_path_key(p), x.dtype), (M,) + tuple(x.shape[1:]), dtype,
                    slices(x))
@@ -263,7 +282,6 @@ def restore(path: str, like: PyTree, device: str | torch.device = "cuda", *,
 def _restore_on_mesh(path: str, like: PyTree, dev: torch.device, wmesh,
                      param_specs: PyTree | None) -> PyTree:
     """:func:`restore` with ``wmesh``: the rank's cut of the checkpoint."""
-    from repro_torch.launch.mesh import WorkerMesh
     from repro_torch.launch.shardings import local_tree
     from repro_torch.models.params import PartitionSpec
 
@@ -319,7 +337,7 @@ def worker_coords(wmesh, M: int) -> list[str]:
 
 
 def save_sharded(path: str, tree: PyTree, step: int | None = None, *,
-                 wmesh=None) -> None:
+                 wmesh=None, param_specs: PyTree | None = None) -> None:
     """Write one npz per worker (``{base}.shard-{coord}.npz``, keys from
     :func:`worker_coords`) and a ``{base}.meta.json`` listing the shards:
     each worker's slice is copied to the host and written on its own, so at
@@ -333,7 +351,17 @@ def save_sharded(path: str, tree: PyTree, step: int | None = None, *,
     is this rank's workers' part and every rank calls this: each writes its
     own workers' files, then the ranks report them written to each other
     (:func:`_report_group`), and only then does the mesh's first rank write
-    the meta, so a meta never lists a shard that is not yet on disk."""
+    the meta, so a meta never lists a shard that is not yet on disk. Over a
+    model axis (k > 1) ``tree`` is cut by ``param_specs``: the worker
+    group's model rank 0 writes its workers' files from the leaves gathered
+    over the group, the other model ranks none."""
+    wm = WorkerMesh.ensure(wmesh)
+    if wm is not None and wm.live:
+        cut = _cut(tree, param_specs, _live_mesh(wm))
+        if cut is not None:
+            leaves, treedef = _tree.flatten(tree)
+            whole = list(whole_leaves(leaves, cut))
+            tree = _tree.unflatten(treedef, whole) if wm.model_index == 0 else None
     for write, _ in _sharded_writes(path, tree, step, wmesh):
         write()
 
@@ -343,9 +371,13 @@ def _sharded_writes(path: str, tree: PyTree, step: int | None, wmesh) -> list:
     process's shard files; on a live mesh of several ranks the report that
     they are on disk (``retry`` False: every rank makes it exactly once per
     save); then, on the first rank, the meta and the stale files' removal.
-    The report's group is made here, on the calling thread."""
-    from repro_torch.launch.mesh import WorkerMesh
-
+    The report's group is made here, on the calling thread. ``tree`` is
+    None on a model rank that writes no shard (past the first of its
+    worker group): it only reports."""
+    wm = WorkerMesh.ensure(wmesh)
+    if tree is None:
+        group = _report_group(_live_mesh(wm))
+        return [(lambda: dist.barrier(group=group), False)]
     leaves = _tree.leaves(tree)
     if not leaves:
         raise ValueError("cannot shard an empty tree")
@@ -353,10 +385,9 @@ def _sharded_writes(path: str, tree: PyTree, step: int | None, wmesh) -> list:
     if any(tuple(x.shape[:1]) != (m,) for x in leaves):
         raise ValueError("sharded save needs a stacked tree (leading M dim)")
     named = wmesh if isinstance(wmesh, WorkerMesh) else None
-    wm = WorkerMesh.ensure(wmesh)
     M, mine, writes_meta, group = m, range(m), True, None
     if wm is not None and wm.live:
-        wm = _live_mesh(wm, "a sharded checkpoint save")
+        wm = _live_mesh(wm)
         M, mine = m * wm.n_workers, _rank_workers(wm, m)
         writes_meta = dist.get_rank() == wm.rank_of(0)
         group = _report_group(wm)
@@ -473,7 +504,6 @@ def consensus_from_sharded(path: str, like: PyTree,
     paths = _tree.flatten_with_path(like)
     cut = lambda xs: xs
     if shardings is not None:
-        from repro_torch.launch.mesh import WorkerMesh
         from repro_torch.launch.shardings import local_tree
 
         specs, wm = shardings[0], WorkerMesh.ensure(shardings[1])
@@ -529,7 +559,11 @@ class AsyncCheckpointWriter:
     the next ``save()`` raises (as do ``wait()``/``close()``), so training
     cannot run on while every checkpoint is lost. ``sharded=True`` (or a
     ``wmesh``, as in the reference) writes through :func:`save_sharded`; on
-    a live mesh (``wmesh``) the tree is the rank's own workers'.
+    a live mesh (``wmesh``) the tree is the rank's own workers', and over a
+    model axis (k > 1) it is cut by ``param_specs``: ``save()`` gathers each
+    sharded leaf over the model group on the caller's thread, one leaf at a
+    time, and the group's model rank 0 snapshots the whole leaves (the
+    other model ranks snapshot nothing and only report).
     ``write_seconds`` holds each finished write's time on the thread.
     """
 
@@ -556,14 +590,22 @@ class AsyncCheckpointWriter:
             raise ValueError(f"a snapshot spans several devices: {sorted(map(str, cuda))}")
         return cuda.pop() if cuda else None
 
-    def _reserve(self, tree: PyTree) -> None:
+    @staticmethod
+    def _key(leaves, cut) -> tuple:
+        """The snapshot's leaf shapes and dtypes: whole over a model axis."""
+        dims = cut.dims if cut is not None else ((),) * len(leaves)
+        k = cut.k if cut is not None else 1
+        return tuple((whole_shape(tuple(x.shape), d, k), x.dtype) for x, d in zip(leaves, dims))
+
+    def _reserve(self, tree: PyTree, cut=None) -> None:
         """Pin ``max_pending`` snapshots' host buffers for trees of
-        ``tree``'s shapes and dtypes, on the writer's thread (nothing for a
-        tree on the CPU)."""
+        ``tree``'s shapes and dtypes (whole over ``cut``'s model axis), on
+        the writer's thread (nothing for a tree on the CPU, or on a model
+        rank that snapshots nothing)."""
         leaves = _tree.leaves(tree)
-        if self._cuda_device(leaves) is None:
+        if self._cuda_device(leaves) is None or (cut is not None and cut.index):
             return
-        key = tuple((tuple(x.shape), x.dtype) for x in leaves)
+        key = self._key(leaves, cut)
         free = self._pinned[key]
 
         def pin():
@@ -573,15 +615,22 @@ class AsyncCheckpointWriter:
 
         self._reserving[key] = self._pool.submit(pin)
 
-    def _snapshot(self, tree: PyTree):
-        """(snapshot, event behind its copies or None, release) of ``tree``
-        (class docstring)."""
+    def _snapshot(self, tree: PyTree, cut=None):
+        """(snapshot, event behind its copies or None, release) of ``tree``,
+        its leaves gathered whole over ``cut``'s model axis (class
+        docstring); a snapshot of None on a model rank past the first."""
         leaves, treedef = _tree.flatten(tree)
         dev = self._cuda_device(leaves)
+        key = self._key(leaves, cut)
+        if cut is not None:
+            leaves = whole_leaves(leaves, cut)
+            if cut.index:
+                for _ in leaves:    # the gather's other ends
+                    pass
+                return None, None, None
         if dev is None:
-            return _tree.map(lambda x: x.detach().clone() if torch.is_tensor(x) else x,
-                             tree), None, None
-        key = tuple((tuple(x.shape), x.dtype) for x in leaves)
+            return _tree.unflatten(treedef, [
+                x.detach().clone() if torch.is_tensor(x) else x for x in leaves]), None, None
         free = self._pinned[key]
         if not free and key in self._reserving:
             self._reserving.pop(key).result()
@@ -614,19 +663,18 @@ class AsyncCheckpointWriter:
             release()
 
     def save(self, path: str, tree: PyTree, step: int | None = None, *,
-             wmesh=None, sharded: bool = False) -> None:
+             wmesh=None, sharded: bool = False, param_specs: PyTree | None = None) -> None:
         if self._terminal is not None:
             raise RuntimeError(
                 f"checkpoint writer failed terminally after "
                 f"{self._io_retries} attempts: {self._terminal}"
             ) from self._terminal
-        from repro_torch.launch.mesh import WorkerMesh
-
+        cut = None
         if wmesh is not None and WorkerMesh.ensure(wmesh).live:
-            _live_mesh(wmesh, "a sharded checkpoint save")    # before any snapshot
+            cut = _cut(tree, param_specs, _live_mesh(wmesh))    # before any snapshot
         while len(self._pending) >= self._max_pending:
             self._pending.popleft().result()
-        snap, done, release = self._snapshot(tree)
+        snap, done, release = self._snapshot(tree, cut)
         if sharded or wmesh is not None:
             # the ranks' report group is made here, on the caller's thread
             writes = _sharded_writes(path, snap, step, wmesh)

@@ -33,6 +33,7 @@ from repro_torch.core.decentralized import (StepMetrics, TrainState, init_state,
 from repro_torch.core.gossip import GossipSpec
 from repro_torch.launch.mesh import WorkerMesh
 from repro_torch.launch.shardings import local_tree
+from repro_torch.launch.tensor_parallel import model_cut, whole_leaves
 from repro_torch.models.params import PartitionSpec
 from repro_torch.optim import Optimizer
 from repro_torch.train import checkpoint as ckpt_lib
@@ -104,14 +105,17 @@ def train(
     params. Returns the final state and the History.
 
     ``mesh`` is a live :class:`~repro_torch.launch.mesh.WorkerMesh` (or its
-    ``DeviceMesh``) with model factor 1, and every rank calls ``train``
-    with the same global ``params0`` and batches as the meshless call;
-    each keeps its part (``launch.shardings.local_tree``): gossip mode cuts
-    the worker dim by ``param_specs`` (default: the worker dim alone) and
-    the batch by ``shardings.batch_pspecs``' gossip layout; allreduce mode
-    replicates the params and cuts the batch rows. The returned state is
-    the rank's; every rank's History is the same, global one. The mesh's
-    ranks meet at one barrier before it returns.
+    ``DeviceMesh``), and every rank calls ``train`` with the same global
+    ``params0`` and batches as the meshless call; each keeps its part
+    (``launch.shardings.local_tree``): gossip mode cuts the params by
+    ``param_specs`` (default: the worker dim alone) and the batch by
+    ``shardings.batch_pspecs``' gossip layout; allreduce mode replicates
+    the params over the worker axes and cuts the batch rows. With a model
+    axis (k > 1, ``param_specs`` required) the params are also cut over it
+    and every model rank of a worker group gets the group's batch rows
+    whole (``make_train_step``). The returned state is the rank's; every
+    rank's History is the same, global one. The mesh's ranks meet at one
+    barrier before it returns.
 
     With ``ckpt_path``, ``state.params`` is saved after every
     ``ckpt_every``-th step (0: only at the end) and after the last, each
@@ -121,9 +125,11 @@ def train(
     keyed by the WorkerMesh coordinates as the reference's are). A
     monolithic checkpoint from a mesh streams to the mesh's first rank,
     one worker's leaf at a time (``checkpoint.save``), on the loop's
-    thread; in allreduce mode the first rank writes its replica. A writer
-    error surfaces when the loop ends, but never masks the loop's own
-    exception."""
+    thread; in allreduce mode the first rank writes its replica. Over a
+    model axis every save gathers the sharded leaves over the model group
+    first (``checkpoint``), so the files are those of the meshless run. A
+    writer error surfaces when the loop ends, but never masks the loop's
+    own exception."""
     dev = resolve_device(device)
     step_fn = make_train_step(loss_fn, optimizer, gossip=gossip, mode=mode, mesh=mesh,
                               param_specs=param_specs)
@@ -138,6 +144,8 @@ def train(
             param_specs = _tree.map(lambda _: spec, params0)
         params0 = local_tree(params0, param_specs, wm)
     params0 = _tree.map(lambda x: x.to(dev, copy=True), params0)
+    treedef = _tree.flatten(params0)[1]
+    cut = model_cut(param_specs, treedef, wm) if wm is not None else None
     state = init_state(params0, optimizer)
     hist = History()
     it = iter(batches)
@@ -171,13 +179,21 @@ def train(
     # a monolithic save from a mesh in gossip mode streams on this thread
     streams = wm is not None and mode == "gossip" and not ckpt_sharded
     if writer is not None and writes and not streams:
-        writer._reserve(state.params)    # pin the snapshots' host memory meanwhile
+        # pin the snapshots' host memory meanwhile
+        writer._reserve(state.params, cut)
 
     def save(params, step: int) -> None:
         if streams:
-            ckpt_lib.save(ckpt_path, params, step=step, wmesh=wm)
+            ckpt_lib.save(ckpt_path, params, step=step, wmesh=wm, param_specs=param_specs)
+        elif mode == "allreduce" and cut is not None:
+            # the first worker group gathers its replica over the model axis
+            if wm.worker_index == 0:
+                whole = _tree.unflatten(treedef, list(whole_leaves(_tree.leaves(params), cut)))
+                if writes:
+                    writer.save(ckpt_path, whole, step=step, sharded=ckpt_sharded)
         elif writes:
-            kw = dict(sharded=True, wmesh=mesh if mode == "gossip" else None) \
+            kw = dict(sharded=True, wmesh=mesh if mode == "gossip" else None,
+                      param_specs=param_specs if mode == "gossip" else None) \
                 if ckpt_sharded else {}
             writer.save(ckpt_path, params, step=step, **kw)
         tel.counter("train.checkpoints")

@@ -991,3 +991,44 @@ def test_async_save_snapshots_to_reserved_pinned_memory(cuda, tmp_path):
         back = ckpt.restore(str(tmp_path / f), want, device=cuda)
         for a, b in zip(_tree.leaves(back), _tree.leaves(want)):
             assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_tensor_parallel_functions_under_vmap_at_group_size_one_on_card(cuda, tmp_path):
+    """copy_to_model, reduce_from_model and max_over_model on CUDA tensors,
+    their model group a world-size-1 NCCL group: inside a two-layer product
+    under vmap(grad_and_value) over 3 stacked workers, plain and through
+    remat.checkpoint, the loss and gradients equal the same function with
+    no model group bit for bit (a sum over one rank is the value)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import tensor_parallel as tp
+    from repro_torch.models import remat
+
+    w1, w2 = _randn((3, 64, 96), F32, 0, cuda), _randn((3, 96, 64), F32, 1, cuda)
+    x = _randn((3, 5, 64), F32, 2, cuda)
+
+    def run(use_remat):
+        def loss(w1, w2, x):
+            def body(x, w1, w2):
+                return tp.reduce_from_model(torch.relu(tp.copy_to_model(x) @ w1) @ w2)
+            h = remat.checkpoint(body, x, w1, w2) if use_remat else body(x, w1, w2)
+            return torch.sum(h ** 2) + torch.sum(tp.max_over_model(h))
+        return torch.func.vmap(torch.func.grad_and_value(loss, argnums=(0, 1, 2)))(w1, w2, x)
+
+    want = {r: run(r) for r in (False, True)}
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        token = mesh_lib._MODEL.set(mesh_lib.ModelShard(dist.group.WORLD, 1, 0))
+        try:
+            got = {r: run(r) for r in (False, True)}
+        finally:
+            mesh_lib._MODEL.reset(token)
+    finally:
+        dist.destroy_process_group()
+    for r in (False, True):
+        for a, b in zip(_tree.leaves(got[r]), _tree.leaves(want[r])):
+            assert a.is_cuda and torch.equal(a, b)

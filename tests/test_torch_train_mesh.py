@@ -4,7 +4,8 @@ One launch of 8 ranks for the whole file (a ``FileStore`` in a temporary
 directory): this file, run as a script, is one rank. Meshes: 4 × 1 (ranks
 0–3; M = 4, one worker per rank, and M = 8, two), 8 × 1 and
 ``(pod, data) = (2, 4)`` with M = 8, all with model factor 1; a 4 × 2 mesh
-for the model axis's refusal and for restores, which only cut. Models:
+for restores, which only cut, and for the families that refuse the model
+axis (``tests/test_torch_train_tp.py`` trains the dense decoders on it). Models:
 granite-3-2b and mixtral-8x7b (global MoE routing) at 2 layers and narrow
 widths, float32, different random weights per worker from a numpy seed.
 
@@ -224,6 +225,35 @@ def _global_like(case, single=False):
                      Mo.model_defs(cfg))
 
 
+# configs tried at model factor 2: granite trains, the others refuse
+MODEL_AXIS_ARCHS = ("granite-3-2b", "mixtral-8x7b", "deepseek-v2-lite-16b", "mamba2-2.7b",
+                    "recurrentgemma-2b", "seamless-m4t-large-v2")
+
+
+def _model_axis_step(name: str, wm):
+    """One step of ``name``'s reduced config on the 4 × 2 mesh (the rank's
+    cut of 4 workers): None if it ran with a finite loss, else the
+    NotImplementedError's message."""
+    cfg = get_config(name, reduced=True)
+    params = _tree.map(torch.from_numpy, _weights(Mo.model_defs(cfg), 4, 3, _tree.map))
+    specs = _param_specs(cfg, wm, "gossip")
+    toks = torch.from_numpy(_tokens(BY_NAME["4x1-m4-fused"])[0] % cfg.vocab_size)
+    batch = {"tokens": toks}
+    if cfg.encoder_layers:
+        batch["enc_embeds"] = torch.zeros(4, B, 8, cfg.d_model)
+    step = make_train_step(lambda p, b: Mo.loss_fn(p, cfg, b), O.momentum_sgd(LR, 0.9),
+                           gossip=GossipSpec(topology=TT.make("ring", 4)), mesh=wm,
+                           param_specs=specs)
+    state = init_state(S.local_tree(params, specs, wm), O.momentum_sgd(LR, 0.9))
+    try:
+        _, metrics = step(state, S.local_tree(batch, _tree.map(lambda _: wm.worker_spec(),
+                                                               batch), wm))
+    except NotImplementedError as e:
+        return str(e)
+    assert torch.isfinite(metrics.loss)
+    return None
+
+
 def _wm_abstract(name: str) -> WorkerMesh:
     kw = MESHES[name]
     if "pod" in kw:
@@ -332,28 +362,13 @@ def _rank_main(rank: int, store_path: str, out_dir: str) -> None:
                                            _global_like(case), device="cpu", wmesh=wm)
         out["restored"][mesh_name] = got
 
-    # the model axis: the step, train() and every save refuse
+    # the model axis: the dense decoders train on it (granite); the other
+    # families' layers refuse inside the step, naming the step that brings
+    # them (their first layer of a kind without a sharded form: MoE, MLA,
+    # Mamba-2, RG-LRU, the encoder)
     wm = wms["4x2"]
-    local = S.local_tree(_inputs(case)[1], _param_specs(cfg, wm, "gossip"), wm)
-    tries = {
-        "step": lambda: make_train_step(lambda p, b: Mo.loss_fn(p, cfg, b),
-                                        O.momentum_sgd(LR, 0.9),
-                                        gossip=GossipSpec(topology=TT.make("ring", 4)), mesh=wm),
-        "train": lambda: train(lambda p, b: Mo.loss_fn(p, cfg, b), _inputs(case)[1],
-                               O.momentum_sgd(LR, 0.9), _batches(case), steps=1,
-                               gossip=GossipSpec(topology=TT.make("ring", 4)), mesh=wm,
-                               device="cpu", verbose=False),
-        "save": lambda: TC.save(os.path.join(out_dir, "no.npz"), local, wmesh=wm),
-        "save_sharded": lambda: TC.save_sharded(os.path.join(out_dir, "no"), local, wmesh=wm),
-        "async": lambda: TC.AsyncCheckpointWriter().save(os.path.join(out_dir, "no"), local,
-                                                         wmesh=wm),
-    }
-    for what, fn in tries.items():
-        try:
-            fn()
-            out["refusals"][what] = None
-        except NotImplementedError as e:
-            out["refusals"][what] = str(e)
+    for name in MODEL_AXIS_ARCHS:
+        out["refusals"][name] = _model_axis_step(name, wm)
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()
@@ -705,10 +720,20 @@ def test_the_meta_waits_for_every_ranks_shards(ranks):
 
 
 def test_model_axis_is_refused_naming_the_tensor_parallel_step(ranks):
+    """At model factor 2 granite (a dense decoder) takes a step, and every
+    other family refuses in its first layer without a sharded form,
+    naming the step that brings it."""
+    layer = {"mixtral-8x7b": "an MoE layer",
+             "deepseek-v2-lite-16b": "multi-head latent attention (MLA)",
+             "mamba2-2.7b": "a Mamba-2 layer", "recurrentgemma-2b": "an RG-LRU layer",
+             "seamless-m4t-large-v2": "the encoder-decoder"}
     for r in ranks["ranks"]:
-        assert set(r["refusals"]) == {"step", "train", "save", "save_sharded", "async"}
-        for what, msg in r["refusals"].items():
-            assert msg is not None and "ROADMAP queue 1, item 3, step 6" in msg, (what, msg)
+        assert set(r["refusals"]) == set(MODEL_AXIS_ARCHS)
+        assert r["refusals"]["granite-3-2b"] is None
+        for name, what in layer.items():
+            msg = r["refusals"][name]
+            assert msg is not None and msg.startswith(what), (name, msg)
+            assert "ROADMAP queue 1, item 3, step 6b" in msg, (name, msg)
 
 
 if __name__ == "__main__":
