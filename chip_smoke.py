@@ -240,7 +240,28 @@ through these phases, in order, and exits non-zero at the first failure:
    onto the mesh bit-equal to each rank's params; each rank's peak
    allocated below the meshless run's. Prints ms/step (gloo-staged, not
    NCCL), the peaks and the save's write time.
-19. report — the run's time, one JSON line of kernels, the nvidia-smi line,
+19. slice 14 — the model axis for MoE, MLA and the encoder-decoder, in slice
+   13's two processes on the same mesh. A: deepseek-v2-lite-16b at its
+   published widths (MLA, 64 experts top-6 cut 32 per rank, 2 shared
+   experts, vocab 102400 cut in two) cut to its dense first layer and one
+   MoE layer; B: seamless-m4t-large-v2 at slice 10's training shape (2 + 2
+   layers, 4096 frames per row, vocab 256206 cut in two); each with remat,
+   M = 2 on the ring, 3 steps of ``train(mesh=, param_specs=)`` and one
+   async sharded checkpoint. Gates: finite losses, the same on both ranks;
+   one gossip_mix launch per step per rank over the rank's half of the bus
+   rows; the checkpoint restored onto the mesh bit-equal; each rank's peak
+   allocated below the meshless bf16 run's (rank 0 trains it once rank 1
+   has left the card); the step-0 token losses of a forward on the mesh
+   within twice the meshless bf16 forward's mean distance from a float32
+   forward of the same params and batch (one worker at a time). The params
+   after the steps are reported beside the meshless run's, not gated. C:
+   the narrow float32 mixtral, deepseek-v2-lite and seamless configs of
+   ``tests/test_torch_train_tp_moe.py``, two steps on the mesh against the
+   meshless step, rtol 1e-5 / atol 1e-6. D: reduced mixtral routed over the
+   whole batch in allreduce mode on a (data=2, model=1) mesh of the same
+   processes, its rows cut over them, against the meshless allreduce step
+   over the whole batch at the same tolerance.
+20. report — the run's time, one JSON line of kernels, the nvidia-smi line,
    and last the ``{"ok": true, ...}`` line.
 
 ``--collect`` runs ``gc.collect()`` before each part (and the microbatch=2
@@ -368,7 +389,24 @@ S11_MOE = ("deepseek-v2-lite-16b", 2, 2, 1024)
 # two processes sharing the card, a gloo group on CUDA tensors (NCCL
 # refuses two ranks on one device); each rank's share of the phase's time
 S13_RANKS = 2
-S13_TIMEOUT = 600
+S13_TIMEOUT = 900
+# slice 14: the model axis for MoE, MLA and the encoder-decoder, in slice
+# 13's two processes: (config, layers, workers, per-worker batch, tokens
+# per sequence) at published widths, remat on, S14_STEPS steps each:
+# deepseek-v2-lite-16b cut to its dense first layer and one MoE layer, and
+# seamless-m4t-large-v2 at slice 10's training shape (2 + 2 layers)
+S14_TRAIN = (("deepseek-v2-lite-16b", 2, 2, 4, 512), (S10_NAME, 2, 2, 2, 512))
+S14_STEPS = 3
+# the narrow float32 configs of tests/test_torch_train_tp_moe.py, held to
+# the meshless float32 step on the card at rtol 1e-5 / atol 1e-6
+S14_NARROW = dict(n_layers=2, d_model=64, n_heads=8, head_dim=8, d_ff=128, vocab_size=256,
+                  param_dtype="float32", compute_dtype="float32")
+S14_ARCHS = {"mixtral-8x7b": dict(n_kv_heads=2, n_experts=8, top_k=2, d_ff_expert=32),
+             "deepseek-v2-lite-16b": dict(n_kv_heads=8, n_experts=8, top_k=3, d_ff_expert=32,
+                                          n_shared_experts=2),
+             "seamless-m4t-large-v2": dict(n_kv_heads=8)}
+S14_NARROW_SHAPE = (2, 4, 16, 8)   # workers, rows per worker, tokens per row, frames
+S14_RTOL, S14_ATOL = 1e-5, 1e-6
 # ``--collect`` runs gc.collect() before each part, as the script did while
 # the tree helpers held leaves in reference cycles: each part's peak with
 # and without it shows whether a cycle holds device memory again.
@@ -2262,21 +2300,21 @@ def _router_repeat(name, layers, batch_size, seq_len) -> None:
     params = Mo.init(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
     tok = torch.randint(0, cfg.vocab_size, (batch_size, seq_len),
                         generator=torch.Generator(device="cuda").manual_seed(2), device="cuda")
-    real, runs = Ly._route, []
+    real, runs = Ly._route_logits, []
     for _ in range(2):
         picks = []
 
-        def recording(p, c, xf, picks=picks):
-            out = real(p, c, xf)
+        def recording(c, logits, rows=None, picks=picks):
+            out = real(c, logits, rows)
             picks.append(out[1].sort(-1).values)
             return out
 
-        Ly._route = recording
+        Ly._route_logits = recording
         try:
             with torch.no_grad():
                 Mo.forward(params, cfg, tok)
         finally:
-            Ly._route = real
+            Ly._route_logits = real
         runs.append(picks)
     flips = [int((a != b).any(-1).sum()) for a, b in zip(*runs)]
     batch = {"tokens": tok}
@@ -2547,7 +2585,9 @@ def phase_slice13() -> dict:
     run's distance from the float32 run; the checkpoint restored onto the
     mesh bit-equal to each rank's params; each rank's peak allocated
     memory below the meshless run's. The ranks' ms/step are gloo's staging
-    through host memory, not NCCL's. Returns launches by path."""
+    through host memory, not NCCL's. Slice 14 runs in the same processes
+    (:func:`_s14_rank`, :func:`_s14_twins`, gated by
+    :func:`_gate_slice14`). Returns launches by path."""
     import tempfile
 
     import torch
@@ -2580,6 +2620,8 @@ def phase_slice13() -> dict:
                                  f"{[p.returncode for p in procs]})")
         ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(S13_RANKS)]
         twins = torch.load(os.path.join(tmp, "twins.pt"))
+        ranks14 = [torch.load(os.path.join(tmp, f"s14-rank{r}.pt")) for r in range(S13_RANKS)]
+        twins14 = torch.load(os.path.join(tmp, "s14-twins.pt"))
     flat, f32 = twins["bf16"], twins["float32"]
     by_path = {}
     for i, r in enumerate(ranks):
@@ -2622,7 +2664,84 @@ def phase_slice13() -> dict:
     log(f"[{tag}] meshless bf16: {flat['ms']:.1f} ms/step, peak {flat['peak_gb']:.2f} GB "
         f"allocated, {flat['reserved_gb']:.2f} GB reserved; float32: {f32['ms']:.1f} ms/step, "
         f"peak {f32['peak_gb']:.2f} GB")
-    log(f"[{tag}] the phase took {time.perf_counter() - t0:.1f} s")
+    by_path.update(_gate_slice14(ranks14, twins14))
+    log(f"[{tag}] the phase (slices 13 and 14) took {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
+def _gate_slice14(ranks: list, twins: dict) -> dict:
+    """Slice 14's gates (:func:`_s14_rank`, :func:`_s14_twins`). A, B: per
+    config, finite losses, the same on both ranks; one gossip_mix launch
+    per step per rank over the rank's half of the bus rows; the checkpoint
+    restored onto the mesh bit-equal; each rank's peak allocated below the
+    meshless bf16 run's; the step-0 loss (identical params, before any
+    update), token by token, within twice the meshless bf16 forward's mean
+    distance from a float32 forward: one scalar loss's distance is a single
+    draw of rounding noise, which may land near zero for either route; a
+    mean over thousands of tokens does not. The params
+    after the steps are only reported beside the twin's: router near-ties
+    flip between summation orders. C, D: every
+    rank within rtol 1e-5 / atol 1e-6 of the meshless float32 steps. Returns
+    launches by path."""
+    tag = "slice14"
+    by_path = {}
+    for name, *_ in S14_TRAIN:
+        twin = twins[name]
+        runs = [r["train"][name] for r in ranks]
+        for i, r in enumerate(runs):
+            if r["launches"] != {"gossip_mix": S14_STEPS, "quant_pack": 0, "flash_attention": 0}:
+                raise AssertionError(f"{tag} {name} rank {i}: {r['launches']} in {S14_STEPS} "
+                                     "steps, want one gossip_mix per step")
+            if r["rows"] != [r["planned_rows"]] * S14_STEPS or \
+                    not r["planned_rows"] <= 0.51 * r["whole_rows"]:
+                raise AssertionError(f"{tag} {name} rank {i}: gossip_mix over {r['rows']} rows, "
+                                     f"the rank's half of the bus is {r['planned_rows']} of "
+                                     f"{r['whole_rows']}")
+            if not all(math.isfinite(x) for x in r["loss"]) or r["loss"] != runs[0]["loss"]:
+                raise AssertionError(f"{tag} {name} rank {i}: losses {r['loss']} vs rank 0's "
+                                     f"{runs[0]['loss']}")
+            if not r["restored_equal"]:
+                raise AssertionError(f"{tag} {name} rank {i}: the checkpoint restored onto the "
+                                     "mesh differs from the rank's params")
+            if not r["peak_gb"] < twin["peak_gb"]:
+                raise AssertionError(f"{tag} {name} rank {i}: peak {r['peak_gb']:.2f} GB "
+                                     f"allocated, the meshless run's {twin['peak_gb']:.2f} GB")
+            by_path[f"slice14_train_tp_{name}_rank{i}"] = r["launches"]
+        err, own = twin["tok_tp"], twin["tok_bf16"]
+        if not twin["finite"] or err > 2 * own:
+            raise AssertionError(f"{tag} {name}: the ranks' step-0 token losses are {err:.4g} "
+                                 f"from the float32 forward's on the mean (meshless bf16: "
+                                 f"{own:.4g}); gate twice")
+        tp0, bf0, f0 = twin["loss0"]
+        log(f"[{tag}] {name}: losses, tensor parallel {[round(x, 4) for x in runs[0]['loss']]}, "
+            f"meshless {[round(x, 4) for x in twin['loss']]}; step-0 token losses "
+            f"mean|err| {err:.4g} from the float32 forward's (meshless bf16 {own:.4g}); gate "
+            f"twice: held; their means {tp0:.5f}, {bf0:.5f}, float32 {f0:.5f}; params after "
+            f"{S14_STEPS} steps max|err| {twin['err']:.4g} from the meshless bf16 run's (not "
+            "gated: router near-ties)")
+        for i, r in enumerate(runs):
+            log(f"[{tag}] {name} rank {i}: steps 1-{S14_STEPS - 1} {r['ms']:.1f} ms/step "
+                f"(gloo-staged, not NCCL); {r['share']:.3f} of a replica's parameters; peak "
+                f"{r['peak_gb']:.2f} GB allocated ({r['peak_gb'] / twin['peak_gb']:.3f} of "
+                f"meshless), {r['reserved_gb']:.2f} GB reserved; gossip_mix over "
+                f"{r['planned_rows']:,} of {r['whole_rows']:,} bus rows; the async sharded "
+                f"save's write {r['write_s']:.2f} s")
+        log(f"[{tag}] {name} meshless bf16: {twin['ms']:.1f} ms/step, peak "
+            f"{twin['peak_gb']:.2f} GB allocated, {twin['reserved_gb']:.2f} GB reserved")
+    for i, r in enumerate(ranks):
+        bad = {n: c for n, c in r["narrow"].items() if not c["ok"]}
+        if bad or r["narrow_launches"]["gossip_mix"] != 2 * len(S14_ARCHS):
+            raise AssertionError(f"{tag} rank {i}: narrow float32 configs off the meshless "
+                                 f"step: {bad}; launches {r['narrow_launches']}")
+        if not r["rows_cut"]["ok"]:
+            raise AssertionError(f"{tag} rank {i}: the rows-cut global MoE is "
+                                 f"{r['rows_cut']['err']:.3g} from the meshless allreduce step")
+        by_path[f"slice14_narrow_f32_rank{i}"] = r["narrow_launches"]
+    log(f"[{tag}] narrow float32 on the (1, 2) mesh vs meshless, max|err| per config: "
+        + ", ".join(f"{n} {c['err']:.3g}" for n, c in ranks[0]["narrow"].items())
+        + f"; the rows-cut global MoE on a (2, 1) mesh vs the whole batch: "
+        f"{max(r['rows_cut']['err'] for r in ranks):.3g}, losses {ranks[0]['rows_cut']['loss']} "
+        f"(rtol {S14_RTOL} / atol {S14_ATOL}: held)")
     return by_path
 
 
@@ -2714,12 +2833,18 @@ def _tp_rank(rank: int, tmp: str) -> None:
     whole = [x.cpu() for x in whole_leaves(leaves, model_cut(specs, treedef, wm))]
     mark("gather")
     torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    del state, back, leaves
+    # slice 14 in the same processes; slice 13's inputs wait on the host
+    params0 = _tree.map(_host, params0)
+    batches = [_tree.map(_host, b) for b in batches]
+    gc.collect()
+    torch.cuda.empty_cache()
+    kept14 = _s14_rank(rank, tmp, wm, mark)
     dist.barrier()
     dist.destroy_process_group()
-    del state, back, leaves
     left = os.path.join(tmp, "rank1.left")
     if rank:
-        del params0, batches, whole
+        del params0, batches, whole, kept14
         gc.collect()
         torch.cuda.empty_cache()
         open(left, "w").close()
@@ -2730,6 +2855,8 @@ def _tp_rank(rank: int, tmp: str) -> None:
             raise RuntimeError("rank 1 did not leave the card")
         time.sleep(0.5)
     mark("rank 1 gone")
+    # back on the card, as they were beside the ranks' own runs
+    params0 = _tree.map(lambda x: x.to("cuda"), params0)
     twins, kept = {}, {}
     for dtype in ("bf16", "float32"):
         c = cfg if dtype == "bf16" else dataclasses.replace(
@@ -2757,8 +2884,308 @@ def _tp_rank(rank: int, tmp: str) -> None:
                        for a, b in zip(kept["bf16"], kept["float32"]))
     twins["finite"] = all(bool(torch.isfinite(x).all()) for x in whole)
     mark("distances")
-    print(f"seconds since start: {', '.join(marks)}", flush=True)
     torch.save(twins, os.path.join(tmp, "twins.pt"))
+    del kept, whole, params0, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    _s14_twins(tmp, kept14, mark)
+    print(f"seconds since start: {', '.join(marks)}", flush=True)
+
+
+def _host(x):
+    """A tensor moved to the host; a numpy batch as it is."""
+    return x.cpu() if hasattr(x, "cpu") else x
+
+
+def _s14_rank(rank: int, tmp: str, wm, mark) -> dict:
+    """Slice 14 on one rank of slice 13's (data=1, model=2) mesh; writes
+    its numbers to ``tmp/s14-rank{rank}.pt``. A, B: each config of
+    S14_TRAIN through ``train(mesh=wm.mesh, param_specs=...)`` on the ring,
+    one async sharded checkpoint at the end, restored onto the mesh.
+    C: the narrow float32 configs, two steps on the mesh against the
+    meshless step, each rank against its cut. D: reduced mixtral routed
+    over the whole batch in allreduce mode on a (data=2, model=1) mesh of
+    the same two processes (the rows cut over the ranks) against the
+    meshless allreduce step over the whole batch. Returns, for rank 0's
+    twins, each A/B config's inputs (on the host) and its params gathered
+    over the model group."""
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.core import bus
+    from repro_torch.core import topology as T
+    from repro_torch.core.gossip import GossipSpec
+    from repro_torch.launch.shardings import param_pspecs
+    from repro_torch.launch.tensor_parallel import model_cut, whole_leaves
+    from repro_torch.optim import momentum_sgd
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train import train
+
+    out, kept = {"train": {}}, {}
+    rows, launch = [], bus.gossip_mix_2d
+
+    def counted(w, *args, **kw):      # the rows of each launch on the bus
+        rows.append(int(w.shape[-2]))
+        return launch(w, *args, **kw)
+
+    for name, layers, workers, batch, seq in S14_TRAIN:
+        cfg = family_config(name, layers, remat=True)
+        params0, next_batch, loss = family_setup(cfg, workers, batch, seq)
+        params0 = _tree.map(_host, params0)      # train() moves the rank's cut
+        batches = [_tree.map(_host, next_batch()) for _ in range(S14_STEPS)]
+        specs = param_pspecs(cfg, wm, "gossip")
+        spec = GossipSpec.for_mesh(T.undirected_ring(workers), wm, backend="fused")
+        ck = os.path.join(tmp, f"s14-{name}", "ck.npz")
+        tok_tp = _s14_step0(params0, batches[0], cfg, specs, wm)
+        mark(f"{name}: step-0 forward on the mesh")
+        rows.clear()
+        bus.gossip_mix_2d = counted
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        state, hist = train(loss, params0, momentum_sgd(LR, 0.9), iter(batches),
+                            steps=S14_STEPS, gossip=spec, mesh=wm.mesh, param_specs=specs,
+                            ckpt_path=ck, ckpt_sharded=True, log_every=S14_STEPS,
+                            device="cuda", verbose=False)
+        torch.cuda.synchronize()
+        bus.gossip_mix_2d = launch
+        launches = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        reserved_gb = torch.cuda.max_memory_reserved() / 1e9
+        mark(f"{name}: {S14_STEPS} steps (step 0 {hist.step_time[0]:.1f} s) and the save")
+        like = _tree.map(lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta"), params0)
+        back = ckpt_lib.restore(ck, like, device="cuda", wmesh=wm, param_specs=specs)
+        leaves, treedef = _tree.flatten(state.params)
+        restored = all(torch.equal(a, b) for a, b in zip(_tree.leaves(back), leaves))
+        del back
+        mark(f"{name}: restore")
+        flags = bus.sharded_leaf_flags(specs, wm.model_axis, treedef=treedef)
+        planned = bus.plan_layout(state.params, shards=wm.model_factor, leaf_sharded=flags)
+        local_n = sum(x.numel() for x in leaves)
+        whole = [x.cpu() for x in whole_leaves(leaves, model_cut(specs, treedef, wm))]
+        mark(f"{name}: gather")
+        out["train"][name] = {
+            "loss": hist.loss, "launches": launches, "rows": list(rows),
+            "planned_rows": workers * planned.groups[0].rows,
+            "whole_rows": workers * bus.plan_layout(like).groups[0].rows,
+            "ms": hist.step_time[-1] * 1e3, "peak_gb": peak_gb, "reserved_gb": reserved_gb,
+            "write_s": sum(hist.ckpt_write_s), "restored_equal": restored,
+            "share": local_n / sum(x.numel() for x in whole)}
+        print(f"{name} on {wm.describe()}: losses {[round(x, 4) for x in hist.loss]}; "
+              f"launches {launches}; peak {peak_gb:.2f} GB", flush=True)
+        kept[name] = (cfg, params0, batches, whole, tok_tp) if rank == 0 else None
+        del state, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["narrow"], out["narrow_launches"] = _s14_narrow(wm)
+    mark("narrow float32 configs")
+    out["rows_cut"] = _s14_rows_cut()
+    mark("the rows-cut global MoE")
+    torch.save(out, os.path.join(tmp, f"s14-rank{rank}.pt"))
+    return kept
+
+
+def _s14_step0(params0, batch, cfg, specs=None, wm=None, f32: bool = False):
+    """The per-token next-token losses (float32, on the host) of every
+    worker's params and batch before any update, one worker at a time, as
+    ``model.loss_fn``'s cross entropy computes them (the MoE aux term
+    aside): on ``wm``'s mesh from the rank's cut of ``params0`` inside
+    ``model_parallel`` (the final hidden states are whole on every model
+    rank), or meshless; ``f32``: a float32 forward of the same params. The
+    logits come from the whole unembedding, a row at a time."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.launch.mesh import model_parallel
+    from repro_torch.launch.shardings import local_tree
+    from repro_torch.models import model as Mo
+    from repro_torch.models.attention import f32_product
+
+    local = params0 if wm is None else local_tree(params0, specs, wm)
+    c = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32") if f32 else cfg
+    dtype = getattr(torch, c.param_dtype)
+    out = []
+    with torch.no_grad(), model_parallel(wm):
+        for j in range(params0["embed"].shape[0]):
+            p = _tree.map(lambda x: x[j].to("cuda", dtype), local)
+            W = Mo._unembed(_tree.map(lambda x: x[j], params0), cfg).to("cuda", dtype)
+            b = _tree.map(lambda x: torch.as_tensor(x[j], device="cuda"), batch)
+            memory = Mo.encode(p, c, b["enc_embeds"]) if c.encoder_layers else None
+            h, _, _ = Mo._forward(p, c, b["tokens"][:, :-1], memory=memory)
+            labels = b["tokens"][:, 1:].long()
+            for r in range(h.shape[0]):
+                logits = f32_product("ld,dv->lv", h[r], W)
+                gold = torch.gather(logits, -1, labels[r, :, None])[:, 0]
+                out.append((torch.logsumexp(logits, -1) - gold).cpu())
+            del p, W, h, memory
+    return torch.cat(out)
+
+
+def _s14_narrow_inputs(name: str, mode: str):
+    """(config, global params, batches) of a narrow float32 config on the
+    card, from numpy seeds: different weights per worker; allreduce mode
+    one replica and the workers' rows together."""
+    import numpy as np
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as Mo
+
+    M, rows, L, frames = S14_NARROW_SHAPE
+    extra = dict(S14_ARCHS[name], router_aux_coef=1.0) if mode == "allreduce" \
+        else S14_ARCHS[name]
+    cfg = get_config(name, reduced=True, **S14_NARROW, **extra)
+    rng = np.random.default_rng(3)
+    params = _tree.map(lambda d: torch.from_numpy(
+        (0.05 * rng.normal(size=(M,) + tuple(d.shape))
+         + (1.0 if d.init == "ones" else 0.0)).astype(np.float32)).cuda(), Mo.model_defs(cfg))
+    rng = np.random.default_rng(7)
+    batches = []
+    for _ in range(2):
+        b = {"tokens": torch.from_numpy(rng.integers(0, 256, (M, rows, L))).cuda()}
+        if cfg.encoder_layers:
+            b["enc_embeds"] = torch.from_numpy(rng.normal(
+                size=(M, rows, frames, cfg.d_model)).astype(np.float32)).cuda()
+        batches.append(b)
+    if mode == "allreduce":
+        params = _tree.map(lambda x: x[0].clone(), params)
+        batches = [_tree.map(lambda x: x.reshape((M * rows,) + x.shape[2:]), b)
+                   for b in batches]
+    return cfg, params, batches
+
+
+def _s14_steps(cfg, params, batches, mode: str, wm=None):
+    """Two steps of ``make_train_step`` (momentum SGD; gossip mode on the
+    fused bus over a ring of the workers) from this rank's cut on a mesh:
+    (params, metrics, gossip_mix launches)."""
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.core import topology as T
+    from repro_torch.core.decentralized import init_state, make_train_step
+    from repro_torch.core.gossip import GossipSpec
+    from repro_torch.launch.shardings import local_tree, param_pspecs
+    from repro_torch.models import model as Mo
+    from repro_torch.optim import momentum_sgd
+
+    opt, gossip, specs = momentum_sgd(0.05, 0.9), None, None
+    if mode == "gossip":
+        ring = T.undirected_ring(S14_NARROW_SHAPE[0])
+        gossip = GossipSpec(topology=ring, backend="fused") if wm is None else \
+            GossipSpec.for_mesh(ring, wm, backend="fused")
+    if wm is not None:
+        specs = param_pspecs(cfg, wm, mode)
+        params = local_tree(params, specs, wm)
+        batches = [local_tree(b, _tree.map(lambda _: wm.worker_spec(), b), wm)
+                   for b in batches]
+    step = make_train_step(lambda p, b: Mo.loss_fn(p, cfg, b), opt, gossip=gossip, mode=mode,
+                           mesh=wm, param_specs=specs)
+    state = init_state(_tree.map(torch.clone, params), opt)
+    reset_launches()
+    metrics = []
+    for b in batches:
+        state, m = step(state, b)
+        metrics.append(torch.stack([f.float() for f in m]))
+    torch.cuda.synchronize()
+    return state.params, torch.stack(metrics), read_launches()
+
+
+def _s14_close(got, want) -> tuple[bool, float]:
+    """(every pair within rtol 1e-5 / atol 1e-6, the largest |difference|)."""
+    import torch
+
+    ok, err = True, 0.0
+    for a, b in zip(got, want):
+        ok = ok and a.shape == b.shape and bool(torch.allclose(a, b, rtol=S14_RTOL,
+                                                               atol=S14_ATOL))
+        err = max(err, (a - b).abs().max().item())
+    return ok, err
+
+
+def _s14_narrow(wm) -> tuple[dict, dict]:
+    """C: each narrow config's two steps on the mesh against the meshless
+    steps cut to this rank; the gossip_mix launches of the mesh's steps."""
+    from repro_torch import _tree
+    from repro_torch.launch.shardings import local_tree, param_pspecs
+
+    out, launches = {}, {}
+    for name in S14_ARCHS:
+        cfg, params, batches = _s14_narrow_inputs(name, "gossip")
+        got, metrics, n = _s14_steps(cfg, params, batches, "gossip", wm)
+        launches = {k: launches.get(k, 0) + v for k, v in n.items()}
+        want, want_m, _ = _s14_steps(cfg, params, batches, "gossip")
+        cut = local_tree(want, param_pspecs(cfg, wm, "gossip"), wm)
+        ok, err = _s14_close(_tree.leaves(got) + [metrics], _tree.leaves(cut) + [want_m])
+        out[name] = {"ok": ok, "err": err}
+    return out, launches
+
+
+def _s14_rows_cut() -> dict:
+    """D: reduced mixtral routed over the whole batch (a router aux
+    coefficient of 1) in allreduce mode on a (data=2, model=1) mesh of the
+    two processes, each holding half of the rows, against the meshless
+    allreduce step over all of them."""
+    from repro_torch import _tree
+    from repro_torch.launch.mesh import WorkerMesh, make_host_mesh
+
+    wm = WorkerMesh.from_mesh(make_host_mesh(data=S13_RANKS, model=1, device="cuda",
+                                             backend="gloo"))
+    cfg, params, batches = _s14_narrow_inputs("mixtral-8x7b", "allreduce")
+    got, metrics, _ = _s14_steps(cfg, params, batches, "allreduce", wm)
+    want, want_m, _ = _s14_steps(cfg, params, batches, "allreduce")
+    ok, err = _s14_close(_tree.leaves(got) + [metrics], _tree.leaves(want) + [want_m])
+    return {"ok": ok, "err": err, "loss": [float(x) for x in metrics[:, 0]]}
+
+
+def _s14_twins(tmp: str, kept: dict, mark) -> None:
+    """Rank 0, alone on the card: for each A/B config the meshless bf16
+    twin (the same train() without a mesh: losses, ms/step, peak, its
+    params' distance from the ranks') and the step-0 loss of a float32
+    forward of the same params and batch, one worker at a time."""
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.core import topology as T
+    from repro_torch.core.gossip import GossipSpec
+    from repro_torch.models import model as Mo
+    from repro_torch.optim import momentum_sgd
+    from repro_torch.train import train
+
+    twins = {}
+    for name, (cfg, params0, batches, whole, tok_tp) in kept.items():
+        workers = params0["embed"].shape[0]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, hist = train(lambda p, b: Mo.loss_fn(p, cfg, b), params0, momentum_sgd(LR, 0.9),
+                            iter(batches), steps=S14_STEPS,
+                            gossip=GossipSpec(topology=T.undirected_ring(workers),
+                                              backend="fused"),
+                            log_every=S14_STEPS, device="cuda", verbose=False)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        err = max((a.float() - b.to(a.device).float()).abs().max().item()
+                  for a, b in zip(_tree.leaves(state.params), whole))
+        del state
+        mark(f"{name}: bf16 twin")
+        reserved = torch.cuda.max_memory_reserved() / 1e9
+        tok_bf16 = _s14_step0(params0, batches[0], cfg)
+        tok_f32 = _s14_step0(params0, batches[0], cfg, f32=True)
+        mark(f"{name}: step-0 forwards, bf16 and float32")
+        twins[name] = {"loss": hist.loss, "ms": hist.step_time[-1] * 1e3, "peak_gb": peak,
+                       "reserved_gb": reserved, "err": err,
+                       "tok_tp": (tok_tp - tok_f32).abs().mean().item(),
+                       "tok_bf16": (tok_bf16 - tok_f32).abs().mean().item(),
+                       "loss0": (tok_tp.mean().item(), tok_bf16.mean().item(),
+                                 tok_f32.mean().item()),
+                       "finite": all(bool(torch.isfinite(x).all()) for x in whole)
+                       and bool(torch.isfinite(tok_tp).all())}
+        print(f"{name} meshless bf16: losses {[round(x, 4) for x in hist.loss]}", flush=True)
+    torch.save(twins, os.path.join(tmp, "s14-twins.pt"))
 
 
 def _same_checkpoints(got_dir: str, want_dir: str) -> int:
@@ -3543,22 +3970,22 @@ def count_route_flips(params, cfg, tok, max_len: int, tag: str) -> None:
     from repro_torch.models import layers as Ly
     from repro_torch.models import model as Mo
 
-    real = Ly._route
+    real = Ly._route_logits
     runs = []
     for fn in (lambda: Mo.prefill(params, cfg, tok, max_len=max_len),
                lambda: Mo.forward(params, cfg, tok)):
         picks = []
 
-        def recording(p, c, xf, picks=picks):
-            out = real(p, c, xf)
+        def recording(c, logits, rows=None, picks=picks):
+            out = real(c, logits, rows)
             picks.append(out[1].sort(-1).values)      # the top-k set of each token
             return out
 
-        Ly._route = recording
+        Ly._route_logits = recording
         try:
             fn()
         finally:
-            Ly._route = real
+            Ly._route_logits = real
         runs.append(picks)
     flips = [int((a != b).any(-1).sum()) for a, b in zip(*runs)]
     log(f"[{tag}] router top-{cfg.top_k} sets, kernel vs blockwise route, tokens that differ "

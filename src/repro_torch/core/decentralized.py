@@ -23,17 +23,22 @@ the rank's workers, all-reduced over the worker groups). In allreduce mode
 the params are replicated and the batch is cut over the worker axes; the
 gradient is all-reduced as a mean, which is the whole batch's gradient for
 a loss that is a mean over rows. A layer that couples the rows of a call
-(an MoE layer routing the whole call, ``moe_dispatch='global'``) refuses
-there (``launch.mesh.require_whole_call``).
+(an MoE layer routing the whole call, ``moe_dispatch='global'``) computes
+it over the whole batch with collectives over the worker groups
+(``launch.mesh.rows_cut_over``, ``layers._route_logits``): its aux loss
+is the whole batch's on every rank, and its gradient reaches each rank
+scaled so that the mean over ranks is the whole batch's. With
+``microbatch > 1`` such a layer refuses: the reference's microbatches are
+chunks of the global batch's rows, which cut across the ranks' rows.
 
 With a model axis (``model_factor`` k > 1) a rank holds its 1/k shard of
 every leaf that ``param_specs`` shards over it (and the rest whole) and its
 workers' whole batches; the gradient runs inside
-``launch.mesh.model_parallel``, where the dense decoders' layers compute on
-their shards with collectives over the model group
-(``launch.tensor_parallel``); the other families refuse there. The metrics
-sum a sharded leaf's squares over the model group and count a replicated
-leaf once.
+``launch.mesh.model_parallel``, where the attention families' layers
+(dense, MoE, MLA, the encoder-decoder) compute on their shards with
+collectives over the model group (``launch.tensor_parallel``); Mamba-2
+and RG-LRU refuse there. The metrics sum a sharded leaf's squares over the
+model group and count a replicated leaf once.
 
 ``microbatch > 1`` accumulates the gradient over that many chunks of the
 per-worker batch in float32 (:func:`_microbatched`). A spec with
@@ -257,10 +262,11 @@ def make_train_step(
         replicated over the worker axes, the batch is this rank's cut of
         the global batch (``shardings.batch_pspecs``) and the gradient is
         all-reduced as a mean over the worker groups; a globally routed MoE
-        layer refuses there. At model factor k > 1 the params are also cut
-        over the model axis by ``param_specs`` (required there), every
-        model rank of a worker group sees the group's whole batch, and the
-        layers run tensor parallel (module docstring).
+        layer routes over the whole batch. At model factor k > 1 the
+        params are also cut over the model axis by ``param_specs``
+        (required there), every model rank of a worker group sees the
+        group's whole batch, and the layers run tensor parallel (module
+        docstring).
       compute_stats: gossip mode only; False skips the step's E, E_sp, H
         and consensus spread, which are then float32 zeros (the loss stays).
       mix_first: paper's eq. (3) mixes the current params and subtracts the
@@ -358,7 +364,7 @@ def make_train_step(
     n = wm.n_workers if wm is not None else 1
 
     def step(state: TrainState, batch: PyTree) -> tuple[TrainState, StepMetrics]:
-        with rows_cut_over(wm), model_parallel(wm):
+        with rows_cut_over(wm, microbatch), model_parallel(wm):
             grads, loss = vg(state.params, batch)
         cut = cut_of(state.params)
         with torch.no_grad():

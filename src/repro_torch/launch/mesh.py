@@ -23,7 +23,8 @@ workers (one when the mesh has a worker per rank) and, for a leaf sharded
 over the model axis, its 1/k piece (``launch.shardings.local_tree``).
 Inside :func:`model_parallel` the layers compute on those pieces with
 collectives over the model group (``launch.tensor_parallel``); a layer with
-no sharded form refuses there (:func:`require_dense_model`).
+no sharded form yet (Mamba-2, RG-LRU) refuses there
+(:func:`refuse_on_model_axis`).
 """
 from __future__ import annotations
 
@@ -39,8 +40,8 @@ from repro_torch import _tree
 
 __all__ = ["AbstractMesh", "WorkerMesh", "SINGLE_POD", "MULTI_POD", "MODEL_AXIS",
            "make_production_mesh", "make_worker_mesh", "make_host_mesh",
-           "worker_axes", "n_workers", "rows_cut_over", "require_whole_call",
-           "ModelShard", "model_parallel", "model_shard", "require_dense_model"]
+           "worker_axes", "n_workers", "rows_cut_over", "rows_cut",
+           "ModelShard", "model_parallel", "model_shard", "refuse_on_model_axis"]
 
 SINGLE_POD = (16, 16)                  # 256 chips
 MULTI_POD = (2, 16, 16)                # 2 pods × 256 chips = 512
@@ -325,15 +326,22 @@ def model_shard() -> "ModelShard | None":
     return _MODEL.get()
 
 
-def require_dense_model(what: str) -> None:
-    """Refuse ``what``, a layer with no tensor-parallel form yet, inside
-    :func:`model_parallel` at model factor k > 1."""
+# what each ROADMAP step (queue 1, item 3) brings to the model axis
+_STEPS = {"6b-ii": "the sharded Mamba-2 and RG-LRU layers; the attention families "
+                   "(dense, MoE, MLA, the encoder-decoder) train at k > 1",
+          "6c": "serving on a mesh; the model axis trains"}
+
+
+def refuse_on_model_axis(what: str, step: str) -> None:
+    """Refuse ``what``, a layer (Mamba-2, RG-LRU) or a serving branch (a
+    cache, the flash kernel) with no tensor-parallel form yet, inside
+    :func:`model_parallel` at model factor k > 1, naming the ROADMAP
+    ``step`` that brings it ("6b-ii" or "6c")."""
     shard = _MODEL.get()
     if shard is not None:
         raise NotImplementedError(
-            f"{what} with the replica sharded {shard.k} ways over the model axis: its "
-            "sharded layers come with ROADMAP queue 1, item 3, step 6b; the dense "
-            "decoders train at k > 1")
+            f"{what} with the replica sharded {shard.k} ways over the model axis: "
+            f"ROADMAP queue 1, item 3, step {step} brings {_STEPS[step]}")
 
 
 # the live WorkerMesh whose ranks each hold a cut of the rows of the call
@@ -342,28 +350,40 @@ _ROWS_CUT: contextvars.ContextVar = contextvars.ContextVar("rows_cut_over", defa
 
 
 @contextlib.contextmanager
-def rows_cut_over(wm: "WorkerMesh | None"):
+def rows_cut_over(wm: "WorkerMesh | None", microbatch: int = 1):
     """Within it, the call running on this rank sees only its cut of the
-    batch's rows, the others' rows being on the other ranks of ``wm`` (None:
-    the call is whole). A layer whose function couples the rows of a call
-    refuses there (:func:`require_whole_call`)."""
-    token = _ROWS_CUT.set(wm)
+    batch's rows, in worker order, the others' rows being on the other
+    ranks of ``wm`` (None: the call is whole), or, with ``microbatch`` > 1,
+    a chunk of that cut. A layer whose function couples the rows of a call
+    computes it over the whole call with collectives over ``wm``'s worker
+    groups (:func:`rows_cut`)."""
+    token = _ROWS_CUT.set(None if wm is None else (wm, microbatch))
     try:
         yield
     finally:
         _ROWS_CUT.reset(token)
 
 
-def require_whole_call(what: str) -> None:
-    """Refuse ``what``, a computation over all the rows of a call together,
-    inside :func:`rows_cut_over` a mesh of several ranks: each rank would
-    compute it over its own rows, a different function."""
-    wm = _ROWS_CUT.get()
-    if wm is not None and wm.n_workers > 1:
+def rows_cut(what: str) -> "WorkerMesh | None":
+    """The live WorkerMesh of several worker groups whose ranks hold the
+    rows of the call running now (:func:`rows_cut_over`), else None; ``what``,
+    a computation over all the rows of a call together, names the refusal
+    of an abstract mesh, which has no process group to compute it over."""
+    cut = _ROWS_CUT.get()
+    if cut is None or cut[0].n_workers <= 1:
+        return None
+    wm, microbatch = cut
+    if microbatch > 1:
         raise NotImplementedError(
-            f"{what} with the batch's rows cut over {wm.describe()} (allreduce mode): "
-            "computing it over the whole call across ranks comes with the rows-cut "
-            "global MoE (ROADMAP queue 1, item 3, step 6b)")
+            f"{what} over {microbatch} microbatches with the batch's rows cut over "
+            f"{wm.describe()}: the whole call's microbatches are chunks of the global "
+            "rows, which cut across the ranks' rows; use microbatch=1 or "
+            "moe_dispatch='per_sequence'")
+    if not wm.live:
+        raise ValueError(f"{what} with the batch's rows cut over {wm.describe()}: computing "
+                         "it over the whole call needs a live mesh (make_host_mesh), whose "
+                         "worker groups the ranks exchange over")
+    return wm
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:

@@ -17,6 +17,22 @@ GSPMD computes from the reference's specs:
   rows leaves through it.
 * :func:`max_over_model`: an all-reduce max, no gradient (a vocab-parallel
   softmax's shift).
+* :func:`gather_from_model`: an all-gather of the rank's columns along a
+  dim; its gradient is this rank's slice of the cotangent, with no sum.
+  That is right only where every cotangent reaching the gathered tensor is
+  whole and equal on every model rank, which the layers hold by
+  construction (an MoE's router logits: everything downstream of them is
+  computed redundantly, and the routing weights enter the combine through
+  *f*).
+
+A globally routed MoE whose batch rows are cut over the worker groups
+(allreduce mode on a mesh) routes over the whole batch with two
+collectives over the worker groups, not the model group:
+:func:`gather_over_rows` (each rank's per-expert counts, exact integers,
+no gradient) and :func:`sum_over_rows` (the router's per-expert
+probability sums; its gradient is the cotangent times the number of
+ranks, since the step averages the ranks' gradients where the global
+loss sums their tokens' contributions).
 
 Each is a ``torch.autograd.Function`` with ``setup_context`` and a
 hand-written vmap rule: the train step runs ``vmap(grad_and_value)`` over
@@ -41,16 +57,31 @@ import torch
 from repro_torch import _tree
 from repro_torch.launch.mesh import model_shard
 
-__all__ = ["copy_to_model", "reduce_from_model", "max_over_model", "ModelCut",
-           "model_cut", "whole_shape", "whole_leaves"]
+__all__ = ["copy_to_model", "reduce_from_model", "max_over_model", "gather_from_model",
+           "gather_over_rows", "sum_over_rows", "ModelCut", "model_cut", "whole_shape",
+           "whole_leaves"]
 
 
-def _all_reduce(x: torch.Tensor, group, op) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, groups, op) -> torch.Tensor:
+    """``x`` all-reduced (``op``) over each group in turn, out of place."""
     import torch.distributed as dist
 
     out = x.contiguous().clone()
-    dist.all_reduce(out, op=op, group=group)
+    for group in groups:
+        dist.all_reduce(out, op=op, group=group)
     return out
+
+
+def _all_gather(x: torch.Tensor, groups, dim: int) -> torch.Tensor:
+    """``x`` all-gathered along ``dim`` over each group in turn, the last
+    first, so that the first group's index ends up major."""
+    import torch.distributed as dist
+
+    for group in reversed(groups):
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        x = torch.cat(parts, dim)
+    return x
 
 
 def _front(x: torch.Tensor, bdim):
@@ -62,7 +93,7 @@ class _Reduce(torch.autograd.Function):
 
     @staticmethod
     def forward(x, group, op):
-        return _all_reduce(x, group, op)
+        return _all_reduce(x, (group,), op)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -74,7 +105,8 @@ class _Reduce(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, x, group, op):
-        return _all_reduce(_front(x, in_dims[0]), group, op), (None if in_dims[0] is None else 0)
+        out = _all_reduce(_front(x, in_dims[0]), (group,), op)
+        return out, (None if in_dims[0] is None else 0)
 
 
 class _Copy(torch.autograd.Function):
@@ -97,6 +129,61 @@ class _Copy(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, x, group):
         return x.view_as(x), in_dims[0]
+
+
+def _shifted(dim: int, bdim) -> int:
+    """``dim`` of a logical tensor in its batched form, the batch dim at 0."""
+    return dim if dim < 0 or bdim is None else dim + 1
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim`` over ``groups`` forward; backward: this
+    rank's slice (``index``, first group major) of the cotangent."""
+
+    @staticmethod
+    def forward(x, groups, index, dim):
+        return _all_gather(x, groups, dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, _, index, dim = inputs
+        ctx.index, ctx.dim, ctx.n = index, dim, x.shape[dim]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.index * ctx.n, ctx.n), None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, groups, index, dim):
+        bdim = in_dims[0]
+        out = _all_gather(_front(x, bdim), groups, _shifted(dim, bdim))
+        return out, (None if bdim is None else 0)
+
+
+class _SumRows(torch.autograd.Function):
+    """All-reduce sum over ``groups`` forward; backward: the cotangent
+    times ``n``."""
+
+    @staticmethod
+    def forward(x, groups, n):
+        import torch.distributed as dist
+
+        return _all_reduce(x, groups, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.n = inputs[2]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.n, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, groups, n):
+        import torch.distributed as dist
+
+        return (_all_reduce(_front(x, in_dims[0]), groups, dist.ReduceOp.SUM),
+                None if in_dims[0] is None else 0)
 
 
 def copy_to_model(x: torch.Tensor) -> torch.Tensor:
@@ -123,6 +210,28 @@ def max_over_model(x: torch.Tensor) -> torch.Tensor:
     shard = model_shard()
     x = x.detach()
     return x if shard is None else _Reduce.apply(x, shard.group, dist.ReduceOp.MAX)
+
+
+def gather_from_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x``, this rank's columns along ``dim``, all-gathered over the
+    model group in rank order; the gradient is this rank's slice of the
+    cotangent (no sum: every model rank must see the whole, equal
+    cotangent). The identity outside ``model_parallel``."""
+    shard = model_shard()
+    return x if shard is None else _Gather.apply(x, (shard.group,), shard.index, dim)
+
+
+def gather_over_rows(x: torch.Tensor, wm) -> torch.Tensor:
+    """Every worker group's ``x`` stacked on a new leading dim in worker
+    order (``wm``'s worker axes, the first major), with no gradient:
+    ``x`` is detached."""
+    return _Gather.apply(x.detach()[None], tuple(wm.worker_groups), wm.worker_index, 0)
+
+
+def sum_over_rows(x: torch.Tensor, wm) -> torch.Tensor:
+    """``x`` summed over ``wm``'s worker groups; its gradient is the
+    cotangent times ``wm.n_workers`` (module docstring)."""
+    return _SumRows.apply(x, tuple(wm.worker_groups), wm.n_workers)
 
 
 class ModelCut(NamedTuple):
@@ -164,12 +273,5 @@ def whole_leaves(leaves, cut: ModelCut | None):
     """Each of the rank's ``leaves`` whole, one at a time: a leaf sharded
     over the model axis all-gathered over the model group (every model
     rank calls this, in the same leaf order), a replicated one as it is."""
-    import torch.distributed as dist
-
     for x, dims in zip(leaves, cut.dims if cut is not None else ((),) * len(leaves)):
-        if not dims:
-            yield x
-            continue
-        parts = [torch.empty_like(x) for _ in range(cut.k)]
-        dist.all_gather(parts, x.contiguous(), group=cut.group)
-        yield torch.cat(parts, dims[0])
+        yield _all_gather(x, (cut.group,), dims[0]) if dims else x

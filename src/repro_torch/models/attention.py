@@ -17,8 +17,9 @@ its compressed cache (``MLACache``, and ``PagedMLACache`` for the
 continuous batcher), expanded for training and prefill, absorbed for
 decode. Tensors keep the reference's ``(B, L, H, hd)`` layout. On a
 mesh's model axis (``launch.mesh.model_parallel``) the cache-free GQA
-branch runs on the rank's heads (:func:`gqa_apply`); MLA, the caches and
-the mesh decode refuse there.
+branch, self or over a memory, and MLA's cache-free expanded form run on
+the rank's heads (:func:`gqa_apply`, :func:`mla_apply`); the caches, the
+flash kernel and the mesh decode refuse there.
 
 Paged decode keeps the reference's formulation: q is scored against the
 whole page pool, the block table gathers each slot's (NB, page) scores, and
@@ -55,7 +56,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.launch import tensor_parallel as tp
-from repro_torch.launch.mesh import model_shard, require_dense_model
+from repro_torch.launch.mesh import model_shard, refuse_on_model_axis
 from repro_torch.models.layers import rmsnorm_apply, rmsnorm_defs, rope
 from repro_torch.models.params import ParamDef
 
@@ -401,11 +402,14 @@ def gqa_apply(params, cfg: ModelConfig, x, *, positions=None, q_base: int = 0,
 
     Inside ``launch.mesh.model_parallel``, with ``wq`` cut to this rank's
     q heads (``params`` are the rank's shards; ``cfg``'s head counts stay
-    global), the cache-free self-attention is tensor parallel: ``x``
-    enters through ``copy_to_model``, the rank attends with its q heads
-    (and its kv heads where they shard, else the replicated kv heads those
-    q heads read, entering through ``copy_to_model``), and the output
-    projection's partial sum leaves through ``reduce_from_model``.
+    global), the cache-free attention, self or over a memory, is tensor
+    parallel: ``x`` enters through ``copy_to_model``, the rank attends with
+    its q heads (and its kv heads where they shard, projected from the
+    memory entering through its own ``copy_to_model``; else the replicated
+    kv heads those q heads read, entering through ``copy_to_model``), and
+    the output projection's partial sum leaves through
+    ``reduce_from_model``. A cache or the flash kernel (serving) refuses
+    there.
     """
     B, L, _ = x.shape
     paged = isinstance(cache, PagedKVCache)
@@ -415,11 +419,12 @@ def gqa_apply(params, cfg: ModelConfig, x, *, positions=None, q_base: int = 0,
     shard = model_shard() if params["wq"].shape[-2] < cfg.n_heads else None
     kv_sharded = shard is not None and params["wk"].shape[-2] < cfg.n_kv_heads
     if shard is not None:
-        if cache is not None or memory is not None:
-            require_dense_model("attention with a cache or over a memory")
+        if cache is not None or flash:
+            refuse_on_model_axis("attention with a cache or through the flash kernel", "6c")
         x = tp.copy_to_model(x)
         if kv_sharded:
-            kv_src = x
+            # a memory enters each cross-attention through its own f
+            kv_src = x if memory is None else tp.copy_to_model(memory)
     q = torch.einsum("bld,dhk->blhk", x, params["wq"])
     k = torch.einsum("bld,dhk->blhk", kv_src, params["wk"])
     v = torch.einsum("bld,dhk->blhk", kv_src, params["wv"])
@@ -619,14 +624,27 @@ def mla_apply(params, cfg: ModelConfig, x, *, q_base: int = 0,
     slot at its own position. The scale is ``1/sqrt(qk_nope + qk_rope)``.
     ``q_base``: the position of the first token of the expanded form's chunk
     (rope positions and causal offset), as in the reference.
+
+    Inside ``launch.mesh.model_parallel``, with the heads cut over the
+    model axis (``wq``, ``w_uk``, ``w_uv`` and ``wo``; ``H`` is the local
+    head count), the cache-free expanded form is tensor parallel: ``x``
+    enters the query product through ``copy_to_model``; the latent and the
+    rope key come whole from ``x`` through the replicated ``w_dkv`` and
+    ``kv_norm`` (so their gradients are whole) and enter the rank's heads
+    through one ``copy_to_model``; the output projection's partial sum
+    leaves through ``reduce_from_model``. A cache (prefill, the absorbed
+    and paged decodes, the flash call) refuses there.
     """
-    require_dense_model("multi-head latent attention (MLA)")
     B, L, _ = x.shape
-    H = cfg.n_heads
+    H = params["wq"].shape[-2]
+    shard = model_shard() if H < cfg.n_heads else None
+    if shard is not None and cache is not None:
+        refuse_on_model_axis("multi-head latent attention (MLA) with a cache", "6c")
     r, dn, dr = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim
     scale = float(1.0 / np.sqrt(dn + dr))
 
-    q = torch.einsum("bld,dhk->blhk", x, params["wq"])            # (B, L, H, dn + dr)
+    xq = x if shard is None else tp.copy_to_model(x)
+    q = torch.einsum("bld,dhk->blhk", xq, params["wq"])           # (B, L, H, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     dkv = x @ params["w_dkv"]                                      # (B, L, r + dr)
     ckv = rmsnorm_apply(params["kv_norm"], dkv[..., :r], cfg.norm_eps)
@@ -649,9 +667,13 @@ def mla_apply(params, cfg: ModelConfig, x, *, q_base: int = 0,
         q_pos = q_base + torch.arange(L, device=x.device)
         q_rope = rope(q_rope, q_pos, cfg.rope_theta)
         k_rope = rope(k_rope_in, q_pos, cfg.rope_theta)[:, :, 0]   # (B, L, dr)
-        k_nope = torch.einsum("blr,rhk->blhk", ckv, params["w_uk"])
-        v = torch.einsum("blr,rhk->blhk", ckv, params["w_uv"])
-        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, L, H, dr)], dim=-1)
+        ckv_h, k_rope_h = ckv, k_rope
+        if shard is not None:     # whole latents into the rank's heads: one f
+            lat = tp.copy_to_model(torch.cat([ckv, k_rope], dim=-1))
+            ckv_h, k_rope_h = lat[..., :r], lat[..., r:]
+        k_nope = torch.einsum("blr,rhk->blhk", ckv_h, params["w_uk"])
+        v = torch.einsum("blr,rhk->blhk", ckv_h, params["w_uv"])
+        k = torch.cat([k_nope, k_rope_h[:, :, None, :].expand(B, L, H, dr)], dim=-1)
         qq = torch.cat([q_nope, q_rope], dim=-1)
         kv_valid = None
         if lengths is not None:      # ragged right-padded prefill: mask the pad keys
@@ -665,7 +687,8 @@ def mla_apply(params, cfg: ModelConfig, x, *, q_base: int = 0,
             cache.ckv[:, :L] = ckv
             cache.krope[:, :L] = k_rope
             new_cache = MLACache(cache.ckv, cache.krope, cache.pos + L)
-        return torch.einsum("blhk,hkd->bld", o, params["wo"]), new_cache
+        out = torch.einsum("blhk,hkd->bld", o, params["wo"])
+        return (out if shard is None else tp.reduce_from_model(out)), new_cache
 
     # cached decode, absorbed form: scores in the compressed space
     pos = cache.pos

@@ -38,16 +38,21 @@ sites: every decoder layer, list or scanned, and every layer of a stacked
 encoder; a list encoder's layers are not wrapped (:mod:`.remat`).
 
 Inside ``launch.mesh.model_parallel`` (the train step on a mesh of model
-factor k > 1) the dense decoders' training forward is tensor parallel, as
-GSPMD computes the reference's from its specs: attention over the rank's
-heads and the MLP over its ``ff`` columns (``attention.gqa_apply``,
-``layers.mlp_apply``), and, where the vocab is cut over the model axis
-(k divides it), a masked lookup of the rank's embedding rows and a
-vocab-parallel cross entropy (:func:`_embed`, :func:`cross_entropy_chunked`).
-Between blocks the activations stay whole on every rank: the reference's
+factor k > 1) the training forward of the attention families is tensor
+parallel, as GSPMD computes the reference's from its specs: attention
+over the rank's heads, self or over the encoder's memory, and MLA's
+expanded form over its heads (``attention.gqa_apply``,
+``attention.mla_apply``), the MLP over its ``ff`` columns
+(``layers.mlp_apply``), the MoE over its experts or their ``expert_ff``
+columns (``layers.moe_apply``), the encoder's layers the same way, and,
+where the vocab is cut over the model axis (k divides it), a masked
+lookup of the rank's embedding rows and a vocab-parallel cross entropy
+(:func:`_embed`, :func:`cross_entropy_chunked`). Between blocks the
+activations stay whole on every rank: the reference's
 ``shard_activations`` pin (``_act_shard``), a layout with no numerical
-effect, has no counterpart. MoE, MLA, Mamba-2, RG-LRU and the encoder
-refuse there (``launch.mesh.require_dense_model``).
+effect, has no counterpart; nor has its ``moe_shard="capacity"`` pin.
+Mamba-2 and RG-LRU refuse there, as do caches and the flash kernel
+(``launch.mesh.refuse_on_model_axis``).
 """
 from __future__ import annotations
 
@@ -60,7 +65,7 @@ import torch
 from repro_torch import _tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import tensor_parallel as tp
-from repro_torch.launch.mesh import model_shard, require_dense_model
+from repro_torch.launch.mesh import model_shard
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models import remat as remat_lib
@@ -319,7 +324,6 @@ def encode(params, cfg: ModelConfig, enc_embeds: torch.Tensor, *,
     as in the reference, which the training path needs: the kernel is
     forward only. With ``cfg.remat`` a stacked encoder's layers are
     recomputed in the backward pass of a training forward."""
-    require_dense_model("the encoder-decoder")
     x = enc_embeds.to(getattr(torch, cfg.compute_dtype))
     enc = params["encoder"]
     scanned = not isinstance(enc["layers"], list)

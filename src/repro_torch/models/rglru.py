@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.mesh import require_dense_model
+from repro_torch.launch.mesh import refuse_on_model_axis
 from repro_torch.models.layers import _gelu
 from repro_torch.models.params import ParamDef
 
@@ -96,7 +96,7 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def rglru_apply(params, cfg: ModelConfig, x, *, cache: RGLRUCache | None = None):
     """x: (B, L, D) -> ((B, L, D), new cache or None)."""
-    require_dense_model("an RG-LRU layer")
+    refuse_on_model_axis("an RG-LRU layer", "6b-ii")
     B, L, D = x.shape
     W = cfg.lru_width or D
     gate = _gelu(x @ params["w_in_gate"])

@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.mesh import require_dense_model
+from repro_torch.launch.mesh import refuse_on_model_axis
 from repro_torch.models.layers import rmsnorm_apply, rmsnorm_defs
 from repro_torch.models.params import ParamDef
 
@@ -141,7 +141,7 @@ def mamba2_apply(params, cfg: ModelConfig, x, *, cache: MambaCache | None = None
     """x: (B, L, D) -> ((B, L, D), new cache or None). With a cache and L == 1,
     one recurrent decode step; with a cache and L > 1, a prefill from an
     empty cache that leaves the conv tail and the final state in it."""
-    require_dense_model("a Mamba-2 layer")
+    refuse_on_model_axis("a Mamba-2 layer", "6b-ii")
     Bsz, L, _ = x.shape
     di, G, N, H, P = cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
     conv_dim = di + 2 * G * N

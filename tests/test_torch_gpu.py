@@ -1032,3 +1032,68 @@ def test_tensor_parallel_functions_under_vmap_at_group_size_one_on_card(cuda, tm
     for r in (False, True):
         for a, b in zip(_tree.leaves(got[r]), _tree.leaves(want[r])):
             assert a.is_cuda and torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_gather_from_model_under_vmap_at_group_size_one_on_card(cuda, tmp_path):
+    """gather_from_model on CUDA tensors, its model group a world-size-1
+    NCCL group: inside an MoE-like router (the gathered logits through a
+    softmax) under vmap(grad_and_value) over 3 stacked workers, the loss
+    and gradients equal the same function with no model group bit for bit
+    (a gather over one rank, and its backward's slice, are the value)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import tensor_parallel as tp
+
+    w, x = _randn((3, 64, 8), F32, 0, cuda), _randn((3, 5, 64), F32, 1, cuda)
+
+    def run():
+        def loss(w, x):
+            z = tp.gather_from_model(tp.copy_to_model(x) @ w, -1)
+            return torch.sum(torch.softmax(z, -1) * torch.arange(8.0, device=z.device))
+        return torch.func.vmap(torch.func.grad_and_value(loss, argnums=(0, 1)))(w, x)
+
+    want = run()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        token = mesh_lib._MODEL.set(mesh_lib.ModelShard(dist.group.WORLD, 1, 0))
+        try:
+            got = run()
+        finally:
+            mesh_lib._MODEL.reset(token)
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(_tree.leaves(got), _tree.leaves(want)):
+        assert a.is_cuda and torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [2, 4, 8])
+def test_moe_expert_shards_fill_only_their_slots_on_card(cuda, k):
+    """On the card, each of k expert shards fills and runs only its slots
+    [r·(E/k)·C, (r+1)·(E/k)·C), dropped tokens included; the k partial
+    outputs sum to the whole dispatch (rtol 1e-5 / atol 1e-6). float64, as
+    the CPU twin: in float32 cuBLAS picks other products for a batch of
+    one expert than of eight, 8.8e-6 apart, and only a wrong slot should
+    show here."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as Ly
+
+    cfg = get_config("mixtral-8x7b", reduced=True, d_model=64, n_experts=8, top_k=2,
+                     d_ff_expert=32, param_dtype="float64", compute_dtype="float64")
+    rng = np.random.default_rng(0)
+    params = _tree.map(lambda d: torch.from_numpy(0.3 * rng.normal(size=d.shape)).to(cuda),
+                       Ly.moe_defs(cfg))
+    xf = _randn((96, 64), F32, 3, cuda).double()
+    topw, _, keep, slot, capacity, _ = Ly._route_logits(cfg, (xf @ params["router"]).float())
+    assert not bool(keep.all())
+    want = Ly._dispatch(params, cfg, xf, topw, keep, slot, capacity)
+    e = cfg.n_experts // k
+    total = torch.zeros_like(want)
+    for r in range(k):
+        local = {n: params[n][r * e:(r + 1) * e] for n in ("w_gate", "w_up", "w_down")}
+        total += Ly._dispatch(local, cfg, xf, topw, keep, slot, capacity, first=r * e)
+    torch.testing.assert_close(total, want, rtol=1e-5, atol=1e-6)

@@ -191,10 +191,12 @@ def test_state_specs_mirror_the_optimizer_state():
     ("global", (4, 1), True), ("global", (1, 1), False), ("per_sequence", (4, 1), False)],
     ids=["global-4-ranks", "global-1-rank", "per-sequence-4-ranks"])
 def test_a_globally_routed_moe_refuses_rows_cut_over_ranks(dispatch, shape, refuses):
-    """Inside ``rows_cut_over`` a mesh of several ranks (allreduce mode's
-    forward on a mesh), an MoE layer routing the whole call refuses, naming
-    the step that brings it; one rank, or routing per sequence, computes
-    the loss as without the context."""
+    """Inside ``rows_cut_over`` an abstract mesh of several ranks, an MoE
+    layer routing the whole call refuses: routing the whole call over the
+    ranks' rows takes collectives over the worker groups, which only a live
+    mesh has (``tests/test_torch_train_tp_moe.py`` trains it on one); one
+    rank, or routing per sequence, computes the loss as without the
+    context."""
     cfg = tget_config("mixtral-8x7b", reduced=True, n_layers=1, d_model=32, n_heads=2,
                       n_kv_heads=1, head_dim=16, d_ff_expert=32, vocab_size=64,
                       moe_dispatch=dispatch)
@@ -204,8 +206,8 @@ def test_a_globally_routed_moe_refuses_rows_cut_over_ranks(dispatch, shape, refu
     want = TM.loss_fn(params, cfg, batch)
     with TLM.rows_cut_over(wm):
         if refuses:
-            with pytest.raises(NotImplementedError,
-                               match=r"moe_dispatch='global'.*ROADMAP queue 1, item 3, step 6"):
+            with pytest.raises(ValueError,
+                               match=r"moe_dispatch='global'.*needs a live mesh"):
                 TM.loss_fn(params, cfg, batch)
         else:
             assert torch.equal(TM.loss_fn(params, cfg, batch), want)

@@ -89,13 +89,18 @@ ROUTE_CASES = {
 }
 
 
+def _route(tp, tcfg, xf):
+    """The port's routing of a flat token matrix through the whole router."""
+    return TL._route_logits(tcfg, (xf @ tp["router"]).float())
+
+
 @pytest.mark.parametrize("case", list(ROUTE_CASES))
 def test_moe_tokens_routing_equal_then_values(case):
     jcfg, tcfg = _cfgs(**ROUTE_CASES[case])
     jp, tp = _moe_params(jcfg, zero_router=case == "ties")
     xf = _x(tcfg).reshape(-1, tcfg.d_model)
     topi, keep, slot = _jax_route(jp, jcfg, jnp.asarray(xf))
-    _, t_topi, t_keep, t_slot, capacity, _ = TL._route(tp, tcfg, torch.from_numpy(xf))
+    _, t_topi, t_keep, t_slot, capacity, _ = _route(tp, tcfg, torch.from_numpy(xf))
     assert capacity == int(np.ceil(xf.shape[0] * tcfg.top_k / tcfg.n_experts
                                    * tcfg.capacity_factor))
     np.testing.assert_array_equal(t_topi.numpy(), topi)
@@ -106,7 +111,9 @@ def test_moe_tokens_routing_equal_then_values(case):
     if case == "ties":
         assert (topi == np.arange(tcfg.top_k)).all()     # the lower indices first
     jy, jaux = JL._moe_tokens(jp, jcfg, jnp.asarray(xf))
-    ty, taux = TL._moe_tokens(tp, tcfg, torch.from_numpy(xf))
+    xt = torch.from_numpy(xf)
+    topw, _, t_keep, t_slot, capacity, taux = _route(tp, tcfg, xt)
+    ty = TL._dispatch(tp, tcfg, xt, topw, t_keep, t_slot, capacity)
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=ATOL_OUT, rtol=0)
     np.testing.assert_allclose(taux.item(), float(jaux), atol=ATOL_OUT, rtol=0)
 
@@ -123,7 +130,7 @@ def test_moe_apply_every_dispatch_matches(dispatch, shard, shared):
     if dispatch != "global":    # each sequence routed on its own: its routes equal
         for b in range(x.shape[0]):
             want = _jax_route(jp, jcfg, jnp.asarray(x[b]))
-            got = TL._route(tp, tcfg, torch.from_numpy(x[b]))[1:4]
+            got = _route(tp, tcfg, torch.from_numpy(x[b]))[1:4]
             for w, g in zip(want, got):
                 np.testing.assert_array_equal(g.numpy(), w)
     jy, jaux = JL.moe_apply(jp, jcfg, jnp.asarray(x))

@@ -4,8 +4,9 @@ One launch of 8 ranks for the whole file (a ``FileStore`` in a temporary
 directory): this file, run as a script, is one rank. Meshes: 4 × 1 (ranks
 0–3; M = 4, one worker per rank, and M = 8, two), 8 × 1 and
 ``(pod, data) = (2, 4)`` with M = 8, all with model factor 1; a 4 × 2 mesh
-for restores, which only cut, and for the families that refuse the model
-axis (``tests/test_torch_train_tp.py`` trains the dense decoders on it). Models:
+for restores, which only cut, and for one step of every family on the model
+axis (``tests/test_torch_train_tp.py`` and ``tests/test_torch_train_tp_moe.py``
+hold them to oracles there). Models:
 granite-3-2b and mixtral-8x7b (global MoE routing) at 2 layers and narrow
 widths, float32, different random weights per worker from a numpy seed.
 
@@ -13,8 +14,8 @@ Step cases (``make_train_step(mesh=, param_specs=)``, two steps each): the
 fused, ``ppermute``, ``allreduce`` and hierarchical backends,
 ``mix_first=False``, ``period=2``, one-peer time-varying, ``microbatch=2``,
 ``compute_stats`` off, ``adafactor_like``, and ``mode='allreduce'`` (with
-``microbatch=2`` too, and mixtral routed per sequence; routed over the
-whole call, as by default, it refuses: the rows are cut over the ranks).
+``microbatch=2`` too, and mixtral routed per sequence, or over the whole
+call, as by default, which routes over every rank's rows).
 Loop cases (``train(mesh=, param_specs=)``): sharded
 checkpoints through the asynchronous writer (WorkerMesh coordinates as
 keys, and ``w{j}`` with a bare DeviceMesh), a monolithic checkpoint
@@ -197,6 +198,21 @@ def _run_step_case(case, wm=None):
     return {"params": state.params, "opt": state.opt_state, "metrics": torch.stack(metrics)}
 
 
+# mixtral routed over the whole call in allreduce mode: its rows cut over
+# the 4 × 1 mesh's ranks
+MOE_GLOBAL = dict(BY_NAME["4x1-allreduce-mode"], arch="mixtral",
+                  name="4x1-allreduce-mode-moe")
+
+
+def _moe_train(mesh=None):
+    """train() of MOE_GLOBAL: its final params and losses."""
+    cfg, single, rows = _inputs(MOE_GLOBAL)
+    state, hist = train(lambda p, b: Mo.loss_fn(p, cfg, b), single, O.momentum_sgd(LR, 0.9),
+                        iter(rows), steps=STEPS, mode="allreduce", mesh=mesh, log_every=1,
+                        device="cpu", verbose=False)
+    return {"params": state.params, "loss": hist.loss}
+
+
 def _batches(case):
     _, _, batches = _inputs(case)
     return iter(batches)
@@ -225,7 +241,8 @@ def _global_like(case, single=False):
                      Mo.model_defs(cfg))
 
 
-# configs tried at model factor 2: granite trains, the others refuse
+# configs tried at model factor 2: the attention families train, the
+# recurrent ones refuse
 MODEL_AXIS_ARCHS = ("granite-3-2b", "mixtral-8x7b", "deepseek-v2-lite-16b", "mamba2-2.7b",
                     "recurrentgemma-2b", "seamless-m4t-large-v2")
 
@@ -283,22 +300,11 @@ def _rank_main(rank: int, store_path: str, out_dir: str) -> None:
         out["cases"][case["name"]] = {"coord": wm.coordinate, **_run_step_case(case, wm)}
 
     # allreduce mode cuts the rows over the ranks: an MoE layer routing the
-    # whole call refuses, in the step and in train()
-    out["moe_refusals"] = {}
+    # whole call routes over every rank's rows, in the step and in train()
+    out["moe_global"] = {}
     if dms["4x1"].get_coordinate() is not None:
-        moe = dict(BY_NAME["4x1-allreduce-mode"], arch="mixtral", name="4x1-allreduce-mode-moe")
-        cfg, single, rows = _inputs(moe)
-        tries = {"step": lambda: _run_step_case(moe, wms["4x1"]),
-                 "train": lambda: train(lambda p, b: Mo.loss_fn(p, cfg, b), single,
-                                        O.momentum_sgd(LR, 0.9), iter(rows), steps=1,
-                                        mode="allreduce", mesh=wms["4x1"], device="cpu",
-                                        verbose=False)}
-        for what, fn in tries.items():
-            try:
-                fn()
-                out["moe_refusals"][what] = None
-            except NotImplementedError as e:
-                out["moe_refusals"][what] = str(e)
+        out["moe_global"] = {"step": _run_step_case(MOE_GLOBAL, wms["4x1"]),
+                             "train": _moe_train(wms["4x1"])}
 
     # train() on the 4 × 1 mesh; the async writer's snapshots recorded
     snaps = []
@@ -362,10 +368,8 @@ def _rank_main(rank: int, store_path: str, out_dir: str) -> None:
                                            _global_like(case), device="cpu", wmesh=wm)
         out["restored"][mesh_name] = got
 
-    # the model axis: the dense decoders train on it (granite); the other
-    # families' layers refuse inside the step, naming the step that brings
-    # them (their first layer of a kind without a sharded form: MoE, MLA,
-    # Mamba-2, RG-LRU, the encoder)
+    # the model axis: the attention families train on it; Mamba-2 and
+    # RG-LRU refuse inside the step, naming the step that brings them
     wm = wms["4x2"]
     for name in MODEL_AXIS_ARCHS:
         out["refusals"][name] = _model_axis_step(name, wm)
@@ -694,15 +698,20 @@ def test_restore_and_consensus_cut_to_the_rank_at_any_model_factor(ranks, meshle
 def test_allreduce_mode_refuses_a_globally_routed_moe_on_a_mesh(ranks):
     """With the rows cut over the 4 × 1 mesh's ranks, an MoE layer routing
     the whole call (capacity, dropped tokens and the aux loss over all its
-    tokens) would compute another function: the step and train() refuse,
-    naming the step that brings it."""
-    got = [r["moe_refusals"] for r in ranks["ranks"] if r["moe_refusals"]]
+    tokens) no longer refuses: it routes over every rank's rows, so the
+    step and train() equal the meshless whole-batch step and train() at
+    rtol 1e-5 / atol 1e-6, loss and metrics included."""
+    want_step = _meshless(MOE_GLOBAL)
+    want_train = _single_thread(_moe_train)
+    got = [r["moe_global"] for r in ranks["ranks"] if r["moe_global"]]
     assert len(got) == 4
-    for refusals in got:
-        assert set(refusals) == {"step", "train"}
-        for what, msg in refusals.items():
-            assert msg is not None and "moe_dispatch='global'" in msg, (what, msg)
-            assert "ROADMAP queue 1, item 3, step 6" in msg, (what, msg)
+    for r in got:
+        for what, want in (("step", want_step), ("train", want_train)):
+            for a, b in zip(_tree.leaves(r[what]["params"]), _tree.leaves(want["params"])):
+                torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(r["step"]["metrics"], want_step["metrics"],
+                                   rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(r["train"]["loss"], want_train["loss"], rtol=RTOL)
 
 
 def test_the_meta_waits_for_every_ranks_shards(ranks):
@@ -720,20 +729,20 @@ def test_the_meta_waits_for_every_ranks_shards(ranks):
 
 
 def test_model_axis_is_refused_naming_the_tensor_parallel_step(ranks):
-    """At model factor 2 granite (a dense decoder) takes a step, and every
-    other family refuses in its first layer without a sharded form,
-    naming the step that brings it."""
-    layer = {"mixtral-8x7b": "an MoE layer",
-             "deepseek-v2-lite-16b": "multi-head latent attention (MLA)",
-             "mamba2-2.7b": "a Mamba-2 layer", "recurrentgemma-2b": "an RG-LRU layer",
-             "seamless-m4t-large-v2": "the encoder-decoder"}
+    """At model factor 2 the attention families take a finite step: granite
+    (a dense decoder), mixtral (MoE), deepseek-v2-lite (MLA and MoE) and
+    seamless (the encoder-decoder); Mamba-2 and RG-LRU refuse in their
+    first layer, naming the step that brings them."""
+    layer = {"mamba2-2.7b": "a Mamba-2 layer", "recurrentgemma-2b": "an RG-LRU layer"}
     for r in ranks["ranks"]:
         assert set(r["refusals"]) == set(MODEL_AXIS_ARCHS)
-        assert r["refusals"]["granite-3-2b"] is None
+        for name in MODEL_AXIS_ARCHS:
+            if name not in layer:
+                assert r["refusals"][name] is None, (name, r["refusals"][name])
         for name, what in layer.items():
             msg = r["refusals"][name]
             assert msg is not None and msg.startswith(what), (name, msg)
-            assert "ROADMAP queue 1, item 3, step 6b" in msg, (name, msg)
+            assert "ROADMAP queue 1, item 3, step 6b-ii" in msg, (name, msg)
 
 
 if __name__ == "__main__":
