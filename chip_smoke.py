@@ -250,8 +250,8 @@ through these phases, in order, and exits non-zero at the first failure:
    async sharded checkpoint. Gates: finite losses, the same on both ranks;
    one gossip_mix launch per step per rank over the rank's half of the bus
    rows; the checkpoint restored onto the mesh bit-equal; each rank's peak
-   allocated below the meshless bf16 run's (rank 0 trains it once rank 1
-   has left the card); the step-0 token losses of a forward on the mesh
+   allocated below the meshless bf16 run's (rank 0 trains it after each
+   config while rank 1 waits, its part freed); the step-0 token losses of a forward on the mesh
    within twice the meshless bf16 forward's mean distance from a float32
    forward of the same params and batch (one worker at a time). The params
    after the steps are reported beside the meshless run's, not gated. C:
@@ -261,7 +261,31 @@ through these phases, in order, and exits non-zero at the first failure:
    whole batch in allreduce mode on a (data=2, model=1) mesh of the same
    processes, its rows cut over them, against the meshless allreduce step
    over the whole batch at the same tolerance.
-20. report — the run's time, one JSON line of kernels, the nvidia-smi line,
+20. slice 15 — Mamba-2 and RG-LRU on the model axis, and serving on a mesh,
+   in the same processes and mesh. A, B: mamba2-2.7b (4 of 64 layers; 80
+   heads, vocab 50280 cut in two) and recurrentgemma-2b (3 of 26: two
+   RG-LRU layers and a local-attention one; width 2560 and vocab 256000
+   cut in two) at published widths, trained and gated as slice 14's A, B.
+   C: their narrow float32 configs of
+   ``tests/test_torch_train_tp_recurrent.py`` against the meshless step.
+   E: serving at published widths, each consensus loaded onto the mesh
+   by ``load_consensus_params(mesh=)`` (the trained ones from their
+   sharded saves, the others from a checkpoint of seeded weights):
+   granite-3-2b (40 layers), gemma-2b (MQA: the decode cache cut over the
+   sequence), deepseek-v2-lite-16b (MLA), recurrentgemma and mamba2, one
+   WaveBatcher wave each of 1088-token prompts past the flash threshold,
+   and seamless-m4t-large-v2 (2 + 2 layers) through
+   ``generate(enc_embeds=)`` over 4096 frames; granite's first 8 requests
+   of slice 7's trace through ``ContinuousBatcher(mesh=)``; the narrow
+   float32 configs of ``tests/test_torch_serve_tp.py``. Gates: one
+   flash_attention launch per attention layer per wave on each rank (the
+   bf16 kernel on the rank's heads), the same tokens on both ranks; the
+   last prefill position's logits within twice the meshless bf16
+   prefill's mean distance from a float32 forward (rank 0, after each
+   config, rank 1 waiting); every continuous request in full, its decode
+   eager (no CUDA graph over gloo); the narrow configs' greedy tokens
+   equal to meshless. Each checkpoint is removed once read.
+21. report — the run's time, one JSON line of kernels, the nvidia-smi line,
    and last the ``{"ok": true, ...}`` line.
 
 ``--collect`` runs ``gc.collect()`` before each part (and the microbatch=2
@@ -294,6 +318,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -407,6 +432,38 @@ S14_ARCHS = {"mixtral-8x7b": dict(n_kv_heads=2, n_experts=8, top_k=2, d_ff_exper
              "seamless-m4t-large-v2": dict(n_kv_heads=8)}
 S14_NARROW_SHAPE = (2, 4, 16, 8)   # workers, rows per worker, tokens per row, frames
 S14_RTOL, S14_ATOL = 1e-5, 1e-6
+# slice 15: Mamba-2 and RG-LRU on the model axis, and serving on a mesh, in
+# slice 13's two processes. Training as slice 14's (S14_STEPS steps, one
+# async sharded save): mamba2-2.7b at 4 of 64 layers, recurrentgemma-2b at
+# 3 of 26 (two RG-LRU layers and a local-attention one)
+S15_TRAIN = (("mamba2-2.7b", 4, 2, 2, 512), ("recurrentgemma-2b", 3, 2, 2, 512))
+# the narrow float32 configs of tests/test_torch_train_tp_recurrent.py
+S15_ARCHS = {"mamba2-2.7b": dict(ssm_headdim=16, ssm_state=16, ssm_chunk=8),
+             "recurrentgemma-2b": dict(n_kv_heads=1, lru_width=64, window=32)}
+# serving on the (data=1, model=2) mesh at published widths, each consensus
+# through load_consensus_params(mesh=): (config, layers (None: all), rows,
+# prompt tokens, new tokens); prompts past 1024 tokens take the flash
+# kernel; the trained configs come from their sharded saves, the others
+# from a consensus checkpoint of seeded weights; seamless encodes its
+# 4096 frames (slice 10's)
+S15_SERVE = (("granite-3-2b", None, 2, 1088, 32), ("gemma-2b", 6, 2, 1088, 32),
+             ("deepseek-v2-lite-16b", 4, 4, 1088, 32), ("recurrentgemma-2b", 3, 2, 1088, 32),
+             ("mamba2-2.7b", 4, 2, 1088, 32), (S10_NAME, 2, 4, 8, 32))
+# granite through ContinuousBatcher(mesh=): the first requests of slice 7's
+# trace, their new tokens capped for the phase's time (an eager decode step
+# of 40 layers over gloo takes ≈ 0.3 s)
+S15_CB_REQUESTS, S15_CB_MAX_NEW = 8, 48
+# the narrow float32 configs of tests/test_torch_serve_tp.py: greedy tokens
+# on the mesh equal to meshless
+S15_NARROW_SERVE = {
+    "granite-3-2b": dict(n_heads=8, head_dim=8, d_ff=128, n_kv_heads=4),
+    "gemma-2b": dict(n_heads=8, head_dim=16, d_ff=128, n_kv_heads=1, vocab_size=250),
+    "deepseek-v2-lite-16b": dict(n_heads=8, n_experts=8, top_k=3, d_ff_expert=32,
+                                 n_shared_experts=2, d_ff=128),
+    "recurrentgemma-2b": dict(n_heads=8, head_dim=8, d_ff=128, n_kv_heads=1, lru_width=64,
+                              window=8),
+    "mamba2-2.7b": dict(ssm_headdim=16, ssm_state=16, ssm_chunk=8),
+    S10_NAME: dict(n_heads=8, head_dim=8, d_ff=128, n_kv_heads=8)}
 # ``--collect`` runs gc.collect() before each part, as the script did while
 # the tree helpers held leaves in reference cycles: each part's peak with
 # and without it shows whether a cycle holds device memory again.
@@ -2585,9 +2642,10 @@ def phase_slice13() -> dict:
     run's distance from the float32 run; the checkpoint restored onto the
     mesh bit-equal to each rank's params; each rank's peak allocated
     memory below the meshless run's. The ranks' ms/step are gloo's staging
-    through host memory, not NCCL's. Slice 14 runs in the same processes
-    (:func:`_s14_rank`, :func:`_s14_twins`, gated by
-    :func:`_gate_slice14`). Returns launches by path."""
+    through host memory, not NCCL's. Slices 14 and 15 run in the same
+    processes (:func:`_s14_rank`, :func:`_s15_rank`, :func:`_tp_twin`,
+    gated by :func:`_gate_slice14` and :func:`_gate_slice15`). Returns
+    launches by path."""
     import tempfile
 
     import torch
@@ -2622,6 +2680,10 @@ def phase_slice13() -> dict:
         twins = torch.load(os.path.join(tmp, "twins.pt"))
         ranks14 = [torch.load(os.path.join(tmp, f"s14-rank{r}.pt")) for r in range(S13_RANKS)]
         twins14 = torch.load(os.path.join(tmp, "s14-twins.pt"))
+        ranks15 = [torch.load(os.path.join(tmp, f"s15-rank{r}.pt"), weights_only=False)
+                   for r in range(S13_RANKS)]
+        twins15 = torch.load(os.path.join(tmp, "s15-twins.pt"))
+        serve15 = torch.load(os.path.join(tmp, "s15-serve-twins.pt"), weights_only=False)
     flat, f32 = twins["bf16"], twins["float32"]
     by_path = {}
     for i, r in enumerate(ranks):
@@ -2665,27 +2727,49 @@ def phase_slice13() -> dict:
         f"allocated, {flat['reserved_gb']:.2f} GB reserved; float32: {f32['ms']:.1f} ms/step, "
         f"peak {f32['peak_gb']:.2f} GB")
     by_path.update(_gate_slice14(ranks14, twins14))
-    log(f"[{tag}] the phase (slices 13 and 14) took {time.perf_counter() - t0:.1f} s")
+    by_path.update(_gate_slice15(ranks15, twins15, serve15))
+    log(f"[{tag}] the phase (slices 13, 14 and 15) took {time.perf_counter() - t0:.1f} s")
     return by_path
 
 
 def _gate_slice14(ranks: list, twins: dict) -> dict:
-    """Slice 14's gates (:func:`_s14_rank`, :func:`_s14_twins`). A, B: per
-    config, finite losses, the same on both ranks; one gossip_mix launch
-    per step per rank over the rank's half of the bus rows; the checkpoint
-    restored onto the mesh bit-equal; each rank's peak allocated below the
-    meshless bf16 run's; the step-0 loss (identical params, before any
-    update), token by token, within twice the meshless bf16 forward's mean
-    distance from a float32 forward: one scalar loss's distance is a single
-    draw of rounding noise, which may land near zero for either route; a
-    mean over thousands of tokens does not. The params
-    after the steps are only reported beside the twin's: router near-ties
-    flip between summation orders. C, D: every
-    rank within rtol 1e-5 / atol 1e-6 of the meshless float32 steps. Returns
-    launches by path."""
+    """Slice 14's gates (:func:`_s14_rank`, :func:`_tp_twin`). A, B:
+    :func:`_gate_tp_train`; its step-0 loss (identical params, before any
+    update) is read token by token: one scalar loss's distance from float32
+    is a single draw of rounding noise, which may land near zero for either
+    route; a mean over thousands of tokens does not. The params after the
+    steps are only reported beside the twin's: router near-ties flip
+    between summation orders. C, D: every rank within rtol 1e-5 / atol 1e-6
+    of the meshless float32 steps. Returns launches by path."""
     tag = "slice14"
+    by_path = _gate_tp_train(tag, [name for name, *_ in S14_TRAIN], ranks, twins)
+    for i, r in enumerate(ranks):
+        bad = {n: c for n, c in r["narrow"].items() if not c["ok"]}
+        if bad or r["narrow_launches"]["gossip_mix"] != 2 * len(S14_ARCHS):
+            raise AssertionError(f"{tag} rank {i}: narrow float32 configs off the meshless "
+                                 f"step: {bad}; launches {r['narrow_launches']}")
+        if not r["rows_cut"]["ok"]:
+            raise AssertionError(f"{tag} rank {i}: the rows-cut global MoE is "
+                                 f"{r['rows_cut']['err']:.3g} from the meshless allreduce step")
+        by_path[f"slice14_narrow_f32_rank{i}"] = r["narrow_launches"]
+    log(f"[{tag}] narrow float32 on the (1, 2) mesh vs meshless, max|err| per config: "
+        + ", ".join(f"{n} {c['err']:.3g}" for n, c in ranks[0]["narrow"].items())
+        + f"; the rows-cut global MoE on a (2, 1) mesh vs the whole batch: "
+        f"{max(r['rows_cut']['err'] for r in ranks):.3g}, losses {ranks[0]['rows_cut']['loss']} "
+        f"(rtol {S14_RTOL} / atol {S14_ATOL}: held)")
+    return by_path
+
+
+def _gate_tp_train(tag: str, names, ranks: list, twins: dict) -> dict:
+    """The training gates of slices 14 and 15 (:func:`_tp_train`,
+    :func:`_tp_twin`), per config: finite losses, the same on both ranks;
+    one gossip_mix launch per step per rank over the rank's half of the bus
+    rows; the checkpoint restored onto the mesh bit-equal; each rank's peak
+    allocated below the meshless bf16 run's; the step-0 token losses within
+    twice the meshless bf16 forward's mean distance from a float32 forward.
+    Returns launches by path."""
     by_path = {}
-    for name, *_ in S14_TRAIN:
+    for name in names:
         twin = twins[name]
         runs = [r["train"][name] for r in ranks]
         for i, r in enumerate(runs):
@@ -2706,7 +2790,7 @@ def _gate_slice14(ranks: list, twins: dict) -> dict:
             if not r["peak_gb"] < twin["peak_gb"]:
                 raise AssertionError(f"{tag} {name} rank {i}: peak {r['peak_gb']:.2f} GB "
                                      f"allocated, the meshless run's {twin['peak_gb']:.2f} GB")
-            by_path[f"slice14_train_tp_{name}_rank{i}"] = r["launches"]
+            by_path[f"{tag}_train_tp_{name}_rank{i}"] = r["launches"]
         err, own = twin["tok_tp"], twin["tok_bf16"]
         if not twin["finite"] or err > 2 * own:
             raise AssertionError(f"{tag} {name}: the ranks' step-0 token losses are {err:.4g} "
@@ -2718,7 +2802,7 @@ def _gate_slice14(ranks: list, twins: dict) -> dict:
             f"mean|err| {err:.4g} from the float32 forward's (meshless bf16 {own:.4g}); gate "
             f"twice: held; their means {tp0:.5f}, {bf0:.5f}, float32 {f0:.5f}; params after "
             f"{S14_STEPS} steps max|err| {twin['err']:.4g} from the meshless bf16 run's (not "
-            "gated: router near-ties)")
+            "gated: near-ties)")
         for i, r in enumerate(runs):
             log(f"[{tag}] {name} rank {i}: steps 1-{S14_STEPS - 1} {r['ms']:.1f} ms/step "
                 f"(gloo-staged, not NCCL); {r['share']:.3f} of a replica's parameters; peak "
@@ -2728,20 +2812,6 @@ def _gate_slice14(ranks: list, twins: dict) -> dict:
                 f"save's write {r['write_s']:.2f} s")
         log(f"[{tag}] {name} meshless bf16: {twin['ms']:.1f} ms/step, peak "
             f"{twin['peak_gb']:.2f} GB allocated, {twin['reserved_gb']:.2f} GB reserved")
-    for i, r in enumerate(ranks):
-        bad = {n: c for n, c in r["narrow"].items() if not c["ok"]}
-        if bad or r["narrow_launches"]["gossip_mix"] != 2 * len(S14_ARCHS):
-            raise AssertionError(f"{tag} rank {i}: narrow float32 configs off the meshless "
-                                 f"step: {bad}; launches {r['narrow_launches']}")
-        if not r["rows_cut"]["ok"]:
-            raise AssertionError(f"{tag} rank {i}: the rows-cut global MoE is "
-                                 f"{r['rows_cut']['err']:.3g} from the meshless allreduce step")
-        by_path[f"slice14_narrow_f32_rank{i}"] = r["narrow_launches"]
-    log(f"[{tag}] narrow float32 on the (1, 2) mesh vs meshless, max|err| per config: "
-        + ", ".join(f"{n} {c['err']:.3g}" for n, c in ranks[0]["narrow"].items())
-        + f"; the rows-cut global MoE on a (2, 1) mesh vs the whole batch: "
-        f"{max(r['rows_cut']['err'] for r in ranks):.3g}, losses {ranks[0]['rows_cut']['loss']} "
-        f"(rtol {S14_RTOL} / atol {S14_ATOL}: held)")
     return by_path
 
 
@@ -2816,6 +2886,7 @@ def _tp_rank(rank: int, tmp: str) -> None:
     mark(f"5 steps (step 0 {hist.step_time[0]:.1f} s) and the save")
     like = _tree.map(lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta"), params0)
     back = ckpt_lib.restore(ck, like, device="cuda", wmesh=wm, param_specs=specs)
+    _drop_checkpoint(rank, ck)
     mark("restore")
     leaves, treedef = _tree.flatten(state.params)
     flags = bus.sharded_leaf_flags(specs, wm.model_axis, treedef=treedef)
@@ -2839,12 +2910,13 @@ def _tp_rank(rank: int, tmp: str) -> None:
     batches = [_tree.map(_host, b) for b in batches]
     gc.collect()
     torch.cuda.empty_cache()
-    kept14 = _s14_rank(rank, tmp, wm, mark)
+    _s14_rank(rank, tmp, wm, mark)
+    _s15_rank(rank, tmp, wm, mark)
     dist.barrier()
     dist.destroy_process_group()
     left = os.path.join(tmp, "rank1.left")
     if rank:
-        del params0, batches, whole, kept14
+        del params0, batches, whole
         gc.collect()
         torch.cuda.empty_cache()
         open(left, "w").close()
@@ -2886,9 +2958,6 @@ def _tp_rank(rank: int, tmp: str) -> None:
     mark("distances")
     torch.save(twins, os.path.join(tmp, "twins.pt"))
     del kept, whole, params0, batches
-    gc.collect()
-    torch.cuda.empty_cache()
-    _s14_twins(tmp, kept14, mark)
     print(f"seconds since start: {', '.join(marks)}", flush=True)
 
 
@@ -2900,15 +2969,50 @@ def _host(x):
 def _s14_rank(rank: int, tmp: str, wm, mark) -> dict:
     """Slice 14 on one rank of slice 13's (data=1, model=2) mesh; writes
     its numbers to ``tmp/s14-rank{rank}.pt``. A, B: each config of
-    S14_TRAIN through ``train(mesh=wm.mesh, param_specs=...)`` on the ring,
-    one async sharded checkpoint at the end, restored onto the mesh.
-    C: the narrow float32 configs, two steps on the mesh against the
-    meshless step, each rank against its cut. D: reduced mixtral routed
-    over the whole batch in allreduce mode on a (data=2, model=1) mesh of
-    the same two processes (the rows cut over the ranks) against the
-    meshless allreduce step over the whole batch. Returns, for rank 0's
-    twins, each A/B config's inputs (on the host) and its params gathered
-    over the model group."""
+    S14_TRAIN through :func:`_tp_train`. C: the narrow float32 configs, two
+    steps on the mesh against the meshless step, each rank against its cut.
+    D: reduced mixtral routed over the whole batch in allreduce mode on a
+    (data=2, model=1) mesh of the same two processes (the rows cut over the
+    ranks) against the meshless allreduce step over the whole batch.
+    After each A/B config rank 0 computes its twins (:func:`_tp_twin`,
+    written to ``tmp/s14-twins.pt``)."""
+    import torch
+
+    out, twins = {"train": {}}, {}
+    for name, layers, workers, batch, seq in S14_TRAIN:
+        out["train"][name], kept = _tp_train(rank, tmp, wm, mark, "s14", name, layers,
+                                             workers, batch, seq)
+        twins[name] = _tp_twin(rank, kept, mark)
+        del kept
+    out["narrow"], out["narrow_launches"] = _s14_narrow(wm)
+    mark("narrow float32 configs")
+    out["rows_cut"] = _s14_rows_cut()
+    mark("the rows-cut global MoE")
+    torch.save(out, os.path.join(tmp, f"s14-rank{rank}.pt"))
+    if rank == 0:
+        torch.save(twins, os.path.join(tmp, "s14-twins.pt"))
+
+
+def _drop_checkpoint(rank: int, path: str) -> None:
+    """Once every rank is past it, rank 0 removes the checkpoint directory
+    of ``path``: the phase's checkpoints would otherwise pile up in the
+    host's memory where the temporary directory is held there."""
+    import torch.distributed as dist
+
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+
+
+def _tp_train(rank: int, tmp: str, wm, mark, prefix: str, name: str, layers: int,
+              workers: int, batch: int, seq: int, keep: bool = False):
+    """One config at its published widths cut to ``layers`` through
+    ``train(mesh=wm.mesh, param_specs=...)`` on the ring of ``workers``,
+    remat on, S14_STEPS steps and one async sharded checkpoint at the end
+    (``tmp/{prefix}-{name}/ck.npz``), restored onto the mesh (then dropped
+    unless ``keep``); the step-0 token losses on the mesh before. Returns (its numbers; for rank 0's
+    twins its config, inputs (on the host), params gathered over the model
+    group and step-0 token losses, else None)."""
     import torch
 
     from repro_torch import _tree
@@ -2921,69 +3025,63 @@ def _s14_rank(rank: int, tmp: str, wm, mark) -> dict:
     from repro_torch.train import checkpoint as ckpt_lib
     from repro_torch.train import train
 
-    out, kept = {"train": {}}, {}
     rows, launch = [], bus.gossip_mix_2d
 
     def counted(w, *args, **kw):      # the rows of each launch on the bus
         rows.append(int(w.shape[-2]))
         return launch(w, *args, **kw)
 
-    for name, layers, workers, batch, seq in S14_TRAIN:
-        cfg = family_config(name, layers, remat=True)
-        params0, next_batch, loss = family_setup(cfg, workers, batch, seq)
-        params0 = _tree.map(_host, params0)      # train() moves the rank's cut
-        batches = [_tree.map(_host, next_batch()) for _ in range(S14_STEPS)]
-        specs = param_pspecs(cfg, wm, "gossip")
-        spec = GossipSpec.for_mesh(T.undirected_ring(workers), wm, backend="fused")
-        ck = os.path.join(tmp, f"s14-{name}", "ck.npz")
-        tok_tp = _s14_step0(params0, batches[0], cfg, specs, wm)
-        mark(f"{name}: step-0 forward on the mesh")
-        rows.clear()
-        bus.gossip_mix_2d = counted
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        state, hist = train(loss, params0, momentum_sgd(LR, 0.9), iter(batches),
-                            steps=S14_STEPS, gossip=spec, mesh=wm.mesh, param_specs=specs,
-                            ckpt_path=ck, ckpt_sharded=True, log_every=S14_STEPS,
-                            device="cuda", verbose=False)
-        torch.cuda.synchronize()
-        bus.gossip_mix_2d = launch
-        launches = read_launches()
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        reserved_gb = torch.cuda.max_memory_reserved() / 1e9
-        mark(f"{name}: {S14_STEPS} steps (step 0 {hist.step_time[0]:.1f} s) and the save")
-        like = _tree.map(lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta"), params0)
-        back = ckpt_lib.restore(ck, like, device="cuda", wmesh=wm, param_specs=specs)
-        leaves, treedef = _tree.flatten(state.params)
-        restored = all(torch.equal(a, b) for a, b in zip(_tree.leaves(back), leaves))
-        del back
-        mark(f"{name}: restore")
-        flags = bus.sharded_leaf_flags(specs, wm.model_axis, treedef=treedef)
-        planned = bus.plan_layout(state.params, shards=wm.model_factor, leaf_sharded=flags)
-        local_n = sum(x.numel() for x in leaves)
-        whole = [x.cpu() for x in whole_leaves(leaves, model_cut(specs, treedef, wm))]
-        mark(f"{name}: gather")
-        out["train"][name] = {
-            "loss": hist.loss, "launches": launches, "rows": list(rows),
-            "planned_rows": workers * planned.groups[0].rows,
-            "whole_rows": workers * bus.plan_layout(like).groups[0].rows,
-            "ms": hist.step_time[-1] * 1e3, "peak_gb": peak_gb, "reserved_gb": reserved_gb,
-            "write_s": sum(hist.ckpt_write_s), "restored_equal": restored,
-            "share": local_n / sum(x.numel() for x in whole)}
-        print(f"{name} on {wm.describe()}: losses {[round(x, 4) for x in hist.loss]}; "
-              f"launches {launches}; peak {peak_gb:.2f} GB", flush=True)
-        kept[name] = (cfg, params0, batches, whole, tok_tp) if rank == 0 else None
-        del state, leaves
-        gc.collect()
-        torch.cuda.empty_cache()
-    out["narrow"], out["narrow_launches"] = _s14_narrow(wm)
-    mark("narrow float32 configs")
-    out["rows_cut"] = _s14_rows_cut()
-    mark("the rows-cut global MoE")
-    torch.save(out, os.path.join(tmp, f"s14-rank{rank}.pt"))
-    return kept
+    cfg = family_config(name, layers, remat=True)
+    params0, next_batch, loss = family_setup(cfg, workers, batch, seq)
+    params0 = _tree.map(_host, params0)      # train() moves the rank's cut
+    batches = [_tree.map(_host, next_batch()) for _ in range(S14_STEPS)]
+    specs = param_pspecs(cfg, wm, "gossip")
+    spec = GossipSpec.for_mesh(T.undirected_ring(workers), wm, backend="fused")
+    ck = os.path.join(tmp, f"{prefix}-{name}", "ck.npz")
+    tok_tp = _s14_step0(params0, batches[0], cfg, specs, wm)
+    mark(f"{name}: step-0 forward on the mesh")
+    bus.gossip_mix_2d = counted
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    state, hist = train(loss, params0, momentum_sgd(LR, 0.9), iter(batches),
+                        steps=S14_STEPS, gossip=spec, mesh=wm.mesh, param_specs=specs,
+                        ckpt_path=ck, ckpt_sharded=True, log_every=S14_STEPS,
+                        device="cuda", verbose=False)
+    torch.cuda.synchronize()
+    bus.gossip_mix_2d = launch
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    reserved_gb = torch.cuda.max_memory_reserved() / 1e9
+    mark(f"{name}: {S14_STEPS} steps (step 0 {hist.step_time[0]:.1f} s) and the save")
+    like = _tree.map(lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta"), params0)
+    back = ckpt_lib.restore(ck, like, device="cuda", wmesh=wm, param_specs=specs)
+    leaves, treedef = _tree.flatten(state.params)
+    restored = all(torch.equal(a, b) for a, b in zip(_tree.leaves(back), leaves))
+    del back
+    if not keep:
+        _drop_checkpoint(rank, ck)
+    mark(f"{name}: restore")
+    flags = bus.sharded_leaf_flags(specs, wm.model_axis, treedef=treedef)
+    planned = bus.plan_layout(state.params, shards=wm.model_factor, leaf_sharded=flags)
+    local_n = sum(x.numel() for x in leaves)
+    whole = [x.cpu() for x in whole_leaves(leaves, model_cut(specs, treedef, wm))]
+    mark(f"{name}: gather")
+    entry = {
+        "loss": hist.loss, "launches": launches, "rows": list(rows),
+        "planned_rows": workers * planned.groups[0].rows,
+        "whole_rows": workers * bus.plan_layout(like).groups[0].rows,
+        "ms": hist.step_time[-1] * 1e3, "peak_gb": peak_gb, "reserved_gb": reserved_gb,
+        "write_s": sum(hist.ckpt_write_s), "restored_equal": restored,
+        "share": local_n / sum(x.numel() for x in whole)}
+    print(f"{name} on {wm.describe()}: losses {[round(x, 4) for x in hist.loss]}; "
+          f"launches {launches}; peak {peak_gb:.2f} GB", flush=True)
+    kept = (cfg, params0, batches, whole, tok_tp) if rank == 0 else None
+    del state, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return entry, kept
 
 
 def _s14_step0(params0, batch, cfg, specs=None, wm=None, f32: bool = False):
@@ -3024,10 +3122,10 @@ def _s14_step0(params0, batch, cfg, specs=None, wm=None, f32: bool = False):
     return torch.cat(out)
 
 
-def _s14_narrow_inputs(name: str, mode: str):
-    """(config, global params, batches) of a narrow float32 config on the
-    card, from numpy seeds: different weights per worker; allreduce mode
-    one replica and the workers' rows together."""
+def _s14_narrow_inputs(name: str, mode: str, archs: dict = S14_ARCHS):
+    """(config, global params, batches) of a narrow float32 config of
+    ``archs`` on the card, from numpy seeds: different weights per worker;
+    allreduce mode one replica and the workers' rows together."""
     import numpy as np
     import torch
 
@@ -3036,8 +3134,7 @@ def _s14_narrow_inputs(name: str, mode: str):
     from repro_torch.models import model as Mo
 
     M, rows, L, frames = S14_NARROW_SHAPE
-    extra = dict(S14_ARCHS[name], router_aux_coef=1.0) if mode == "allreduce" \
-        else S14_ARCHS[name]
+    extra = dict(archs[name], router_aux_coef=1.0) if mode == "allreduce" else archs[name]
     cfg = get_config(name, reduced=True, **S14_NARROW, **extra)
     rng = np.random.default_rng(3)
     params = _tree.map(lambda d: torch.from_numpy(
@@ -3106,15 +3203,15 @@ def _s14_close(got, want) -> tuple[bool, float]:
     return ok, err
 
 
-def _s14_narrow(wm) -> tuple[dict, dict]:
+def _s14_narrow(wm, archs: dict = S14_ARCHS) -> tuple[dict, dict]:
     """C: each narrow config's two steps on the mesh against the meshless
     steps cut to this rank; the gossip_mix launches of the mesh's steps."""
     from repro_torch import _tree
     from repro_torch.launch.shardings import local_tree, param_pspecs
 
     out, launches = {}, {}
-    for name in S14_ARCHS:
-        cfg, params, batches = _s14_narrow_inputs(name, "gossip")
+    for name in archs:
+        cfg, params, batches = _s14_narrow_inputs(name, "gossip", archs)
         got, metrics, n = _s14_steps(cfg, params, batches, "gossip", wm)
         launches = {k: launches.get(k, 0) + v for k, v in n.items()}
         want, want_m, _ = _s14_steps(cfg, params, batches, "gossip")
@@ -3141,12 +3238,15 @@ def _s14_rows_cut() -> dict:
     return {"ok": ok, "err": err, "loss": [float(x) for x in metrics[:, 0]]}
 
 
-def _s14_twins(tmp: str, kept: dict, mark) -> None:
-    """Rank 0, alone on the card: for each A/B config the meshless bf16
-    twin (the same train() without a mesh: losses, ms/step, peak, its
-    params' distance from the ranks') and the step-0 loss of a float32
-    forward of the same params and batch, one worker at a time."""
+def _tp_twin(rank: int, kept, mark) -> dict | None:
+    """A trained config's meshless twins, computed by rank 0 while rank 1
+    waits (its part freed): the meshless bf16 train() of the same inputs
+    (losses, ms/step, peak, its params' distance from the ranks') and the
+    step-0 token losses of bf16 and float32 forwards of the same params and
+    batch, one worker at a time. ``kept`` is :func:`_tp_train`'s; None on
+    rank 1."""
     import torch
+    import torch.distributed as dist
 
     from repro_torch import _tree
     from repro_torch.core import topology as T
@@ -3155,11 +3255,13 @@ def _s14_twins(tmp: str, kept: dict, mark) -> None:
     from repro_torch.optim import momentum_sgd
     from repro_torch.train import train
 
-    twins = {}
-    for name, (cfg, params0, batches, whole, tok_tp) in kept.items():
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    twin = None
+    if rank == 0:
+        cfg, params0, batches, whole, tok_tp = kept
         workers = params0["embed"].shape[0]
-        gc.collect()
-        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         state, hist = train(lambda p, b: Mo.loss_fn(p, cfg, b), params0, momentum_sgd(LR, 0.9),
                             iter(batches), steps=S14_STEPS,
@@ -3171,21 +3273,376 @@ def _s14_twins(tmp: str, kept: dict, mark) -> None:
         err = max((a.float() - b.to(a.device).float()).abs().max().item()
                   for a, b in zip(_tree.leaves(state.params), whole))
         del state
-        mark(f"{name}: bf16 twin")
+        mark(f"{cfg.name}: bf16 twin")
         reserved = torch.cuda.max_memory_reserved() / 1e9
         tok_bf16 = _s14_step0(params0, batches[0], cfg)
         tok_f32 = _s14_step0(params0, batches[0], cfg, f32=True)
-        mark(f"{name}: step-0 forwards, bf16 and float32")
-        twins[name] = {"loss": hist.loss, "ms": hist.step_time[-1] * 1e3, "peak_gb": peak,
-                       "reserved_gb": reserved, "err": err,
-                       "tok_tp": (tok_tp - tok_f32).abs().mean().item(),
-                       "tok_bf16": (tok_bf16 - tok_f32).abs().mean().item(),
-                       "loss0": (tok_tp.mean().item(), tok_bf16.mean().item(),
-                                 tok_f32.mean().item()),
-                       "finite": all(bool(torch.isfinite(x).all()) for x in whole)
-                       and bool(torch.isfinite(tok_tp).all())}
-        print(f"{name} meshless bf16: losses {[round(x, 4) for x in hist.loss]}", flush=True)
-    torch.save(twins, os.path.join(tmp, "s14-twins.pt"))
+        mark(f"{cfg.name}: step-0 forwards, bf16 and float32")
+        twin = {"loss": hist.loss, "ms": hist.step_time[-1] * 1e3, "peak_gb": peak,
+                "reserved_gb": reserved, "err": err,
+                "tok_tp": (tok_tp - tok_f32).abs().mean().item(),
+                "tok_bf16": (tok_bf16 - tok_f32).abs().mean().item(),
+                "loss0": (tok_tp.mean().item(), tok_bf16.mean().item(), tok_f32.mean().item()),
+                "finite": all(bool(torch.isfinite(x).all()) for x in whole)
+                and bool(torch.isfinite(tok_tp).all())}
+        print(f"{cfg.name} meshless bf16: losses {[round(x, 4) for x in hist.loss]}",
+              flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return twin
+
+
+def _s15_rank(rank: int, tmp: str, wm, mark) -> dict:
+    """Slice 15 on one rank of slice 13's (data=1, model=2) mesh; writes
+    its numbers to ``tmp/s15-rank{rank}.pt``. A, B: mamba2-2.7b and
+    recurrentgemma-2b through :func:`_tp_train` (their sharded saves are
+    served below). C: their narrow float32 configs, two steps on the mesh
+    against the meshless step. E: serving on the mesh (:func:`_s15_serve`).
+    After each A/B config rank 0 computes its twins (:func:`_tp_twin`,
+    written to ``tmp/s15-twins.pt``)."""
+    import torch
+
+    out, twins = {"train": {}}, {}
+    for name, layers, workers, batch, seq in S15_TRAIN:
+        out["train"][name], kept = _tp_train(rank, tmp, wm, mark, "s15", name, layers,
+                                             workers, batch, seq, keep=True)
+        twins[name] = _tp_twin(rank, kept, mark)
+        del kept
+    out["narrow"], out["narrow_launches"] = _s14_narrow(wm, S15_ARCHS)
+    mark("narrow float32 configs")
+    out["serve"] = _s15_serve(rank, tmp, wm, mark)
+    torch.save(out, os.path.join(tmp, f"s15-rank{rank}.pt"))
+    if rank == 0:
+        torch.save(twins, os.path.join(tmp, "s15-twins.pt"))
+
+
+def _s15_config(name: str, layers):
+    """A served config: published widths, cut to ``layers`` (None: all)."""
+    from repro_torch.configs import get_config
+
+    return get_config(name) if layers is None else family_config(name, layers)
+
+
+def _s15_path(tmp: str, name: str) -> str:
+    trained = name in {n for n, *_ in S15_TRAIN}
+    return os.path.join(tmp, f"s15-{name}" if trained else f"s15-serve-{name}", "ck.npz")
+
+
+def _s15_checkpoint(rank: int, tmp: str, name: str, cfg) -> str:
+    """The checkpoint a served config's consensus comes from: a trained
+    config's sharded save (:func:`_tp_train`, M = 2), else a consensus of
+    seeded weights (seed 0, on the card) that rank 0 saves while rank 1
+    waits."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models import model as Mo
+    from repro_torch.train import checkpoint as ckpt_lib
+
+    path = _s15_path(tmp, name)
+    if name in {n for n, *_ in S15_TRAIN}:
+        return path
+    if rank == 0:
+        params = Mo.init(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+        ckpt_lib.save(path, params)
+        del params
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return path
+
+
+def _s15_inputs(cfg, rows: int, prompt_len: int):
+    """(prompts (rows, prompt_len) numpy, the same on the card, an
+    encoder-decoder's bf16 frame embeddings or None), from seeds."""
+    import torch
+
+    from repro_torch.data import token_stream
+
+    prompts, _ = token_stream(S=rows, seq_len=prompt_len - 1, vocab=cfg.vocab_size, seed=1)
+    enc = None
+    if cfg.encoder_layers:
+        enc = torch.randn((rows, cfg.encoder_seq, cfg.d_model), device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(1),
+                          dtype=torch.bfloat16)
+    return prompts, torch.from_numpy(prompts).cuda(), enc
+
+
+def _s15_serve(rank: int, tmp: str, wm, mark) -> dict:
+    """E: each S15_SERVE config's consensus loaded onto the mesh
+    (``load_consensus_params(mesh=)``) and served inside
+    ``model_parallel(wm)``: the last prefill position's logits (gathered
+    over the vocab's cut), then one WaveBatcher wave (an encoder-decoder:
+    ``generate(enc_embeds=)``), its launches counted; granite through
+    ``ContinuousBatcher(mesh=)`` on slice 7's trace; after each config,
+    rank 0's meshless twins of it (:func:`_s15_twin`, written to
+    ``tmp/s15-serve-twins.pt``), then its checkpoint dropped; the narrow
+    float32 configs' greedy tokens on the mesh and meshless."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import _tree
+    from repro_torch.launch.mesh import model_parallel
+    from repro_torch.models import model as Mo
+    from repro_torch.models.params import count_params
+    from repro_torch.serving import WaveBatcher, generate, load_consensus_params
+
+    out, twins = {}, {}
+    for name, layers, rows, prompt_len, n_new in S15_SERVE:
+        cfg = _s15_config(name, layers)
+        path = _s15_checkpoint(rank, tmp, name, cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = load_consensus_params(path, cfg, mesh=wm)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        prompts, tok, enc = _s15_inputs(cfg, rows, prompt_len)
+        max_len = prompt_len + n_new
+        with torch.no_grad(), model_parallel(wm):
+            caches = Mo.init_cache(params, cfg, rows, max_len)
+            kinds = sorted({type(c).__name__ for c in _layer_caches(caches)})
+            del caches
+            logits = Mo.prefill(params, cfg, tok, max_len=max_len, enc_embeds=enc)[0][:, -1]
+            logits = logits.float().cpu()
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            if cfg.encoder_layers:     # a wave carries no frames: generate() serves it
+                tokens = generate(params, cfg, prompts, n_new=n_new, enc_embeds=enc).tokens
+            else:
+                wb = WaveBatcher(params, cfg, rows, max_len)
+                rids = [wb.submit(p, n_new) for p in prompts]
+                wb.run_wave()
+                tokens = np.stack([wb.done[r] for r in rids])
+            torch.cuda.synchronize()
+            wave_s = time.perf_counter() - t0
+            launches = read_launches()
+        out[name] = {"logits": logits, "tokens": tokens, "launches": launches,
+                     "n_attn": _attention_layers(cfg, prompt_len), "wave_s": wave_s,
+                     "load_s": load_s, "caches": kinds,
+                     "share": sum(x.numel() for x in _tree.leaves(params))
+                     / count_params(Mo.model_defs(cfg)),
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        print(f"serve {name} on {wm.describe()}: launches {launches}, caches {kinds}, "
+              f"wave {wave_s:.2f} s", flush=True)
+        if name == "granite-3-2b":
+            out["continuous"] = _s15_continuous(params, cfg, wm)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        mark(f"serve {name}")
+        dist.barrier()                 # rank 1 waits off the card's compute
+        if rank == 0:
+            twins[name] = _s15_twin(cfg, path, rows, prompt_len, n_new)
+            mark(f"serve {name}: meshless twins")
+        _drop_checkpoint(rank, path)
+    out["narrow"] = _s15_narrow_serve(wm)
+    mark("narrow float32 serving")
+    if rank == 0:
+        torch.save(twins, os.path.join(tmp, "s15-serve-twins.pt"))
+    return out
+
+
+def _s15_continuous(params, cfg, wm) -> dict:
+    """granite's rank cut through ``ContinuousBatcher(mesh=)``: the first
+    S15_CB_REQUESTS requests of slice 7's trace, all queued at once, at
+    most S15_CB_MAX_NEW new tokens each."""
+    import numpy as np
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.serving import ContinuousBatcher
+
+    trace = serving_trace(S15_CB_REQUESTS, max_prompt=CB_MAX_PROMPT, short_new=CB_SHORT_NEW,
+                          long_new=CB_LONG_NEW, long_frac=CB_LONG_FRAC, seed=0)
+    rng = np.random.default_rng(1)
+    reqs = [(rng.integers(0, cfg.vocab_size, size=r["prompt_len"]).astype(np.int32),
+             min(r["n_new"], S15_CB_MAX_NEW)) for r in trace]
+    cb = ContinuousBatcher(params, cfg, CB_SLOTS, CB_MAX_LEN, page_size=CB_PAGE,
+                           max_new=S15_CB_MAX_NEW, mesh=wm)
+    rids = [cb.submit(p, n) for p, n in reqs]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    cb.run_until_done()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    stats = cb.stats()
+    print(f"continuous on {wm.describe()}: {stats}", flush=True)
+    return {"complete": all(len(cb.done.get(r, ())) == n for r, (_, n) in zip(rids, reqs)),
+            "tokens": sum(n for _, n in reqs), "s": secs, "stats": stats,
+            "launches": read_launches(), "pool": tuple(_tree.leaves(cb.caches)[0].shape)}
+
+
+def _s15_narrow_serve(wm) -> dict:
+    """The narrow float32 configs (a consensus of numpy-seeded weights): the
+    greedy tokens of ``generate`` on the rank's cut inside
+    ``model_parallel`` and meshless, 2 rows of 12 tokens (an
+    encoder-decoder 8 tokens over 16 frames) and 4 new."""
+    import numpy as np
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import model_parallel
+    from repro_torch.launch.shardings import local_tree, param_pspecs
+    from repro_torch.models import model as Mo
+    from repro_torch.serving import generate
+
+    out = {}
+    for name, extra in S15_NARROW_SERVE.items():
+        cfg = get_config(name, reduced=True, **{**S14_NARROW, **extra})
+        rng = np.random.default_rng(11)
+        params = _tree.map(lambda d: torch.from_numpy(
+            (0.05 * rng.normal(size=d.shape) + (1.0 if d.init == "ones" else 0.0))
+            .astype(np.float32)).cuda(), Mo.model_defs(cfg))
+        prompts = rng.integers(0, cfg.vocab_size, size=(2, 12)).astype(np.int32)
+        enc = None
+        if cfg.encoder_layers:
+            enc = torch.from_numpy(rng.normal(size=(2, 16, cfg.d_model)).astype(np.float32))
+            prompts = prompts[:, :8]
+        want = generate(params, cfg, prompts, n_new=4, enc_embeds=enc)
+        local = local_tree(params, param_pspecs(cfg, wm, "allreduce"), wm)
+        with model_parallel(wm):
+            got = generate(local, cfg, prompts, n_new=4, enc_embeds=enc)
+        out[name] = {"equal": bool(np.array_equal(got.tokens, want.tokens)),
+                     "lp_err": float(np.abs(got.logprobs - want.logprobs).max())}
+    return out
+
+
+def _s15_twin(cfg, path: str, rows: int, prompt_len: int, n_new: int) -> dict:
+    """Rank 0, rank 1 waiting: a served config's meshless bf16 prefill's
+    last-position logits (the kernel route) and a float32 forward's of the
+    same consensus and prompts (:func:`_f32_forward`, an encoder-decoder's
+    memory encoded in float32), and the meshless greedy tokens with each
+    step's gap between its two largest logits (for the report: where the
+    mesh's tokens first part from them, and whether that step was a
+    near-tie), decoded as ``generate`` decodes them."""
+    import torch
+
+    from repro_torch.models import model as Mo
+    from repro_torch.serving import load_consensus_params
+
+    params = load_consensus_params(path, cfg, device="cuda")
+    _, tok, enc = _s15_inputs(cfg, rows, prompt_len)
+    with torch.no_grad():
+        logits, caches, cross_kvs, memory = Mo.prefill(
+            params, cfg, tok, max_len=prompt_len + n_new, enc_embeds=enc)
+        logits = logits[:, -1]
+        bf16 = logits.float().cpu()
+        toks, gaps = [], []
+        for t in range(n_new):
+            top2 = logits.float().topk(2, dim=-1).values
+            gaps.append(top2[:, 0] - top2[:, 1])
+            toks.append(torch.argmax(logits, dim=-1))
+            if t + 1 < n_new:
+                logits, caches = Mo.decode_step(params, cfg, caches, toks[-1][:, None],
+                                                memory=memory, cross_kvs=cross_kvs)
+                logits = logits[:, -1]
+        del caches, cross_kvs, memory
+        memory = None if enc is None else _f32_encode(params, cfg, enc)
+        f32 = _f32_forward(params, cfg, tok, memory=memory)[0].cpu()
+        del memory
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"bf16": bf16, "f32": f32, "tokens": torch.stack(toks, 1).int().cpu().numpy(),
+            "gaps": torch.stack(gaps, 1).cpu().numpy()}
+
+
+def _first_parting(got, want, gaps) -> str:
+    """Where each row of greedy tokens ``got`` first differs from ``want``
+    (every later token follows another prefix, so it is not counted), the
+    meshless top-2 logit gap at that step, and the median gap of all
+    steps."""
+    import numpy as np
+
+    rows = []
+    for r in range(want.shape[0]):
+        diff = np.flatnonzero(got[r] != want[r])
+        rows.append(f"step {diff[0]} (gap {gaps[r, diff[0]]:.4g})" if diff.size
+                    else "none")
+    return (f"first differing step per row: {', '.join(rows)}; median gap "
+            f"{float(np.median(gaps)):.4g}")
+
+
+def _gate_slice15(ranks: list, twins: dict, serve_twins: dict) -> dict:
+    """Slice 15's gates. A, B: :func:`_gate_tp_train`. C: the narrow
+    float32 steps within rtol 1e-5 / atol 1e-6 of meshless. E, per served
+    config and rank: one flash_attention launch per attention layer of the
+    wave and nothing else; the same tokens on both ranks; the last prefill
+    position's bf16 logits within twice the meshless bf16 prefill's mean
+    distance from a float32 forward (a bf16 row-parallel sum can flip a
+    near-tied argmax, so the bf16 tokens are only reported beside
+    meshless'); every continuous request in full, its decode eager over
+    the model group; the narrow float32 configs' greedy tokens equal to
+    meshless. Returns launches by path."""
+    tag = "slice15"
+    by_path = _gate_tp_train(tag, [name for name, *_ in S15_TRAIN], ranks, twins)
+    for i, r in enumerate(ranks):
+        bad = {n: c for n, c in r["narrow"].items() if not c["ok"]}
+        if bad or r["narrow_launches"]["gossip_mix"] != 2 * len(S15_ARCHS):
+            raise AssertionError(f"{tag} rank {i}: narrow float32 configs off the meshless "
+                                 f"step: {bad}; launches {r['narrow_launches']}")
+        by_path[f"slice15_narrow_f32_rank{i}"] = r["narrow_launches"]
+    log(f"[{tag}] narrow float32 on the (1, 2) mesh vs meshless, max|err| per config: "
+        + ", ".join(f"{n} {c['err']:.3g}" for n, c in ranks[0]["narrow"].items())
+        + f" (rtol {S14_RTOL} / atol {S14_ATOL}: held)")
+    for name, layers, rows, prompt_len, n_new in S15_SERVE:
+        twin = serve_twins[name]
+        runs = [r["serve"][name] for r in ranks]
+        own = (twin["bf16"] - twin["f32"]).abs().mean().item()
+        for i, r in enumerate(runs):
+            want = {"gossip_mix": 0, "quant_pack": 0, "flash_attention": r["n_attn"]}
+            if r["launches"] != want:
+                raise AssertionError(f"{tag} {name} rank {i}: the wave launched "
+                                     f"{r['launches']}, want {want}")
+            if r["tokens"].shape != (rows, n_new) or not (r["tokens"] == runs[0]["tokens"]).all():
+                raise AssertionError(f"{tag} {name} rank {i}: tokens differ between the ranks")
+            err = (r["logits"] - twin["f32"]).abs().mean().item()
+            finite = bool(r["logits"].isfinite().all())
+            if not finite or err > 2 * own:
+                raise AssertionError(f"{tag} {name} rank {i}: last-position logits {err:.4g} "
+                                     f"from float32 on the mean (meshless bf16 {own:.4g}; "
+                                     f"finite {finite}); gate twice")
+            by_path[f"slice15_serve_{name}_rank{i}"] = r["launches"]
+        err = (runs[0]["logits"] - twin["f32"]).abs().mean().item()
+        agree = int((runs[0]["tokens"] == twin["tokens"]).sum())
+        moved = (runs[0]["logits"] - twin["bf16"]).abs().max().item()
+        log(f"[{tag}] {name} served on the mesh ({runs[0]['share']:.3f} of the params per "
+            f"rank; caches {runs[0]['caches']}): last-position logits mean|err| {err:.4g} from "
+            f"float32 (meshless bf16 {own:.4g}); gate twice: held; flash_attention "
+            f"{runs[0]['n_attn']} per rank per wave; greedy tokens equal to meshless bf16's "
+            f"{agree}/{rows * n_new} (not gated), "
+            f"{_first_parting(runs[0]['tokens'], twin['tokens'], twin['gaps'])}, the mesh's "
+            f"last prefill logits max|diff| {moved:.4g} from meshless bf16's; wave "
+            f"{runs[0]['wave_s'] * 1e3:.1f} ms (gloo-staged), load {runs[0]['load_s']:.2f} s, "
+            f"peak {runs[0]['peak_gb']:.2f} GB")
+    for i, r in enumerate(ranks):
+        cb = r["serve"]["continuous"]
+        st = cb["stats"]
+        if not cb["complete"] or st["decode"] != "eager" or st["eager_decodes"] == 0 or \
+                "model factor" not in (st["decode_reason"] or ""):
+            raise AssertionError(f"{tag} rank {i}: ContinuousBatcher(mesh=) complete "
+                                 f"{cb['complete']}, stats {st}")
+        by_path[f"slice15_continuous_rank{i}"] = cb["launches"]
+        bad = {n: c for n, c in r["serve"]["narrow"].items() if not c["equal"]}
+        if bad:
+            raise AssertionError(f"{tag} rank {i}: narrow float32 greedy tokens on the mesh "
+                                 f"differ from meshless: {bad}")
+    cb = ranks[0]["serve"]["continuous"]
+    log(f"[{tag}] granite-3-2b through ContinuousBatcher(mesh=): {S15_CB_REQUESTS} requests "
+        f"in full, {cb['tokens']} tokens in {cb['s']:.2f} s ({cb['tokens'] / cb['s']:.1f} "
+        f"tokens/s, gloo-staged), decode {cb['stats']['decode']} "
+        f"({cb['stats']['eager_decodes']} steps: {cb['stats']['decode_reason']}), pools "
+        f"{cb['pool']}")
+    log(f"[{tag}] narrow float32 serving on the mesh: greedy tokens equal to meshless for "
+        f"{len(ranks[0]['serve']['narrow'])} configs, logprobs max|err| "
+        + ", ".join(f"{n} {c['lp_err']:.3g}" for n, c in ranks[0]["serve"]["narrow"].items()))
+    return by_path
 
 
 def _same_checkpoints(got_dir: str, want_dir: str) -> int:
@@ -3729,6 +4186,9 @@ def family_config(name, layers, **overrides):
     if layers is None:
         return get_config(name, reduced=True, param_dtype="bfloat16", compute_dtype="bfloat16",
                           **overrides)
+    pattern = get_config(name).layer_pattern
+    if pattern is not None:
+        overrides.setdefault("layer_pattern", pattern[:layers])
     cfg = get_config(name, n_layers=layers, **overrides)
     if cfg.encoder_layers:
         cfg = dataclasses.replace(cfg, encoder_layers=layers)

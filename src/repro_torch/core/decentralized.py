@@ -34,10 +34,9 @@ chunks of the global batch's rows, which cut across the ranks' rows.
 With a model axis (``model_factor`` k > 1) a rank holds its 1/k shard of
 every leaf that ``param_specs`` shards over it (and the rest whole) and its
 workers' whole batches; the gradient runs inside
-``launch.mesh.model_parallel``, where the attention families' layers
-(dense, MoE, MLA, the encoder-decoder) compute on their shards with
-collectives over the model group (``launch.tensor_parallel``); Mamba-2
-and RG-LRU refuse there. The metrics sum a sharded leaf's squares over the
+``launch.mesh.model_parallel``, where every family's layers (dense, MoE,
+MLA, the encoder-decoder, Mamba-2 and RG-LRU) compute on their shards with
+collectives over the model group (``launch.tensor_parallel``). The metrics sum a sharded leaf's squares over the
 model group and count a replicated leaf once.
 
 ``microbatch > 1`` accumulates the gradient over that many chunks of the

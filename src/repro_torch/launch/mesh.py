@@ -22,9 +22,9 @@ On a live mesh each rank holds the tensors of ``M / n_workers`` consecutive
 workers (one when the mesh has a worker per rank) and, for a leaf sharded
 over the model axis, its 1/k piece (``launch.shardings.local_tree``).
 Inside :func:`model_parallel` the layers compute on those pieces with
-collectives over the model group (``launch.tensor_parallel``); a layer with
-no sharded form yet (Mamba-2, RG-LRU) refuses there
-(:func:`refuse_on_model_axis`).
+collectives over the model group (``launch.tensor_parallel``): every
+family trains there, and serving runs there on a rank's cut of the
+consensus.
 """
 from __future__ import annotations
 
@@ -41,7 +41,7 @@ from repro_torch import _tree
 __all__ = ["AbstractMesh", "WorkerMesh", "SINGLE_POD", "MULTI_POD", "MODEL_AXIS",
            "make_production_mesh", "make_worker_mesh", "make_host_mesh",
            "worker_axes", "n_workers", "rows_cut_over", "rows_cut",
-           "ModelShard", "model_parallel", "model_shard", "refuse_on_model_axis"]
+           "ModelShard", "model_parallel", "model_shard", "report_group"]
 
 SINGLE_POD = (16, 16)                  # 256 chips
 MULTI_POD = (2, 16, 16)                # 2 pods × 256 chips = 512
@@ -326,24 +326,6 @@ def model_shard() -> "ModelShard | None":
     return _MODEL.get()
 
 
-# what each ROADMAP step (queue 1, item 3) brings to the model axis
-_STEPS = {"6b-ii": "the sharded Mamba-2 and RG-LRU layers; the attention families "
-                   "(dense, MoE, MLA, the encoder-decoder) train at k > 1",
-          "6c": "serving on a mesh; the model axis trains"}
-
-
-def refuse_on_model_axis(what: str, step: str) -> None:
-    """Refuse ``what``, a layer (Mamba-2, RG-LRU) or a serving branch (a
-    cache, the flash kernel) with no tensor-parallel form yet, inside
-    :func:`model_parallel` at model factor k > 1, naming the ROADMAP
-    ``step`` that brings it ("6b-ii" or "6c")."""
-    shard = _MODEL.get()
-    if shard is not None:
-        raise NotImplementedError(
-            f"{what} with the replica sharded {shard.k} ways over the model axis: "
-            f"ROADMAP queue 1, item 3, step {step} brings {_STEPS[step]}")
-
-
 # the live WorkerMesh whose ranks each hold a cut of the rows of the call
 # running now (allreduce mode's forward on a mesh), else None
 _ROWS_CUT: contextvars.ContextVar = contextvars.ContextVar("rows_cut_over", default=None)
@@ -426,7 +408,39 @@ def make_host_mesh(data: int = 2, model: int = 2, pod: int | None = None, *,
     if n > dist.get_world_size():
         raise ValueError(f"a {shape} mesh needs {n} ranks; the world has "
                          f"{dist.get_world_size()}")
-    return DeviceMesh(device, torch.arange(n).view(shape), mesh_dim_names=names)
+    mesh = DeviceMesh(device, torch.arange(n).view(shape), mesh_dim_names=names)
+    key = (dist.group.WORLD, tuple(range(n)))
+    if n > 1 and key not in _REPORT_GROUPS:
+        # every rank of the world takes part, so the group's name (a count of
+        # the groups made, the same on every rank) agrees. A group made
+        # later with local synchronization by the mesh's ranks alone is named
+        # by a hash of its ranks and of the groups each rank has made, which
+        # differs between ranks once a mesh over a subset of them exists,
+        # and then never forms.
+        _REPORT_GROUPS[key] = dist.new_group(list(range(n)), backend="gloo")
+    return mesh
+
+
+# the gloo group of each live mesh's ranks, by default group and ranks, made
+# with the mesh (make_host_mesh): a sharded checkpoint's ranks report their
+# shards written over it, a group of its own, so that the report can run on
+# a writer's thread beside the loop's collectives
+_REPORT_GROUPS: dict = {}
+
+
+def report_group(mesh):
+    """The gloo group over the ranks of the live ``mesh`` that
+    :func:`make_host_mesh` made with it (None for a mesh of one rank)."""
+    import torch.distributed as dist
+
+    ranks = tuple(sorted(int(r) for r in mesh.mesh.flatten().tolist()))
+    if len(ranks) == 1:
+        return None
+    group = _REPORT_GROUPS.get((dist.group.WORLD, ranks))
+    if group is None:
+        raise ValueError(f"no report group over ranks {ranks}: a live mesh of several "
+                         "ranks comes from make_host_mesh, called by every rank")
+    return group
 
 
 def worker_axes(mesh) -> tuple[str, ...]:

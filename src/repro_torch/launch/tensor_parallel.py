@@ -24,6 +24,18 @@ GSPMD computes from the reference's specs:
   construction (an MoE's router logits: everything downstream of them is
   computed redundantly, and the routing weights enter the combine through
   *f*).
+* :func:`reduce_scatter_model`: a partial sum over the model group, cut to
+  this rank's columns along a dim (an all-reduce, then the rank's slice);
+  its gradient is the cotangents of every rank's columns, all-gathered.
+  RG-LRU's gate products ``conv @ wa`` with ``wa``'s rows cut: each rank's
+  product is a partial sum over the whole width, of which it keeps its
+  columns.
+* :func:`all_gather_model`: its dual, an all-gather of the rank's columns
+  whose gradient is the cotangent summed over the model group, cut to the
+  rank's columns. Mamba-2's ``in_proj`` and conv weights, whose columns are
+  cut straight across the z / x / B / C / dt boundaries: each rank gathers
+  the whole and uses its heads' columns and the whole B and C, so each
+  rank's cotangent of the whole is a partial one.
 
 A globally routed MoE whose batch rows are cut over the worker groups
 (allreduce mode on a mesh) routes over the whole batch with two
@@ -58,7 +70,7 @@ from repro_torch import _tree
 from repro_torch.launch.mesh import model_shard
 
 __all__ = ["copy_to_model", "reduce_from_model", "max_over_model", "gather_from_model",
-           "gather_over_rows", "sum_over_rows", "ModelCut", "model_cut", "whole_shape",
+           "reduce_scatter_model", "all_gather_model", "gather_over_rows", "sum_over_rows", "ModelCut", "model_cut", "whole_shape",
            "whole_leaves"]
 
 
@@ -160,6 +172,61 @@ class _Gather(torch.autograd.Function):
         return out, (None if bdim is None else 0)
 
 
+class _ReduceScatter(torch.autograd.Function):
+    """All-reduce sum over ``group``, then this rank's slice (``index``) of
+    k along ``dim``; backward: the cotangent all-gathered along ``dim``
+    (through :class:`_AllGather`)."""
+
+    @staticmethod
+    def forward(x, group, k, index, dim):
+        import torch.distributed as dist
+
+        n = x.shape[dim] // k
+        return _all_reduce(x, (group,), dist.ReduceOp.SUM).narrow(dim, index * n, n)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.args = inputs[1:]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_AllGather.apply(grad, *ctx.args),) + (None,) * 4
+
+    @staticmethod
+    def vmap(info, in_dims, x, group, k, index, dim):
+        import torch.distributed as dist
+
+        bdim = in_dims[0]
+        d = _shifted(dim, bdim)
+        x = _all_reduce(_front(x, bdim), (group,), dist.ReduceOp.SUM)
+        n = x.shape[d] // k
+        return x.narrow(d, index * n, n), (None if bdim is None else 0)
+
+
+class _AllGather(torch.autograd.Function):
+    """All-gather along ``dim`` over ``group``; backward: the cotangent
+    summed over ``group``, then this rank's slice (through
+    :class:`_ReduceScatter`)."""
+
+    @staticmethod
+    def forward(x, group, k, index, dim):
+        return _all_gather(x, (group,), dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.args = inputs[1:]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_ReduceScatter.apply(grad, *ctx.args),) + (None,) * 4
+
+    @staticmethod
+    def vmap(info, in_dims, x, group, k, index, dim):
+        bdim = in_dims[0]
+        out = _all_gather(_front(x, bdim), (group,), _shifted(dim, bdim))
+        return out, (None if bdim is None else 0)
+
+
 class _SumRows(torch.autograd.Function):
     """All-reduce sum over ``groups`` forward; backward: the cotangent
     times ``n``."""
@@ -219,6 +286,25 @@ def gather_from_model(x: torch.Tensor, dim: int) -> torch.Tensor:
     cotangent). The identity outside ``model_parallel``."""
     shard = model_shard()
     return x if shard is None else _Gather.apply(x, (shard.group,), shard.index, dim)
+
+
+def reduce_scatter_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x``, a partial sum over the model group, summed and cut to this
+    rank's 1/k along ``dim`` (rank order); the gradient is every rank's
+    cotangent all-gathered along ``dim``. The identity outside
+    ``model_parallel``."""
+    shard = model_shard()
+    return x if shard is None else _ReduceScatter.apply(x, shard.group, shard.k,
+                                                        shard.index, dim)
+
+
+def all_gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x``, this rank's columns along ``dim``, all-gathered over the model
+    group in rank order; the gradient is the cotangent summed over the
+    model group, cut to the rank's columns (each rank's cotangent of the
+    whole is a partial one). The identity outside ``model_parallel``."""
+    shard = model_shard()
+    return x if shard is None else _AllGather.apply(x, shard.group, shard.k, shard.index, dim)
 
 
 def gather_over_rows(x: torch.Tensor, wm) -> torch.Tensor:

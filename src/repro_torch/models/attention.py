@@ -16,10 +16,13 @@ DeepSeek-V2's multi-head latent attention: ``mla_defs``/``mla_apply`` with
 its compressed cache (``MLACache``, and ``PagedMLACache`` for the
 continuous batcher), expanded for training and prefill, absorbed for
 decode. Tensors keep the reference's ``(B, L, H, hd)`` layout. On a
-mesh's model axis (``launch.mesh.model_parallel``) the cache-free GQA
-branch, self or over a memory, and MLA's cache-free expanded form run on
-the rank's heads (:func:`gqa_apply`, :func:`mla_apply`); the caches, the
-flash kernel and the mesh decode refuse there.
+mesh's model axis (``launch.mesh.model_parallel``) every branch of
+:func:`gqa_apply` and :func:`mla_apply` runs on the rank's heads, the
+flash kernel included; a cache whose heads do not divide the model factor
+is cut over the sequence instead (:class:`SeqCutKVCache`,
+:class:`SeqCutMLACache`), and its decode combines the ranks' softmax
+statistics (:func:`_seq_cut_attention`), as the reference's
+``_seq_parallel_decode_attention`` does.
 
 Paged decode keeps the reference's formulation: q is scored against the
 whole page pool, the block table gathers each slot's (NB, page) scores, and
@@ -48,6 +51,8 @@ rounding of the scores for bf16 (ROADMAP queue 3 records it).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -56,7 +61,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.launch import tensor_parallel as tp
-from repro_torch.launch.mesh import model_shard, refuse_on_model_axis
+from repro_torch.launch.mesh import model_shard
 from repro_torch.models.layers import rmsnorm_apply, rmsnorm_defs, rope
 from repro_torch.models.params import ParamDef
 
@@ -66,10 +71,10 @@ NEG_INF = -1e30   # finite: a fully masked row recovers where -inf gives NaN
 BLOCK_THRESHOLD = 1024   # kv length above which attention goes blockwise
 
 __all__ = ["NEG_INF", "repeat_kv", "dense_attention", "blockwise_attention",
-           "attention_any", "KVCache", "init_kv_cache", "PagedKVCache",
+           "attention_any", "KVCache", "SeqCutKVCache", "init_kv_cache", "PagedKVCache",
            "paged_decode_attention", "slot_decode_attention", "gqa_defs",
            "gqa_apply", "f32_product", "mla_defs", "MLACache", "init_mla_cache",
-           "PagedMLACache", "mla_apply"]
+           "SeqCutMLACache", "PagedMLACache", "mla_apply"]
 
 
 def f32_product(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -217,19 +222,61 @@ class KVCache(NamedTuple):
     pos: int
 
 
+class SeqCutKVCache(KVCache):
+    """A :class:`KVCache` cut over the sequence on the model axis, as the
+    reference's ``cache_pspecs`` cuts it where the kv heads do not divide
+    k: model shard ``index`` holds every kv head's slots ``[index·S/k,
+    (index+1)·S/k)`` of the whole cache's S (a ring's included)."""
+
+    __slots__ = ()
+
+
+# set by whole_sequence_caches: the caches built keep every slot
+_WHOLE_SEQUENCE: contextvars.ContextVar = contextvars.ContextVar("whole_sequence",
+                                                                 default=False)
+
+
+@contextlib.contextmanager
+def whole_sequence_caches():
+    """Within it, a cache built inside ``launch.mesh.model_parallel`` keeps
+    every slot on every rank where it would be cut over the sequence: the
+    continuous batcher's admission, whose dense caches are scattered into
+    paged pools that are whole (``serving.kvcache.paged_cache_pspecs``)."""
+    token = _WHOLE_SEQUENCE.set(True)
+    try:
+        yield
+    finally:
+        _WHOLE_SEQUENCE.reset(token)
+
+
+def _seq_cut(shard, kv_heads: int, S: int) -> bool:
+    """Whether a cache of ``S`` slots is cut over the sequence on the model
+    shard ``shard``: its heads do not divide k but S does (the reference's
+    ``_seq_sharded_cache``), outside :func:`whole_sequence_caches`."""
+    return (shard is not None and not _WHOLE_SEQUENCE.get()
+            and kv_heads % shard.k != 0 and S % shard.k == 0)
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype,
                   device: torch.device, layers: int | None = None,
                   window: int | None = None) -> KVCache:
     """An empty cache of ``min(window, max_len)`` slots with a window (a ring
     buffer once max_len reaches it), else ``max_len``; ``layers`` stacks one
     per layer of a scanned segment (each layer its own storage, not a
-    broadcast view)."""
+    broadcast view). Inside ``launch.mesh.model_parallel`` it holds the
+    rank's kv heads where they divide k, else the rank's slots (a
+    :class:`SeqCutKVCache`; inside :func:`whole_sequence_caches`, or where k
+    does not divide the slots either, every kv head whole)."""
     S = min(window, max_len) if window else max_len
-    shape = (batch, S, cfg.n_kv_heads, cfg.head_dim)
+    shard, Kh = model_shard(), cfg.n_kv_heads
+    cut = _seq_cut(shard, Kh, S)
+    if shard is not None and Kh % shard.k == 0:
+        Kh //= shard.k
+    shape = (batch, S // shard.k if cut else S, Kh, cfg.head_dim)
     if layers is not None:
         shape = (layers,) + shape
-    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device), 0)
+    return (SeqCutKVCache if cut else KVCache)(torch.zeros(shape, dtype=dtype, device=device),
+                                               torch.zeros(shape, dtype=dtype, device=device), 0)
 
 
 class PagedKVCache(NamedTuple):
@@ -329,9 +376,42 @@ def _ragged_kv_valid(S: int, lengths: torch.Tensor, prompt_len: int,
     return ((idx < lengths[:, None]) | (idx >= prompt_len)) & (idx < pos + 1)
 
 
+def _slots(cache) -> tuple[int, int]:
+    """(the whole cache's slots, the first of them this rank holds): a
+    :class:`SeqCutKVCache` or :class:`SeqCutMLACache` holds the model
+    shard's cut of them, any other cache all of them."""
+    buf = cache[0]
+    n = buf.shape[1]
+    if isinstance(cache, (SeqCutKVCache, SeqCutMLACache)):
+        shard = model_shard()
+        return n * shard.k, n * shard.index
+    return n, 0
+
+
 def _is_ring(cache: KVCache, window: int | None) -> bool:
     """The cache is a ring buffer iff it is exactly window-sized."""
-    return window is not None and cache.k.shape[1] == window
+    return window is not None and _slots(cache)[0] == window
+
+
+def _write_slots(buf: torch.Tensor, new: torch.Tensor, start: int, first: int) -> None:
+    """Write ``new`` (B, n, ...) into the whole cache's slots ``[start,
+    start + n)``, in place, where ``buf`` holds its slots ``[first, first +
+    buf.shape[1])``: only their overlap is written."""
+    lo, hi = max(start, first), min(start + new.shape[1], first + buf.shape[1])
+    if hi > lo:
+        buf[:, lo - first:hi - first] = new[:, lo - start:hi - start]
+
+
+def _ring_ok(pos: int, W: int, window: int, qp: torch.Tensor) -> torch.Tensor:
+    """(L, W) bool: which of a ring's W slots, holding the tokens up to
+    ``pos`` (slot pos % W the newest), the queries at positions ``qp`` may
+    attend: each slot's absolute position, causal, within the window, and
+    written."""
+    slot = pos % W
+    idx = torch.arange(W, device=qp.device)
+    slot_pos = torch.where(idx <= slot, pos - slot + idx, pos - slot - W + idx)
+    valid = (slot_pos >= 0) & (slot_pos > pos - window)
+    return (slot_pos[None, :] <= qp[:, None]) & valid[None, :]
 
 
 def _ring_decode_attention(q, ck, cv, pos: int, window: int, q_pos=None) -> torch.Tensor:
@@ -341,17 +421,48 @@ def _ring_decode_attention(q, ck, cv, pos: int, window: int, q_pos=None) -> torc
     by 1/sqrt(hd), GQA by repeated kv heads, as the reference's ring
     branch; the queries sit at ``q_pos`` (default ``pos + arange(L)``)."""
     B, L, H, hd = q.shape
-    W = ck.shape[1]
-    slot = pos % W
-    idx = torch.arange(W, device=q.device)
-    slot_pos = torch.where(idx <= slot, pos - slot + idx, pos - slot - W + idx)
-    valid = (slot_pos >= 0) & (slot_pos > pos - window)
     qp = q_pos if q_pos is not None else pos + torch.arange(L, device=q.device)
     s = f32_product("bqhd,bshd->bhqs", q, repeat_kv(ck, H)) / float(np.sqrt(hd))
-    ok = (slot_pos[None, :] <= qp[:, None]) & valid[None, :]
-    s = s + torch.where(ok, 0.0, NEG_INF)[None, None]
+    s = s + torch.where(_ring_ok(pos, ck.shape[1], window, qp), 0.0, NEG_INF)[None, None]
     p = torch.softmax(s, dim=-1).to(cv.dtype)
     return torch.einsum("bhqs,bshd->bqhd", p, repeat_kv(cv, H))
+
+
+def _seq_cut_attention(s: torch.Tensor, pv) -> torch.Tensor:
+    """Softmax attention over a cache cut over the sequence on the model
+    axis, the reference's ``_seq_parallel_decode_attention``: ``s`` (B, H,
+    L, S/k) are the float32 scores, scaled and masked, of every head over
+    the rank's slots, ``pv(p)`` the product (B, L, H, dv) of unnormalized
+    probabilities with the rank's values. The max is all-reduced over the
+    model group, then the sums and the products in one all-reduce: (B, L,
+    H, dv) float32 of the whole softmax. A rank with no slot to attend
+    (all masked, finite ``NEG_INF``) adds zeros."""
+    m = tp.max_over_model(s.amax(-1))                              # (B, H, L)
+    p = torch.exp(s - m[..., None])
+    both = tp.reduce_from_model(torch.cat(
+        [pv(p).float(), p.sum(-1).transpose(1, 2)[..., None]], dim=-1))
+    return both[..., :-1] / both[..., -1:]
+
+
+def _own_heads(o: torch.Tensor, Hl: int) -> torch.Tensor:
+    """This model shard's ``Hl`` heads of (B, L, H, ...) every head's."""
+    return o.narrow(2, model_shard().index * Hl, Hl)
+
+
+def _gqa_seq_cut_decode(q, ck, cv, ok: torch.Tensor, scale: float) -> torch.Tensor:
+    """Decode attention of the rank's q heads (B, L, Hl, hd) over a
+    :class:`SeqCutKVCache`'s slots ``ck``/``cv`` (B, S/k, Kh, hd), ``ok``
+    (B or 1, L, S/k) their mask: q is all-gathered over the model group
+    (one token), every head attends over the rank's slots
+    (:func:`_seq_cut_attention`), and the rank keeps its heads."""
+    Hl = q.shape[2]
+    qa = tp.gather_from_model(q, 2)
+    H = qa.shape[2]
+    s = f32_product("bqhd,bshd->bhqs", qa, repeat_kv(ck, H)) * scale
+    s = s + torch.where(ok, 0.0, NEG_INF)[:, None]
+    o = _seq_cut_attention(s, lambda p: torch.einsum(
+        "bhqs,bshd->bqhd", p.to(cv.dtype), repeat_kv(cv, H)))
+    return _own_heads(o, Hl).to(q.dtype)
 
 
 def _tree_copy_to_model(params: PyTree) -> PyTree:
@@ -402,14 +513,19 @@ def gqa_apply(params, cfg: ModelConfig, x, *, positions=None, q_base: int = 0,
 
     Inside ``launch.mesh.model_parallel``, with ``wq`` cut to this rank's
     q heads (``params`` are the rank's shards; ``cfg``'s head counts stay
-    global), the cache-free attention, self or over a memory, is tensor
-    parallel: ``x`` enters through ``copy_to_model``, the rank attends with
-    its q heads (and its kv heads where they shard, projected from the
-    memory entering through its own ``copy_to_model``; else the replicated
-    kv heads those q heads read, entering through ``copy_to_model``), and
-    the output projection's partial sum leaves through
-    ``reduce_from_model``. A cache or the flash kernel (serving) refuses
-    there.
+    global), the layer is tensor parallel: ``x`` enters through
+    ``copy_to_model``, the rank attends with its q heads (and its kv heads
+    where they shard, projected from the memory entering through its own
+    ``copy_to_model``; else the replicated kv heads those q heads read,
+    entering through ``copy_to_model``), and the output projection's
+    partial sum leaves through ``reduce_from_model``. So do its serving
+    branches: the flash kernel runs on the rank's heads; a cache holds the
+    rank's kv heads where they shard, else every kv head, the rank's slots
+    of them in a :class:`SeqCutKVCache`, whose prefill stores the rank's
+    range of positions, whose decode writes a new token on the rank owning
+    its slot and attends over every rank's slots
+    (:func:`_gqa_seq_cut_decode`); a paged cache's pools hold the rank's kv
+    heads, or every kv head, of which the rank reads its q heads'.
     """
     B, L, _ = x.shape
     paged = isinstance(cache, PagedKVCache)
@@ -419,8 +535,6 @@ def gqa_apply(params, cfg: ModelConfig, x, *, positions=None, q_base: int = 0,
     shard = model_shard() if params["wq"].shape[-2] < cfg.n_heads else None
     kv_sharded = shard is not None and params["wk"].shape[-2] < cfg.n_kv_heads
     if shard is not None:
-        if cache is not None or flash:
-            refuse_on_model_axis("attention with a cache or through the flash kernel", "6c")
         x = tp.copy_to_model(x)
         if kv_sharded:
             # a memory enters each cross-attention through its own f
@@ -452,18 +566,25 @@ def gqa_apply(params, cfg: ModelConfig, x, *, positions=None, q_base: int = 0,
         q = rope(q, q_pos, cfg.rope_theta)
         k = rope(k, q_pos, cfg.rope_theta)
 
+    def own_kv(t):
+        """The kv heads this rank's q heads read, of every kv head's ``t``."""
+        if shard is None or kv_sharded:
+            return t
+        return _local_kv_heads(tp.copy_to_model(t), cfg, shard.index, q.shape[2])
+
+    def out(o):
+        # this rank's heads give a partial sum of the output projection
+        o = torch.einsum("blhk,hkd->bld", o, params["wo"])
+        return o if shard is None else tp.reduce_from_model(o)
+
     if cache is None:
         causal = causal and memory is None
-        if shard is not None and not kv_sharded:
-            k, v = (_local_kv_heads(tp.copy_to_model(t), cfg, shard.index, q.shape[2])
-                    for t in (k, v))
+        k, v = own_kv(k), own_kv(v)
         if flash and q_base == 0 and k.shape[1] > BLOCK_THRESHOLD:
             o = flash_ops.attention(q, k, v, causal=causal, window=window)
         else:
             o = attention_any(q, k, v, q_base, causal=causal, window=window)
-        out = torch.einsum("blhk,hkd->bld", o, params["wo"])
-        # this rank's heads give a partial sum of the output projection
-        return (out if shard is None else tp.reduce_from_model(out)), None
+        return out(o), None
 
     if paged:
         if L != 1:
@@ -471,10 +592,14 @@ def gqa_apply(params, cfg: ModelConfig, x, *, positions=None, q_base: int = 0,
                              "a dense prefill into it)")
         _paged_write(cache.k_pages, cache.block_tables, cache.lengths, k)
         _paged_write(cache.v_pages, cache.block_tables, cache.lengths, v)
-        o = paged_decode_attention(q, cache.k_pages, cache.v_pages, cache.block_tables,
-                                   cache.lengths)
-        return torch.einsum("blhk,hkd->bld", o, params["wo"]), cache
+        kp, vp = cache.k_pages, cache.v_pages
+        if shard is not None and not kv_sharded:
+            kp, vp = (_local_kv_heads(t, cfg, shard.index, q.shape[2]) for t in (kp, vp))
+        o = paged_decode_attention(q, kp, vp, cache.block_tables, cache.lengths)
+        return out(o), cache
 
+    S, first = _slots(cache)
+    ring = _is_ring(cache, window)
     if L > 1:
         # prefill: the cache is empty (pos 0); right-padded ragged prompts
         # mask their pad keys and take the dense path, as in the reference
@@ -482,46 +607,55 @@ def gqa_apply(params, cfg: ModelConfig, x, *, positions=None, q_base: int = 0,
         if lengths is not None:
             kv_valid = torch.arange(L, device=x.device)[None, :] < lengths[:, None]
         if kv_valid is None and L > BLOCK_THRESHOLD:
-            o = flash_ops.attention(q, k, v, causal=True, window=window)
+            o = flash_ops.attention(q, own_kv(k), own_kv(v), causal=True, window=window)
         else:
-            o = attention_any(q, k, v, 0, causal=True, window=window, kv_valid=kv_valid)
-        W = cache.k.shape[1]
-        if _is_ring(cache, window) and L >= W:
-            # the last W positions, rolled so position p sits at slot p % W
-            cache.k.copy_(torch.roll(k[:, -W:], L % W, dims=1))
-            cache.v.copy_(torch.roll(v[:, -W:], L % W, dims=1))
-        else:
-            cache.k[:, :L] = k
-            cache.v[:, :L] = v
-        new_cache = KVCache(cache.k, cache.v, cache.pos + L)
-        return torch.einsum("blhk,hkd->bld", o, params["wo"]), new_cache
+            o = attention_any(q, own_kv(k), own_kv(v), 0, causal=True, window=window,
+                              kv_valid=kv_valid)
+        if ring and L >= S:
+            # the last S positions, rolled so position p sits at slot p % S
+            k, v = (torch.roll(t[:, -S:], L % S, dims=1) for t in (k, v))
+        _write_slots(cache.k, k, 0, first)
+        _write_slots(cache.v, v, 0, first)
+        return out(o), cache._replace(pos=cache.pos + L)
 
     pos = cache.pos
-    if _is_ring(cache, window):
-        if lengths is not None:
-            raise NotImplementedError(
-                "ragged prompt lengths with a sliding-window ring cache: "
-                "batch equal-length prompts instead (WaveBatcher only "
-                "passes lengths when a wave is actually ragged)")
-        slot = pos % cache.k.shape[1]
-        cache.k[:, slot:slot + L] = k
-        cache.v[:, slot:slot + L] = v
-        o = _ring_decode_attention(q, cache.k, cache.v, pos, window, positions)
-        new_cache = KVCache(cache.k, cache.v, pos + L)
-        return torch.einsum("blhk,hkd->bld", o, params["wo"]), new_cache
-    cache.k[:, pos:pos + L] = k
-    cache.v[:, pos:pos + L] = v
-    new_cache = KVCache(cache.k, cache.v, pos + L)
-    S = cache.k.shape[1]
-    if lengths is not None:
+    if ring and lengths is not None:
+        raise NotImplementedError(
+            "ragged prompt lengths with a sliding-window ring cache: "
+            "batch equal-length prompts instead (WaveBatcher only "
+            "passes lengths when a wave is actually ragged)")
+    slot = pos % S if ring else pos
+    _write_slots(cache.k, k, slot, first)
+    _write_slots(cache.v, v, slot, first)
+    new_cache = cache._replace(pos=pos + L)
+    qp = pos + torch.arange(L, device=x.device)
+    if isinstance(cache, SeqCutKVCache):
+        # every head over this rank's slots, combined over the model group
+        if ring:
+            ok = _ring_ok(pos, S, window, positions if positions is not None else qp)[None]
+        elif lengths is not None:
+            ok = _ragged_kv_valid(S, lengths, prompt_len, pos)[:, None]
+        else:
+            kp = torch.arange(S, device=x.device)[None, :]
+            ok = (kp <= qp[:, None]) & (kp < pos + L)
+            if window is not None:
+                ok = ok & (kp > qp[:, None] - window)
+            ok = ok[None]
+        o = _gqa_seq_cut_decode(q, cache.k, cache.v, ok.narrow(-1, first, cache.k.shape[1]),
+                                float(1.0 / np.sqrt(q.shape[-1])))
+        return out(o), new_cache
+    ck, cv = own_kv(cache.k), own_kv(cache.v)
+    if ring:
+        o = _ring_decode_attention(q, ck, cv, pos, window, positions)
+    elif lengths is not None:
         kv_valid = _ragged_kv_valid(S, lengths, prompt_len, pos)
-        o = slot_decode_attention(q, cache.k, cache.v, kv_valid)
+        o = slot_decode_attention(q, ck, cv, kv_valid)
     else:
         arange_s = torch.arange(S, device=x.device)
         kv_valid = (arange_s < pos + L)[None, :].expand(B, S)
-        o = dense_attention(q, cache.k, cache.v, pos + torch.arange(L, device=x.device),
-                            arange_s, causal=True, window=window, kv_valid=kv_valid)
-    return torch.einsum("blhk,hkd->bld", o, params["wo"]), new_cache
+        o = dense_attention(q, ck, cv, qp, arange_s, causal=True, window=window,
+                            kv_valid=kv_valid)
+    return out(o), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -554,11 +688,26 @@ class MLACache(NamedTuple):
     pos: int
 
 
+class SeqCutMLACache(MLACache):
+    """An :class:`MLACache` cut over the sequence on the model axis, as the
+    reference's ``cache_pspecs`` cuts it (the latent has no head dim):
+    model shard ``index`` holds slots ``[index·S/k, (index+1)·S/k)``."""
+
+    __slots__ = ()
+
+
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype,
                    device: torch.device, layers: int | None = None) -> MLACache:
-    lead = (batch, max_len) if layers is None else (layers, batch, max_len)
-    return MLACache(torch.zeros(lead + (cfg.kv_lora_rank,), dtype=dtype, device=device),
-                    torch.zeros(lead + (cfg.qk_rope_dim,), dtype=dtype, device=device), 0)
+    """An empty cache of ``max_len`` slots; inside
+    ``launch.mesh.model_parallel`` the rank's cut of them (a
+    :class:`SeqCutMLACache`) where k divides them, else (or inside
+    :func:`whole_sequence_caches`) whole."""
+    cut = _seq_cut(model_shard(), 1, max_len)
+    S = max_len // model_shard().k if cut else max_len
+    lead = (batch, S) if layers is None else (layers, batch, S)
+    return (SeqCutMLACache if cut else MLACache)(
+        torch.zeros(lead + (cfg.kv_lora_rank,), dtype=dtype, device=device),
+        torch.zeros(lead + (cfg.qk_rope_dim,), dtype=dtype, device=device), 0)
 
 
 def _mla_absorbed_scores(params, q_nope, q_rope, ckv_all, kr_all, scale: float):
@@ -569,10 +718,11 @@ def _mla_absorbed_scores(params, q_nope, q_rope, ckv_all, kr_all, scale: float):
     return s * scale
 
 
-def _mla_absorbed_out(params, p, ckv_all):
+def _mla_absorbed_values(params, p, ckv_all):
+    """(B, L, H, v_head_dim): the probabilities' product with the latent,
+    expanded through ``w_uv`` (absorbed)."""
     o_c = torch.einsum("bhls,bsr->blhr", p.to(ckv_all.dtype), ckv_all)
-    o = torch.einsum("blhr,rhk->blhk", o_c, params["w_uv"])      # W_uv absorbed
-    return torch.einsum("blhk,hkd->bld", o, params["wo"])
+    return torch.einsum("blhr,rhk->blhk", o_c, params["w_uv"])
 
 
 def _mla_paged_attention(params, q_nope, q_rope, ckv_pages, kr_pages, block_tables,
@@ -627,21 +777,29 @@ def mla_apply(params, cfg: ModelConfig, x, *, q_base: int = 0,
 
     Inside ``launch.mesh.model_parallel``, with the heads cut over the
     model axis (``wq``, ``w_uk``, ``w_uv`` and ``wo``; ``H`` is the local
-    head count), the cache-free expanded form is tensor parallel: ``x``
-    enters the query product through ``copy_to_model``; the latent and the
-    rope key come whole from ``x`` through the replicated ``w_dkv`` and
-    ``kv_norm`` (so their gradients are whole) and enter the rank's heads
-    through one ``copy_to_model``; the output projection's partial sum
-    leaves through ``reduce_from_model``. A cache (prefill, the absorbed
-    and paged decodes, the flash call) refuses there.
+    head count), the layer is tensor parallel: ``x`` enters the query
+    product through ``copy_to_model``; the latent and the rope key come
+    whole from ``x`` through the replicated ``w_dkv`` and ``kv_norm`` (so
+    their gradients are whole) and enter the rank's heads through one
+    ``copy_to_model``; the output projection's partial sum leaves through
+    ``reduce_from_model``. The expanded form and its flash call run on the
+    rank's heads. The wave cache is cut over the sequence
+    (:class:`SeqCutMLACache`): prefill stores the rank's range of
+    positions, and the absorbed decode gathers every head's absorbed query
+    and attends over the rank's slots (:func:`_seq_cut_attention`); the
+    paged cache is whole on every rank, as the reference's
+    ``paged_cache_pspecs`` keeps it, and its decode runs on the rank's
+    heads.
     """
     B, L, _ = x.shape
     H = params["wq"].shape[-2]
     shard = model_shard() if H < cfg.n_heads else None
-    if shard is not None and cache is not None:
-        refuse_on_model_axis("multi-head latent attention (MLA) with a cache", "6c")
     r, dn, dr = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim
     scale = float(1.0 / np.sqrt(dn + dr))
+
+    def out(o):
+        o = torch.einsum("blhk,hkd->bld", o, params["wo"])
+        return o if shard is None else tp.reduce_from_model(o)
 
     xq = x if shard is None else tp.copy_to_model(x)
     q = torch.einsum("bld,dhk->blhk", xq, params["wq"])           # (B, L, H, dn + dr)
@@ -659,9 +817,9 @@ def mla_apply(params, cfg: ModelConfig, x, *, q_base: int = 0,
         k_rope_new = rope(k_rope_in, qp, cfg.rope_theta)[:, :, 0]
         _paged_write(cache.ckv_pages, cache.block_tables, cache.lengths, ckv)
         _paged_write(cache.kr_pages, cache.block_tables, cache.lengths, k_rope_new)
-        out = _mla_paged_attention(params, q_nope, q_rope, cache.ckv_pages, cache.kr_pages,
-                                   cache.block_tables, cache.lengths, scale)
-        return out, cache
+        o = _mla_paged_attention(params, q_nope, q_rope, cache.ckv_pages, cache.kr_pages,
+                                 cache.block_tables, cache.lengths, scale)
+        return (o if shard is None else tp.reduce_from_model(o)), cache
 
     if cache is None or L > 1:
         q_pos = q_base + torch.arange(L, device=x.device)
@@ -684,11 +842,11 @@ def mla_apply(params, cfg: ModelConfig, x, *, q_base: int = 0,
             o = attention_any(qq, k, v, q_base, causal=True, scale=scale, kv_valid=kv_valid)
         new_cache = None
         if cache is not None:
-            cache.ckv[:, :L] = ckv
-            cache.krope[:, :L] = k_rope
-            new_cache = MLACache(cache.ckv, cache.krope, cache.pos + L)
-        out = torch.einsum("blhk,hkd->bld", o, params["wo"])
-        return (out if shard is None else tp.reduce_from_model(out)), new_cache
+            first = _slots(cache)[1]
+            _write_slots(cache.ckv, ckv, 0, first)
+            _write_slots(cache.krope, k_rope, 0, first)
+            new_cache = cache._replace(pos=cache.pos + L)
+        return out(o), new_cache
 
     # cached decode, absorbed form: scores in the compressed space
     pos = cache.pos
@@ -698,19 +856,31 @@ def mla_apply(params, cfg: ModelConfig, x, *, q_base: int = 0,
         qp = pos + torch.arange(L, device=x.device)
     q_rope = rope(q_rope, qp, cfg.rope_theta)
     k_rope_new = rope(k_rope_in, qp, cfg.rope_theta)[:, :, 0]
-    cache.ckv[:, pos:pos + L] = ckv
-    cache.krope[:, pos:pos + L] = k_rope_new
-    new_cache = MLACache(cache.ckv, cache.krope, pos + L)
-    S = cache.ckv.shape[1]
-    s = _mla_absorbed_scores(params, q_nope, q_rope, cache.ckv, cache.krope, scale)
+    S, first = _slots(cache)
+    _write_slots(cache.ckv, ckv, pos, first)
+    _write_slots(cache.krope, k_rope_new, pos, first)
+    new_cache = cache._replace(pos=pos + L)
+    arange_s = torch.arange(S, device=x.device)
     if lengths is not None:
         # ragged decode: the original pad columns [len_b, prompt_len) stay masked
-        s = s + _valid_bias(_ragged_kv_valid(S, lengths, prompt_len, pos))
+        ok = _ragged_kv_valid(S, lengths, prompt_len, pos)[:, None, None, :]
     else:
-        arange_s = torch.arange(S, device=x.device)
-        causal_ok = arange_s[None, :] <= qp[:, None]               # (L, S)
-        kv_valid = arange_s < pos + L
-        s = (s + torch.where(causal_ok, 0.0, NEG_INF)[None, None]
-             + torch.where(kv_valid, 0.0, NEG_INF)[None, None, None, :])
-    p = torch.softmax(s, dim=-1)
-    return _mla_absorbed_out(params, p, cache.ckv), new_cache
+        ok = ((arange_s[None, :] <= qp[:, None])[None, None]
+              & (arange_s < pos + L)[None, None, None, :])
+    if isinstance(cache, SeqCutMLACache):
+        # every head's absorbed query over this rank's slots, combined over
+        # the model group; the rank keeps its heads
+        Sl = cache.ckv.shape[1]
+        qa = tp.gather_from_model(torch.cat(
+            [torch.einsum("blhk,rhk->blhr", q_nope, params["w_uk"]), q_rope], -1), 2)
+        sc = (f32_product("blhr,bsr->bhls", qa[..., :r], cache.ckv)
+              + f32_product("blhk,bsk->bhls", qa[..., r:], cache.krope)) * scale
+        sc = sc + torch.where(ok.narrow(-1, first, Sl), 0.0, NEG_INF)
+        o_c = _seq_cut_attention(sc, lambda p: torch.einsum(
+            "bhls,bsr->blhr", p.to(cache.ckv.dtype), cache.ckv))
+        o = torch.einsum("blhr,rhk->blhk", _own_heads(o_c, H).to(cache.ckv.dtype),
+                         params["w_uv"])
+        return out(o), new_cache
+    s = _mla_absorbed_scores(params, q_nope, q_rope, cache.ckv, cache.krope, scale)
+    p = torch.softmax(s + torch.where(ok, 0.0, NEG_INF), dim=-1)
+    return out(_mla_absorbed_values(params, p, cache.ckv)), new_cache

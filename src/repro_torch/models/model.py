@@ -38,21 +38,22 @@ sites: every decoder layer, list or scanned, and every layer of a stacked
 encoder; a list encoder's layers are not wrapped (:mod:`.remat`).
 
 Inside ``launch.mesh.model_parallel`` (the train step on a mesh of model
-factor k > 1) the training forward of the attention families is tensor
-parallel, as GSPMD computes the reference's from its specs: attention
-over the rank's heads, self or over the encoder's memory, and MLA's
-expanded form over its heads (``attention.gqa_apply``,
-``attention.mla_apply``), the MLP over its ``ff`` columns
-(``layers.mlp_apply``), the MoE over its experts or their ``expert_ff``
-columns (``layers.moe_apply``), the encoder's layers the same way, and,
-where the vocab is cut over the model axis (k divides it), a masked
-lookup of the rank's embedding rows and a vocab-parallel cross entropy
-(:func:`_embed`, :func:`cross_entropy_chunked`). Between blocks the
-activations stay whole on every rank: the reference's
-``shard_activations`` pin (``_act_shard``), a layout with no numerical
-effect, has no counterpart; nor has its ``moe_shard="capacity"`` pin.
-Mamba-2 and RG-LRU refuse there, as do caches and the flash kernel
-(``launch.mesh.refuse_on_model_axis``).
+factor k > 1, or serving on a mesh) every forward is tensor parallel, as
+GSPMD computes the reference's from its specs: attention over the rank's
+heads, self or over the encoder's memory, and MLA's over its heads
+(``attention.gqa_apply``, ``attention.mla_apply``), the MLP over its
+``ff`` columns (``layers.mlp_apply``), the MoE over its experts or their
+``expert_ff`` columns (``layers.moe_apply``), Mamba-2 over its heads
+(``ssm.mamba2_apply``), RG-LRU over its width's channels
+(``rglru.rglru_apply``), the encoder's layers the same way, and, where the
+vocab is cut over the model axis (k divides it), a masked lookup of the
+rank's embedding rows, a vocab-parallel cross entropy and, for serving,
+logits gathered over the model group (:func:`_embed`,
+:func:`cross_entropy_chunked`, :func:`logits_from_hidden`). Caches hold
+the rank's cut (:func:`init_cache`). Between blocks the activations stay
+whole on every rank: the reference's ``shard_activations`` pin
+(``_act_shard``), a layout with no numerical effect, has no counterpart;
+nor has its ``moe_shard="capacity"`` pin.
 """
 from __future__ import annotations
 
@@ -255,10 +256,19 @@ def _cross_apply(bp: PyTree, cfg: ModelConfig, x, memory, cross_kv):
     if cross_kv is None:
         return attn_lib.gqa_apply(bp["cross"], cfg, hc, causal=False, memory=memory)[0]
     ck, cv = cross_kv
-    q = torch.einsum("bld,dhk->blhk", hc, bp["cross"]["wq"])
+    wq = bp["cross"]["wq"]
+    # on the model axis: the rank's q heads (and its kv heads where they shard)
+    shard = model_shard() if wq.shape[-2] < cfg.n_heads else None
+    if shard is not None:
+        hc = tp.copy_to_model(hc)
+        if ck.shape[2] == cfg.n_kv_heads:
+            ck, cv = (attn_lib._local_kv_heads(t, cfg, shard.index, wq.shape[-2])
+                      for t in (ck, cv))
+    q = torch.einsum("bld,dhk->blhk", hc, wq)
     o = attn_lib.dense_attention(q, ck, cv, torch.arange(hc.shape[1], device=hc.device),
                                  torch.arange(ck.shape[1], device=hc.device), causal=False)
-    return torch.einsum("blhk,hkd->bld", o, bp["cross"]["wo"])
+    out = torch.einsum("blhk,hkd->bld", o, bp["cross"]["wo"])
+    return out if shard is None else tp.reduce_from_model(out)
 
 
 def _vocab_shard(table_rows: int, cfg: ModelConfig):
@@ -410,7 +420,13 @@ def _unembed(params, cfg: ModelConfig) -> torch.Tensor:
 
 
 def logits_from_hidden(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    return attn_lib.f32_product("bld,dv->blv", h, _unembed(params, cfg).to(h.dtype))
+    """(B, L, V) float32 logits; with the vocab cut over the model axis,
+    the rank's columns all-gathered over the model group."""
+    W = _unembed(params, cfg)
+    if _vocab_shard(W.shape[-1], cfg) is None:
+        return attn_lib.f32_product("bld,dv->blv", h, W.to(h.dtype))
+    return tp.gather_from_model(
+        attn_lib.f32_product("bld,dv->blv", tp.copy_to_model(h), W.to(h.dtype)), -1)
 
 
 def cross_entropy_chunked(params, cfg: ModelConfig, h, labels,
@@ -485,7 +501,15 @@ def init_cache(params, cfg: ModelConfig, batch: int, max_len: int) -> list:
     """Empty per-layer caches on the params' device (one stacked cache for a
     scanned segment, a list of them for a list segment): a ``KVCache``
     (a ring buffer of ``min(window, max_len)`` slots for a windowed layer),
-    an ``MLACache``, a ``MambaCache`` or an ``RGLRUCache`` by layer kind."""
+    an ``MLACache``, a ``MambaCache`` or an ``RGLRUCache`` by layer kind.
+
+    Inside ``launch.mesh.model_parallel`` each holds the rank's cut, as the
+    reference's ``launch.shardings.cache_pspecs`` lays it out: the rank's
+    kv heads where they divide the model factor, else its slots of every
+    kv head (``attention.SeqCutKVCache``; MLA's latent always, as
+    ``attention.SeqCutMLACache``), Mamba-2's heads and RG-LRU's channels
+    (inside ``attention.whole_sequence_caches`` nothing is cut over the
+    sequence)."""
     dtype = getattr(torch, cfg.compute_dtype)
     dev = params["embed"].device
     return [_layer_cache(cfg, seg.kind, batch, max_len, dtype, dev, seg.length)

@@ -19,6 +19,18 @@ so the train step's ``vmap`` batches it and a long prompt costs a few dozen
 launches per layer, not one per position. Its float operations come in
 another order than XLA's scan (ROADMAP queue 3). Decode is the O(1) update.
 The cache is written in place, as ``KVCache`` is.
+
+Inside ``launch.mesh.model_parallel``, with the width W cut over the model
+axis (the reference's ``lru`` specs: the input projections' and the conv's
+columns, the gates' biases and ``lambda_p``, the rows of ``wa``, ``wx``
+and ``w_out``), the block is tensor parallel: ``x`` enters through
+``copy_to_model``, the depthwise conv runs on the rank's W/k channels, and
+each gate product ``conv @ wa`` (a partial sum over W) is summed over the
+model group and cut to the rank's columns
+(``tensor_parallel.reduce_scatter_model``); the gates and the scan are
+elementwise on those columns, and the output projection's partial sum
+leaves through ``reduce_from_model``. The cache holds the rank's W/k
+channels.
 """
 from __future__ import annotations
 
@@ -28,7 +40,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.mesh import refuse_on_model_axis
+from repro_torch.launch import tensor_parallel as tp
+from repro_torch.launch.mesh import model_shard
 from repro_torch.models.layers import _gelu
 from repro_torch.models.params import ParamDef
 
@@ -63,15 +76,22 @@ class RGLRUCache(NamedTuple):
 
 def init_rglru_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
                      device: torch.device, layers: int | None = None) -> RGLRUCache:
-    W = cfg.lru_width or cfg.d_model
+    """An empty cache; inside ``launch.mesh.model_parallel`` the rank's
+    W/k channels where k divides the width."""
+    shard, W = model_shard(), cfg.lru_width or cfg.d_model
+    W = W // shard.k if shard is not None and W % shard.k == 0 else W
     lead = (batch,) if layers is None else (layers, batch)
     return RGLRUCache(torch.zeros(lead + (3, W), dtype=dtype, device=device),
                       torch.zeros(lead + (W,), dtype=torch.float32, device=device), 0)
 
 
-def _gates(params, x):
-    r = torch.sigmoid(x @ params["wa"] + params["ba"]).float()
-    i = torch.sigmoid(x @ params["wx"] + params["bx"]).float()
+def _gates(params, x, cut: bool = False):
+    """The decay and input terms of the conv output ``x``; ``cut``: ``x``
+    holds the rank's channels, so each gate product is a partial sum over
+    the model group (module note)."""
+    gate = (lambda t: tp.reduce_scatter_model(t, -1)) if cut else (lambda t: t)
+    r = torch.sigmoid(gate(x @ params["wa"]) + params["ba"]).float()
+    i = torch.sigmoid(gate(x @ params["wx"]) + params["bx"]).float()
     log_a = -C_RGLRU * F.softplus(params["lambda_p"].float()) * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 0.0)) * (i * x.float())
@@ -96,9 +116,11 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def rglru_apply(params, cfg: ModelConfig, x, *, cache: RGLRUCache | None = None):
     """x: (B, L, D) -> ((B, L, D), new cache or None)."""
-    refuse_on_model_axis("an RG-LRU layer", "6b-ii")
     B, L, D = x.shape
-    W = cfg.lru_width or D
+    W = params["wa"].shape[-2]                  # the rank's channels on the model axis
+    cut = W < (cfg.lru_width or D)
+    if cut:
+        x = tp.copy_to_model(x)
     gate = _gelu(x @ params["w_in_gate"])
     xr = x @ params["w_in_rec"]
 
@@ -106,7 +128,7 @@ def rglru_apply(params, cfg: ModelConfig, x, *, cache: RGLRUCache | None = None)
         xp = torch.cat([xr.new_zeros((B, 3, W)), xr], dim=1)
         conv = sum(xp[:, i:i + L] * params["conv_w"][i][None, None] for i in range(4))
         conv = conv + params["conv_b"]
-        a, bterm = _gates(params, conv)                            # (B, L, W) each
+        a, bterm = _gates(params, conv, cut)                       # (B, L, W) each
         h = linear_scan(a, bterm)
         new_cache = None
         if cache is not None:         # prefill
@@ -116,11 +138,11 @@ def rglru_apply(params, cfg: ModelConfig, x, *, cache: RGLRUCache | None = None)
     else:
         hist = torch.cat([cache.conv, xr], dim=1)                  # (B, 4, W)
         conv = torch.einsum("bkw,kw->bw", hist, params["conv_w"]) + params["conv_b"]
-        a, bterm = _gates(params, conv[:, None])
+        a, bterm = _gates(params, conv[:, None], cut)
         h = (a[:, 0] * cache.h + bterm[:, 0])[:, None]
         cache.conv.copy_(hist[:, 1:])
         cache.h.copy_(h[:, 0])
         new_cache = RGLRUCache(cache.conv, cache.h, cache.pos + 1)
 
     y = (h.to(x.dtype) * gate) @ params["w_out"]
-    return y, new_cache
+    return (tp.reduce_from_model(y) if cut else y), new_cache

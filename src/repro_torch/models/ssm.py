@@ -19,6 +19,25 @@ operands: torch's einsum does not promote mixed dtypes.
 The cache is written in place (``conv``, ``state``), as ``KVCache`` is, and
 a new :class:`MambaCache` over the same storage comes back with ``pos``
 advanced; so a layer of a stacked cache, a view, updates the stack.
+
+Inside ``launch.mesh.model_parallel``, with the heads cut over the model
+axis (``ssm_heads`` divides k: ``dt_bias``, ``A_log`` and ``D``, and over
+``ssm_inner`` ``norm.scale`` and ``out_proj``'s rows, a rank's contiguous
+heads), the block is tensor parallel. ``in_proj``'s columns and the conv's
+channels are cut straight across the z / x / B / C / dt boundaries, so the
+rank gathers whole its product with ``in_proj``'s columns (a
+(B, L, 2·di + 2·G·N + H) activation, far smaller than the weight in a
+decode step) and the conv's leaves
+(``tensor_parallel.all_gather_model``, whose gradient sums the ranks'
+partial cotangents), and takes its heads' z, x and dt columns, the whole
+B and C of the groups its heads read, and the matching conv channels; a
+leaf the specs keep whole enters through ``copy_to_model``. ``x`` enters through ``copy_to_model``, SSD runs on the
+rank's heads, the gated norm's mean of squares over the whole ``d_inner``
+takes one all-reduce of a (B, L) float32 sum, and the output projection's
+partial sum leaves through ``reduce_from_model``. The cache holds the
+rank's heads' state, and in its conv tail the rank's x channels beside the
+whole B and C. Where the heads do not divide k, the block runs whole on
+every rank, its cut leaves gathered (``gather_from_model``).
 """
 from __future__ import annotations
 
@@ -28,7 +47,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.mesh import refuse_on_model_axis
+from repro_torch.launch import tensor_parallel as tp
+from repro_torch.launch.mesh import model_shard
 from repro_torch.models.layers import rmsnorm_apply, rmsnorm_defs
 from repro_torch.models.params import ParamDef
 
@@ -62,13 +82,54 @@ class MambaCache(NamedTuple):
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
                      device: torch.device, layers: int | None = None) -> MambaCache:
-    conv_dim = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
+    """An empty cache; inside ``launch.mesh.model_parallel`` the rank's
+    H/k heads (and their x channels beside the whole B and C) where k
+    divides the heads."""
+    shard, H = model_shard(), cfg.ssm_nheads
+    Hl = H // shard.k if shard is not None and H % shard.k == 0 else H
+    G = _local_groups(cfg, 0, Hl)[1]
+    conv_dim = Hl * cfg.ssm_headdim + 2 * G * cfg.ssm_state
     lead = (batch,) if layers is None else (layers, batch)
     return MambaCache(
         torch.zeros(lead + (cfg.ssm_conv - 1, conv_dim), dtype=dtype, device=device),
-        torch.zeros(lead + (cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state),
+        torch.zeros(lead + (Hl, cfg.ssm_headdim, cfg.ssm_state),
                     dtype=torch.float32, device=device),
         0)
+
+
+def _local_groups(cfg: ModelConfig, index: int, Hl: int) -> tuple[int, int]:
+    """(first, count) of the B/C groups that model shard ``index``'s ``Hl``
+    heads read (head h reads group h // (H/G)): a contiguous run where the
+    rank's heads span whole groups or fall in one."""
+    G, rep = cfg.ssm_ngroups, cfg.ssm_nheads // cfg.ssm_ngroups
+    if Hl == cfg.ssm_nheads:
+        return 0, G
+    if Hl % rep and rep % Hl:
+        raise NotImplementedError(f"{Hl} heads per model shard over groups of {rep}")
+    return index * Hl // rep, max(Hl // rep, 1)
+
+
+def _whole(w: torch.Tensor, n: int) -> torch.Tensor:
+    """A leaf of ``n`` columns (its last dim) whole on every rank of the
+    model group: gathered where the specs cut it, else through *f*."""
+    return tp.all_gather_model(w, -1) if w.shape[-1] < n else tp.copy_to_model(w)
+
+
+def _head_columns(cfg: ModelConfig, index: int, Hl: int):
+    """The column ranges, ``(start, length)``, of ``in_proj`` (z, x, B, C,
+    dt) and of the conv (x, B, C) that model shard ``index``'s ``Hl`` heads
+    use."""
+    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
+    GN = cfg.ssm_ngroups * N
+    g0, g = _local_groups(cfg, index, Hl)
+    x = (index * Hl * P, Hl * P)
+    conv = [x, (di + g0 * N, g * N), (di + GN + g0 * N, g * N)]
+    proj = [x] + [(di + a, n) for a, n in conv] + [(2 * di + 2 * GN + index * Hl, Hl)]
+    return proj, conv
+
+
+def _columns(w: torch.Tensor, ranges) -> torch.Tensor:
+    return torch.cat([w.narrow(-1, a, n) for a, n in ranges], dim=-1)
 
 
 def _segsum(dA: torch.Tensor) -> torch.Tensor:
@@ -141,12 +202,32 @@ def mamba2_apply(params, cfg: ModelConfig, x, *, cache: MambaCache | None = None
     """x: (B, L, D) -> ((B, L, D), new cache or None). With a cache and L == 1,
     one recurrent decode step; with a cache and L > 1, a prefill from an
     empty cache that leaves the conv tail and the final state in it."""
-    refuse_on_model_axis("a Mamba-2 layer", "6b-ii")
     Bsz, L, _ = x.shape
     di, G, N, H, P = cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
     conv_dim = di + 2 * G * N
-
-    zxbcdt = x @ params["in_proj"]
+    in_proj, conv_w, conv_b = params["in_proj"], params["conv_w"], params["conv_b"]
+    shard = model_shard()
+    Hl = params["dt_bias"].shape[-1]
+    cut = shard is not None and Hl < H             # the rank's heads (module note)
+    if cut:
+        x = tp.copy_to_model(x)
+        proj_cols, conv_cols = _head_columns(cfg, shard.index, Hl)
+        if in_proj.shape[-1] < 2 * di + 2 * G * N + H:
+            # the rank's columns of the product, gathered whole
+            zxbcdt = tp.all_gather_model(x @ in_proj, -1)
+        else:
+            zxbcdt = x @ tp.copy_to_model(in_proj)
+        zxbcdt = _columns(zxbcdt, proj_cols)
+        conv_w = _columns(_whole(conv_w, conv_dim), conv_cols)
+        conv_b = _columns(_whole(conv_b, conv_dim), conv_cols)
+        G = _local_groups(cfg, shard.index, Hl)[1]
+        di, H, conv_dim = Hl * P, Hl, Hl * P + 2 * G * N
+    else:
+        if shard is not None:                      # whole on every rank
+            in_proj, conv_w, conv_b = (tp.gather_from_model(w, -1) if w.shape[-1] < n else w
+                                       for w, n in ((in_proj, 2 * di + 2 * G * N + H),
+                                                    (conv_w, conv_dim), (conv_b, conv_dim)))
+        zxbcdt = x @ in_proj
     z, xbc, dt_raw = torch.split(zxbcdt, [di, conv_dim, H], dim=-1)
     A = -torch.exp(params["A_log"].float())
 
@@ -154,8 +235,8 @@ def mamba2_apply(params, cfg: ModelConfig, x, *, cache: MambaCache | None = None
         # training forward or prefill: causal depthwise conv along L
         pad = xbc.new_zeros((Bsz, cfg.ssm_conv - 1, conv_dim))
         xbc_p = torch.cat([pad, xbc], dim=1)
-        conv = sum(xbc_p[:, i:i + L] * params["conv_w"][i][None, None]
-                   for i in range(cfg.ssm_conv)) + params["conv_b"]
+        conv = sum(xbc_p[:, i:i + L] * conv_w[i][None, None]
+                   for i in range(cfg.ssm_conv)) + conv_b
         conv = F.silu(conv)
         xs, B_, C_ = torch.split(conv, [di, G * N, G * N], dim=-1)
         dt = F.softplus(dt_raw.float() + params["dt_bias"])
@@ -178,7 +259,7 @@ def mamba2_apply(params, cfg: ModelConfig, x, *, cache: MambaCache | None = None
     else:
         # one recurrent step (L == 1)
         xbc_hist = torch.cat([cache.conv, xbc], dim=1)             # (B, conv, dim)
-        conv = torch.einsum("bkc,kc->bc", xbc_hist, params["conv_w"]) + params["conv_b"]
+        conv = torch.einsum("bkc,kc->bc", xbc_hist, conv_w) + conv_b
         conv = F.silu(conv)[:, None]
         xs, B_, C_ = torch.split(conv, [di, G * N, G * N], dim=-1)
         dt = F.softplus(dt_raw.float() + params["dt_bias"])[:, 0]  # (B, H)
@@ -193,5 +274,24 @@ def mamba2_apply(params, cfg: ModelConfig, x, *, cache: MambaCache | None = None
         y = y.reshape(Bsz, 1, di)
         new_cache = _write(cache, xbc_hist[:, 1:], st, 1)
 
-    y = rmsnorm_apply(params["norm"], y * F.silu(z), cfg.norm_eps)
-    return y @ params["out_proj"], new_cache
+    if cut:
+        return tp.reduce_from_model(_cut_norm(params["norm"], y * F.silu(z), cfg)
+                                    @ params["out_proj"]), new_cache
+    norm, out_proj = params["norm"], params["out_proj"]
+    if shard is not None:                          # whole on every rank
+        norm = {"scale": tp.gather_from_model(norm["scale"], -1)
+                if norm["scale"].shape[-1] < di else norm["scale"]}
+        out_proj = tp.gather_from_model(out_proj, -2) if out_proj.shape[-2] < di else out_proj
+    y = rmsnorm_apply(norm, y * F.silu(z), cfg.norm_eps)
+    return y @ out_proj, new_cache
+
+
+def _cut_norm(norm, x, cfg: ModelConfig):
+    """``rmsnorm_apply`` over the rank's columns of the whole ``d_inner``:
+    the sum of squares all-reduced over the model group, forward and
+    backward (*g*, then *f*: every rank's normalizer reads every rank's
+    columns)."""
+    x32 = x.float()
+    ss = tp.copy_to_model(tp.reduce_from_model(torch.sum(torch.square(x32), -1, keepdim=True)))
+    normed = x32 * torch.rsqrt(ss / cfg.d_inner + cfg.norm_eps)
+    return (normed * norm["scale"].float()).to(x.dtype)

@@ -1,7 +1,7 @@
 """Continuous batcher: paged-KV decode slots refilled as requests finish.
 
-The port of the reference's ``repro/serving/batcher.py`` without the mesh.
-Against the wave discipline (pad every request to the wave's maximum,
+The port of the reference's ``repro/serving/batcher.py``. Against the wave
+discipline (pad every request to the wave's maximum,
 decode in lock-step) it keeps:
 
   * batched admission: freed slots are refilled from the queue at once
@@ -38,6 +38,19 @@ ready on the device, read without a sync when the request finishes
 (:class:`~repro_torch.serving.engine.FirstTokenClock`), as
 ``WaveBatcher.ttft`` is.
 
+With ``mesh=`` (a live mesh of model factor k > 1) the batcher serves a
+rank's cut of the params, as the reference's ``ContinuousBatcher(mesh=)``
+places them (``param_pspecs(cfg, mesh, "allreduce")``: every worker group
+serves the whole call): its paged pools hold the rank's kv heads where
+they divide k, else every kv head, MLA's whole (``kvcache.paged_cache_pspecs``),
+and admission and decode run inside ``launch.mesh.model_parallel``. Its
+decode step then runs collectives over the model group, and it runs
+eagerly, on the card too: ``stats()["decode"]`` is ``"eager"`` and
+``stats()["decode_reason"]`` says why (a gloo collective cannot be
+captured in a CUDA graph, and NCCL at k > 1 needs a card per rank). At
+model factor 1 a mesh changes nothing: the batcher is meshless, with its
+graph on the card.
+
 Sampled tokens are deterministic for a seed but not the numbers
 ``jax.random`` draws; greedy tokens are the reference's. Requests longer
 than the largest bucket and archs the paged cache cannot serve (see
@@ -54,6 +67,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import WorkerMesh, model_parallel
+from repro_torch.models import attention as attn_lib
 from repro_torch.models import model as M
 from repro_torch.serving import kvcache as kv
 from repro_torch.serving.engine import FirstTokenClock
@@ -89,10 +104,27 @@ def default_buckets(page: int, max_len: int) -> list[int]:
     return sorted(set(out))
 
 
+def _model_mesh(mesh) -> WorkerMesh | None:
+    """The live WorkerMesh of ``mesh`` where its model factor exceeds 1,
+    else None (no mesh, or one whose replicas are whole)."""
+    if mesh is None:
+        return None
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not isinstance(WorkerMesh.raw(mesh), DeviceMesh):
+        raise TypeError(f"mesh={mesh!r}: ContinuousBatcher serves over a live mesh, a "
+                        "WorkerMesh or DeviceMesh from launch.mesh.make_host_mesh")
+    wm = WorkerMesh.ensure(mesh)
+    return wm if wm.model_factor > 1 else None
+
+
 class ContinuousBatcher:
     """Continuous batching over a paged KV cache (API mirrors WaveBatcher).
 
-    Runs on the params' device. ``mesh`` is not supported yet."""
+    Runs on the params' device. ``mesh``: a live WorkerMesh or DeviceMesh
+    (``launch.mesh.make_host_mesh``); at model factor k > 1 ``params`` are
+    this rank's cut (``engine.load_consensus_params(mesh=)``), as
+    ``generate`` and ``WaveBatcher`` take them (module note)."""
 
     @torch.no_grad()
     def __init__(self, params, cfg: ModelConfig, batch_slots: int,
@@ -103,10 +135,7 @@ class ContinuousBatcher:
         if reason is not None:
             raise ValueError(
                 f"ContinuousBatcher unsupported: {reason}; use WaveBatcher")
-        if mesh is not None:
-            raise NotImplementedError(
-                "ContinuousBatcher(mesh=...) waits for serving over the mesh "
-                "(ROADMAP queue 1, item 3, step 6c)")
+        self.wm = _model_mesh(mesh)
         self.cfg, self.pad_id, self.params = cfg, pad_id, params
         self.S, self.max_len, self.max_new = batch_slots, max_len, max_new
         self.temperature = temperature
@@ -129,7 +158,8 @@ class ContinuousBatcher:
 
         # persistent slot state: allocated once, reset in place
         S, dev = self.S, self.dev
-        self.caches = kv.init_paged_caches(cfg, self.pool, dev)
+        with model_parallel(self.wm):
+            self.caches = kv.init_paged_caches(cfg, self.pool, dev)
         self.cur = torch.zeros((S,), dtype=torch.int32, device=dev)
         self.n_gen = torch.zeros((S,), dtype=torch.int32, device=dev)
         self.n_target = torch.zeros((S,), dtype=torch.int32, device=dev)
@@ -151,6 +181,7 @@ class ContinuousBatcher:
         self.done_logprobs: dict[int, np.ndarray] = {}
         self.queue: list[_Pending] = []
         self._rid = 0
+        self.decode_reason = self._eager_reason()
         self._graph = self._make_decode()
         self._clock = FirstTokenClock(self.dev)
 
@@ -187,13 +218,24 @@ class ContinuousBatcher:
         lpn = torch.gather(lp, -1, nxt[:, None])[:, 0]
         return nxt.to(torch.int32), lpn
 
+    def _eager_reason(self) -> str | None:
+        """Why the decode step runs eagerly (None: one CUDA graph)."""
+        if self.wm is not None:
+            return (f"model factor {self.wm.model_factor}: the decode step runs collectives "
+                    "over the model group, which gloo cannot capture in a CUDA graph and "
+                    "NCCL runs only with a card per rank")
+        if self.dev.type != "cuda":
+            return f"no CUDA graph on the {self.dev.type}"
+        return None
+
     @torch.no_grad()
     def decode_eager(self, caches, cur, n_gen, n_target, out_toks, out_lps) -> None:
         """One decode step over all slots, eagerly, on the given state (in
         place): the body the graph captures. Active slots (n_gen < n_target)
         record their next token and logprob, advance cur, n_gen and the
         caches' lengths; the others write only the dump page."""
-        logits, _ = M.decode_step(self.params, self.cfg, caches, cur[:, None])
+        with model_parallel(self.wm):
+            logits, _ = M.decode_step(self.params, self.cfg, caches, cur[:, None])
         nxt, lpn = self._sample(logits[:, -1])
         active = n_gen < n_target
         rows = torch.arange(cur.shape[0], device=cur.device)
@@ -211,7 +253,7 @@ class ContinuousBatcher:
         build but the count. Runs while every slot is inactive, so the warm
         steps change nothing but the dump page."""
         self._decode_traces += 1
-        if self.dev.type != "cuda":
+        if self.decode_reason is not None:
             return None
         st = self.state()
         side = torch.cuda.Stream(self.dev)
@@ -283,9 +325,11 @@ class ContinuousBatcher:
         lengths_t = self._to_dev(lengths)
         slots_t = self._to_dev(np.asarray(slots, np.int64))
         # ragged batched prefill: pad rows are masked out of attention and
-        # logits come from each row's last REAL position
-        logits, dense, _, _ = M.prefill(self.params, self.cfg, self._to_dev(prompts),
-                                        max_len=Lb, lengths=lengths_t)
+        # logits come from each row's last REAL position; its caches are laid
+        # out as the pools (no cut over the sequence)
+        with model_parallel(self.wm), attn_lib.whole_sequence_caches():
+            logits, dense, _, _ = M.prefill(self.params, self.cfg, self._to_dev(prompts),
+                                            max_len=Lb, lengths=lengths_t)
         kv.scatter_prefill(self.cfg, self.caches, dense, slots_t, self._to_dev(ids),
                            self._to_dev(rows), lengths_t)
         del dense
@@ -390,6 +434,7 @@ class ContinuousBatcher:
         return {
             "decode_traces": self._decode_traces,
             "decode": "cuda graph" if self._graph is not None else "eager",
+            "decode_reason": self.decode_reason,
             "decode_replays": self._replays,
             "eager_decodes": self._eager_decodes,
             "admit_traces": {f"{a}x{lb}": 1 for a, lb in self._admit_shapes},

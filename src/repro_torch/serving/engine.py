@@ -1,9 +1,10 @@
 """Batched serving: prefill and greedy or sampled decode over KV caches.
 
-The port of the reference's ``repro/serving/engine.py`` without the mesh:
-``load_consensus_params`` (a monolithic npz, worker-stacked or not),
-``make_serve_step``, ``GenerationResult``, ``generate`` and the lock-step
-``WaveBatcher``. The reference's jitted ``lax.scan`` decode loop is a
+The port of the reference's ``repro/serving/engine.py``:
+``load_consensus_params`` (a monolithic npz, worker-stacked or not, or a
+worker-sharded checkpoint; with ``mesh=`` the rank's cut of the
+consensus), ``make_serve_step``, ``GenerationResult``, ``generate`` and
+the lock-step ``WaveBatcher``. The reference's jitted ``lax.scan`` decode loop is a
 Python loop here; tokens and logprobs stay on the device and come to the
 host at the end, as in the reference. The KV caches are written in place;
 a sliding-window config decodes over ring caches of ``window`` slots, and
@@ -21,6 +22,17 @@ draws. The continuous batcher over paged caches is
 its baseline. Both batchers take a request's time to first token (``ttft``)
 at the same point, when its first token is ready on the device
 (:class:`FirstTokenClock`).
+
+Serving on a mesh replicates over the worker axes and cuts each replica
+over the model axis, as the reference's ``param_pspecs(cfg, wm,
+"allreduce")`` does: every worker group serves the whole call.
+``load_consensus_params(mesh=)`` gives the rank's cut, and ``generate``,
+``make_serve_step`` and ``WaveBatcher`` compute on it inside
+``launch.mesh.model_parallel(wm)``, which the caller enters, as a train
+step's caller does: the layers run on the rank's heads, channels and
+vocab columns, the caches hold the rank's cut (``model.init_cache``), and
+the logits are gathered over the model group before the argmax or the
+draw (``model.logits_from_hidden``).
 """
 from __future__ import annotations
 
@@ -45,7 +57,7 @@ __all__ = ["load_consensus_params", "make_serve_step", "GenerationResult",
 
 def load_consensus_params(path: str, cfg: ModelConfig, *,
                           dtype: torch.dtype | str | None = None,
-                          device: str | torch.device = "cuda") -> PyTree:
+                          device: str | torch.device = "cuda", mesh=None) -> PyTree:
     """Decode-ready params from a gossip-trained checkpoint.
 
     The checkpoint may be worker-stacked (every leaf carries the leading M
@@ -55,25 +67,77 @@ def load_consensus_params(path: str, cfg: ModelConfig, *,
     w̄ = (1/M) Σ_j w_j) before serving. A worker-sharded checkpoint
     (``checkpoint.save_sharded``) is averaged shard by shard by
     ``checkpoint.consensus_from_sharded``, one worker replica on the host at
-    a time."""
+    a time.
+
+    With ``mesh`` (a live WorkerMesh or DeviceMesh) the result is this
+    rank's cut of the consensus under ``param_pspecs(cfg, mesh,
+    "allreduce")``, on the mesh's device: of a sharded checkpoint each
+    shard's leaves are cut as they arrive; of a monolithic worker-stacked
+    one each leaf's workers are read one at a time onto the device,
+    averaged there by ``consensus_params`` (the workers of one leaf, whole:
+    its sum over them is bit for bit the meshless one's) and cut; of an
+    unstacked one the rank keeps its cut. The file is memory-mapped, so
+    no worker replica is copied on the host, and the same bits as the
+    meshless consensus's cut come back."""
     dt = dtype or cfg.param_dtype
     dt = getattr(torch, dt) if isinstance(dt, str) else dt
     like = _tree.map(lambda d: torch.empty(d.shape, dtype=dt, device="meta"),
                      M.model_defs(cfg))
+    specs = wm = None
+    if mesh is not None:
+        from repro_torch.launch.mesh import WorkerMesh
+        from repro_torch.launch.shardings import param_pspecs
+
+        wm = WorkerMesh.ensure(mesh)
+        specs = param_pspecs(cfg, wm, "allreduce")
+        device = wm.mesh.device_type
     if ckpt_lib._is_sharded(path):
-        return ckpt_lib.consensus_from_sharded(path, like, device)
-    data = np.load(ckpt_lib._npz_path(path))
+        return ckpt_lib.consensus_from_sharded(
+            path, like, device, shardings=None if wm is None else (specs, wm))
+    data = ckpt_lib._load_npz(ckpt_lib._npz_path(path))
     # worker-stacked iff a stored leaf has one more dim than its template
     # (bf16 leaves are stored as a same-shape uint16 view)
     by_key = {ckpt_lib._path_key(p): leaf for p, leaf in _tree.flatten_with_path(like)}
-    f0 = data.files[0]
+    f0 = next(iter(data))
     leaf0 = by_key[ckpt_lib._base_key(f0)]
-    if data[f0].ndim == leaf0.dim() + 1:
+    stacked = data[f0].ndim == leaf0.dim() + 1
+    if wm is not None:
+        return _consensus_cut(path, like, specs, wm, device, stacked)
+    if stacked:
         Mw = data[f0].shape[0]
-        stacked = _tree.map(lambda t: torch.empty((Mw,) + tuple(t.shape), dtype=t.dtype,
-                                                  device="meta"), like)
-        return ckpt_lib.consensus_params(ckpt_lib.restore(path, stacked, device))
+        like_M = _tree.map(lambda t: torch.empty((Mw,) + tuple(t.shape), dtype=t.dtype,
+                                                 device="meta"), like)
+        return ckpt_lib.consensus_params(ckpt_lib.restore(path, like_M, device))
     return ckpt_lib.restore(path, like, device)
+
+
+def _consensus_cut(path: str, like: PyTree, specs: PyTree, wm, device,
+                   stacked: bool) -> PyTree:
+    """:func:`load_consensus_params`' monolithic checkpoint on a mesh, leaf
+    by leaf: its member of the npz memory-mapped (``checkpoint._load_npz``,
+    its CRC checked), a stacked leaf's workers moved to ``device`` one at a
+    time and averaged there by ``checkpoint.consensus_params``, the result
+    cut to the rank (``launch.shardings.local_tree``)."""
+    from repro_torch.convert import resolve_device
+    from repro_torch.launch.shardings import local_tree
+
+    dev = resolve_device(device)
+    data = ckpt_lib._load_npz(ckpt_lib._npz_path(path))
+    stored_by_key = {ckpt_lib._base_key(f): f for f in data}
+    paths = _tree.flatten_with_path(like)
+    ckpt_lib._check_keys(path, stored_by_key, paths)
+    out = []
+    for (p, leaf), spec in zip(paths, _tree.flatten_up_to(_tree.flatten(like)[1], specs)):
+        stored = stored_by_key[ckpt_lib._path_key(p)]
+        raw = data[stored]
+        workers = [ckpt_lib._stored_tensor(w, stored, dev).to(leaf.dtype)
+                   for w in (raw if stacked else [raw])]
+        for t in workers:
+            ckpt_lib._check_shape(path, stored, t, leaf)
+        whole = ckpt_lib.consensus_params(torch.stack(workers)) if stacked else workers[0]
+        del workers
+        out.append(local_tree([whole], [spec], wm)[0].clone())
+    return _tree.unflatten(_tree.flatten(like)[1], out)
 
 
 def make_serve_step(cfg: ModelConfig):

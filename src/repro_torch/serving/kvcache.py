@@ -1,7 +1,6 @@
 """Block-table paged KV cache for the continuous batcher.
 
-The port of the reference's ``repro/serving/kvcache.py`` without the mesh.
-Physical storage is one page pool per attention layer, ``(n_pages, page,
+The port of the reference's ``repro/serving/kvcache.py``. Physical storage is one page pool per attention layer, ``(n_pages, page,
 Kh, hd)`` tensors for keys and values, or for MLA ``(n_pages, page,
 kv_lora)`` latents and ``(n_pages, page, rope_dim)`` rope keys (stacked on
 a leading layer dim for a scanned segment, each layer its own storage).
@@ -21,6 +20,10 @@ a CUDA graph captured over the decode step keeps reading the same storage.
 Admission scatters a group's dense prefill caches into the slots' pages
 with one ``index_put_`` per pool; prefill buckets are multiples of the page
 size, so a bucket is a whole number of blocks.
+
+On a mesh's model axis the pools hold the rank's kv heads where they
+divide the model factor, else every kv head, and MLA's pools are whole on
+every rank (:func:`paged_cache_pspecs`, the reference's rule).
 """
 from __future__ import annotations
 
@@ -30,11 +33,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import model_shard
 from repro_torch.models import model as M
 from repro_torch.models.attention import PagedKVCache, PagedMLACache
 
 __all__ = ["paged_unsupported_reason", "supports_paged", "PagePool",
-           "init_paged_caches", "clear_paged_caches", "map_layers",
+           "init_paged_caches", "paged_cache_pspecs", "clear_paged_caches", "map_layers",
            "scatter_prefill", "retire_slot", "bump_lengths"]
 
 
@@ -117,7 +121,9 @@ def _one_layer(cfg: ModelConfig, pool: PagePool, dtype: torch.dtype,
             torch.zeros(pages + (cfg.kv_lora_rank,), dtype=dtype, device=device),
             torch.zeros(pages + (cfg.qk_rope_dim,), dtype=dtype, device=device),
             tables, lengths)
-    shape = pages + (cfg.n_kv_heads, cfg.head_dim)
+    shard, Kh = model_shard(), cfg.n_kv_heads
+    Kh = Kh // shard.k if shard is not None and Kh % shard.k == 0 else Kh
+    shape = pages + (Kh, cfg.head_dim)
     return PagedKVCache(torch.zeros(shape, dtype=dtype, device=device),
                         torch.zeros(shape, dtype=dtype, device=device), tables, lengths)
 
@@ -126,7 +132,9 @@ def init_paged_caches(cfg: ModelConfig, pool: PagePool,
                       device: str | torch.device) -> list:
     """Per-layer paged caches on ``device``: one stacked :class:`PagedKVCache`
     (:class:`PagedMLACache` for MLA) for a scanned segment (every layer its
-    own storage, not a broadcast view), a list of them for a list segment."""
+    own storage, not a broadcast view), a list of them for a list segment;
+    inside ``launch.mesh.model_parallel`` the rank's cut that
+    :func:`paged_cache_pspecs` gives."""
     reason = paged_unsupported_reason(cfg)
     if reason is not None:
         raise ValueError(f"paged cache unsupported for this arch: {reason}")
@@ -134,6 +142,29 @@ def init_paged_caches(cfg: ModelConfig, pool: PagePool,
     dev = torch.device(device)
     return [_one_layer(cfg, pool, dtype, dev, seg.length) if seg.scanned
             else [_one_layer(cfg, pool, dtype, dev) for _ in range(seg.length)]
+            for seg in M.plan_segments(cfg)]
+
+
+def paged_cache_pspecs(cfg: ModelConfig, mesh) -> list:
+    """Specs mirroring :func:`init_paged_caches`' structure, the
+    reference's: the kv heads over 'model' where they divide it (tables
+    and lengths replicated); MLA's pages, with no head dim, replicated."""
+    from repro_torch.launch.mesh import WorkerMesh
+    from repro_torch.models.params import PartitionSpec as P
+
+    shape = WorkerMesh.ensure(mesh).shape
+    k = shape.get("model", 1)
+
+    def one():
+        if cfg.attention_type == "mla":
+            return PagedMLACache(P(None, None, None), P(None, None, None), P(), P())
+        h_ax = "model" if k > 1 and cfg.n_kv_heads % k == 0 else None
+        return PagedKVCache(P(None, None, h_ax, None), P(None, None, h_ax, None), P(), P())
+
+    def stacked(spec):
+        return type(spec)(*(P(None, *p) for p in spec))
+
+    return [stacked(one()) if seg.scanned else [one() for _ in range(seg.length)]
             for seg in M.plan_segments(cfg)]
 
 

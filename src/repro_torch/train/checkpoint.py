@@ -38,10 +38,14 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import functools
+import io
 import json
+import mmap
 import os
+import threading
 import time
 import zipfile
+import zlib
 from typing import Any
 
 import numpy as np
@@ -50,7 +54,7 @@ import torch.distributed as dist
 
 from repro_torch import _tree
 from repro_torch.convert import resolve_device
-from repro_torch.launch.mesh import WorkerMesh
+from repro_torch.launch.mesh import WorkerMesh, report_group
 from repro_torch.launch.tensor_parallel import model_cut, whole_leaves, whole_shape
 
 PyTree = Any
@@ -103,18 +107,28 @@ def _write_npz_members(path: str, members) -> None:
     """``np.savez``'s file (a stored zip of ``.npy`` members, ``.npz``
     appended when missing) from ``(name, shape, numpy dtype, chunks)``
     members, each member's data the concatenation of its ``chunks``
-    (C-contiguous arrays, written from their buffers)."""
+    (C-contiguous arrays, written from their buffers). The file is written
+    beside ``path`` and renamed onto it, so a file already there is
+    replaced whole and never rewritten in place: a reader of the old file
+    (:func:`_load_npz`'s memory map) keeps its bytes."""
     if not path.endswith(".npz"):
         path += ".npz"
-    with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_STORED,
-                         allowZip64=True) as zf:
-        for name, shape, dtype, chunks in members:
-            with zf.open(name + ".npy", "w", force_zip64=True) as f:
-                np.lib.format.write_array_header_1_0(f, {
-                    "descr": np.lib.format.dtype_to_descr(np.dtype(dtype)),
-                    "fortran_order": False, "shape": tuple(shape)})
-                for chunk in chunks:
-                    f.write(np.ascontiguousarray(chunk).reshape(-1).view(np.uint8).data)
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    try:
+        with zipfile.ZipFile(tmp, "w", compression=zipfile.ZIP_STORED,
+                             allowZip64=True) as zf:
+            for name, shape, dtype, chunks in members:
+                with zf.open(name + ".npy", "w", force_zip64=True) as f:
+                    np.lib.format.write_array_header_1_0(f, {
+                        "descr": np.lib.format.dtype_to_descr(np.dtype(dtype)),
+                        "fortran_order": False, "shape": tuple(shape)})
+                    for chunk in chunks:
+                        f.write(np.ascontiguousarray(chunk).reshape(-1).view(np.uint8).data)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
 
 
 def _write_npz(path: str, arrays: dict[str, np.ndarray]) -> None:
@@ -125,6 +139,40 @@ def _write_npz(path: str, arrays: dict[str, np.ndarray]) -> None:
     it."""
     _write_npz_members(path, ((name, arr.shape, arr.dtype, [arr])
                               for name, arr in arrays.items()))
+
+
+def _load_npz(path: str) -> dict[str, np.ndarray]:
+    """Every array of an npz by member name, as ``np.load`` gives them and
+    with the zip's CRC-32 of each member checked as ``np.load`` checks it,
+    but read from one copy-on-write memory map of the file: a member is a
+    view of its pages, which are read once for the check and once more
+    where :func:`_stored_tensor` copies the leaf out, with no copy on the
+    host in between. Members are stored, as ``np.savez`` and
+    :func:`_write_npz` write them; a compressed one is refused."""
+    fmt = np.lib.format
+    out: dict[str, np.ndarray] = {}
+    with zipfile.ZipFile(path) as zf, open(path, "rb") as f:
+        infos = zf.infolist()
+        mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY) if infos else None
+        for info in infos:
+            if info.compress_type != zipfile.ZIP_STORED:
+                raise ValueError(f"{path}: {info.filename} is compressed; checkpoints "
+                                 "store their members (np.savez)")
+            # the local header: 30 bytes, then the name and the extra field
+            head = mm[info.header_offset:info.header_offset + 30]
+            start = info.header_offset + 30 + int.from_bytes(head[26:28], "little") \
+                + int.from_bytes(head[28:30], "little")
+            with memoryview(mm)[start:start + info.compress_size] as member:
+                if zlib.crc32(member) != info.CRC:
+                    raise zipfile.BadZipFile(f"{path}: bad CRC-32 for {info.filename}")
+                npy = io.BytesIO(member[:1 << 17].tobytes())
+            read = (fmt.read_array_header_1_0 if fmt.read_magic(npy) == (1, 0)
+                    else fmt.read_array_header_2_0)
+            shape, fortran, dtype = read(npy)
+            n = int(np.prod(shape, dtype=np.int64))
+            arr = np.frombuffer(mm, dtype=dtype, count=n, offset=start + npy.tell())
+            out[info.filename[:-len(".npy")]] = arr.reshape(shape, order="F" if fortran else "C")
+    return out
 
 
 def _base_key(stored: str) -> str:
@@ -141,11 +189,13 @@ def _is_sharded(path: str) -> bool:
 
 
 def _stored_tensor(raw: np.ndarray, stored: str, device: torch.device) -> torch.Tensor:
-    """A stored array as a tensor on ``device``, tagged leaves as bf16."""
+    """A stored array as a tensor on ``device``, tagged leaves as bf16, in
+    memory of its own (on the CPU too: ``raw`` may be a view of
+    :func:`_load_npz`'s map)."""
     if stored.endswith(_BF16_TAG):
         bits = np.ascontiguousarray(raw).view(np.int16)
-        return torch.from_numpy(bits).to(device).view(torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(raw)).to(device)
+        return torch.from_numpy(bits).to(device, copy=True).view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(raw)).to(device, copy=True)
 
 
 def save(path: str, tree: PyTree, step: int | None = None, *, wmesh=None,
@@ -266,8 +316,8 @@ def restore(path: str, like: PyTree, device: str | torch.device = "cuda", *,
     if _is_sharded(path):
         return restore_sharded(path, like, device)
     dev = resolve_device(device)
-    data = np.load(_npz_path(path))
-    stored_by_key = {_base_key(f): f for f in data.files}
+    data = _load_npz(_npz_path(path))
+    stored_by_key = {_base_key(f): f for f in data}
     paths = _tree.flatten_with_path(like)
     _check_keys(path, stored_by_key, paths)
     out = []
@@ -350,7 +400,7 @@ def save_sharded(path: str, tree: PyTree, step: int | None = None, *,
     ``w{j}`` names as the reference's train loop gives a raw mesh) ``tree``
     is this rank's workers' part and every rank calls this: each writes its
     own workers' files, then the ranks report them written to each other
-    (:func:`_report_group`), and only then does the mesh's first rank write
+    (``launch.mesh.report_group``), and only then does the mesh's first rank write
     the meta, so a meta never lists a shard that is not yet on disk. Over a
     model axis (k > 1) ``tree`` is cut by ``param_specs``: the worker
     group's model rank 0 writes its workers' files from the leaves gathered
@@ -376,7 +426,7 @@ def _sharded_writes(path: str, tree: PyTree, step: int | None, wmesh) -> list:
     worker group): it only reports."""
     wm = WorkerMesh.ensure(wmesh)
     if tree is None:
-        group = _report_group(_live_mesh(wm))
+        group = report_group(_live_mesh(wm).mesh)
         return [(lambda: dist.barrier(group=group), False)]
     leaves = _tree.leaves(tree)
     if not leaves:
@@ -390,7 +440,7 @@ def _sharded_writes(path: str, tree: PyTree, step: int | None, wmesh) -> list:
         wm = _live_mesh(wm)
         M, mine = m * wm.n_workers, _rank_workers(wm, m)
         writes_meta = dist.get_rank() == wm.rank_of(0)
-        group = _report_group(wm)
+        group = report_group(wm.mesh)
     base = _strip_npz(path)
     coords = worker_coords(named, M)
 
@@ -416,26 +466,6 @@ def _sharded_writes(path: str, tree: PyTree, step: int | None, wmesh) -> list:
     if writes_meta:
         writes.append((meta, True))
     return writes
-
-
-# the gloo groups over which a live mesh's ranks report their shards
-# written, by default group and ranks: a group of its own, so the report can
-# run on a writer's thread beside the loop's collectives
-_REPORT_GROUPS: dict = {}
-
-
-def _report_group(wm):
-    """The gloo group of ``wm``'s ranks for :func:`save_sharded`'s report
-    (None on a mesh of one rank), made at the mesh's first sharded save by
-    its ranks alone."""
-    ranks = tuple(sorted(int(r) for r in wm.mesh.mesh.flatten().tolist()))
-    if len(ranks) == 1:
-        return None
-    key = (dist.group.WORLD, ranks)
-    if key not in _REPORT_GROUPS:
-        _REPORT_GROUPS[key] = dist.new_group(list(ranks), backend="gloo",
-                                             use_local_synchronization=True)
-    return _REPORT_GROUPS[key]
 
 
 def _sharded_meta(path: str) -> dict | None:
@@ -468,8 +498,8 @@ def restore_sharded(path: str, like: PyTree,
 
 def _restore_stacked(path: str, files: list[str], like: PyTree, dev: torch.device) -> PyTree:
     """The shard ``files``' trees stacked on a leading dim, in their order."""
-    shards = [np.load(f) for f in files]
-    stored_by_key = {_base_key(f): f for f in shards[0].files}
+    shards = [_load_npz(f) for f in files]
+    stored_by_key = {_base_key(f): f for f in shards[0]}
     paths = _tree.flatten_with_path(like)
     _check_keys(path, stored_by_key, paths)
     out = []
@@ -512,17 +542,18 @@ def consensus_from_sharded(path: str, like: PyTree,
     acc: list | None = None
     stored_by_key: dict[str, str] | None = None
     for f in files:
-        with np.load(f) as z:
-            if stored_by_key is None:
-                stored_by_key = {_base_key(s): s for s in z.files}
-                _check_keys(path, stored_by_key, paths)
-            cur = []
-            for p, leaf in paths:
-                key = _path_key(p)
-                stored = stored_by_key[key]
-                t = _stored_tensor(z[stored], stored, dev)
-                _check_shape(path, key, t, leaf)
-                cur.append(t)
+        z = _load_npz(f)
+        if stored_by_key is None:
+            stored_by_key = {_base_key(s): s for s in z}
+            _check_keys(path, stored_by_key, paths)
+        cur = []
+        for p, leaf in paths:
+            key = _path_key(p)
+            stored = stored_by_key[key]
+            t = _stored_tensor(z[stored], stored, dev)
+            _check_shape(path, key, t, leaf)
+            cur.append(t)
+        del z
         cur = [t.float() for t in cut(cur)]
         acc = cur if acc is None else [a.add_(b) for a, b in zip(acc, cur)]
     Mw = torch.full((), float(len(files)), dtype=torch.float32, device=dev)
@@ -727,18 +758,18 @@ def export_consensus(src: str | PyTree, dst: str | None = None,
         # restore_sharded inverse), then average as for a monolithic file
         dev = resolve_device(device)
         _, files, meta = _shard_files(src)
-        shards = [np.load(f) for f in files]
+        shards = [_load_npz(f) for f in files]
         tree = _unflatten_keys({
             _base_key(f): _stored_tensor(np.stack([s[f] for s in shards]), f, dev)
-            for f in shards[0].files})
+            for f in shards[0]})
         if step is None:
             step = meta.get("step")
     elif isinstance(src, str):
         dev = resolve_device(device)
         path = _npz_path(src)
-        data = np.load(path)
+        data = _load_npz(path)
         tree = _unflatten_keys({_base_key(f): _stored_tensor(data[f], f, dev)
-                                for f in data.files})
+                                for f in data})
         if step is None:
             # save() keys the .meta.json on the caller's spelling, which may
             # or may not include the .npz suffix: probe both

@@ -135,6 +135,25 @@ def test_restore_casts_and_rejects_other_trees(tmp_path):
         TC.restore(path, {"a": torch.empty(4), "b": [torch.empty(2)]}, device="cpu")
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_a_cpu_restore_keeps_its_values_when_the_path_is_saved_again(tmp_path, dtype):
+    """Tensors restored on the CPU own their memory: saving another tree to
+    the same path (a resumed run's next checkpoint) leaves them as they
+    were, and the path then holds the new tree."""
+    tree = {"a": torch.arange(4096).to(dtype), "b": [torch.full((3, 5), 2.0, dtype=dtype)]}
+    path = os.path.join(tmp_path, "ck.npz")
+    TC.save(path, tree)
+    back = TC.restore(path, tree, device="cpu")
+    other = _tree.map(lambda x: torch.full_like(x, -1.0), tree)
+    TC.save(path, other)
+    for got, want in zip(_tree.leaves(back), _tree.leaves(tree)):
+        assert torch.equal(got, want)
+    for got, want in zip(_tree.leaves(TC.restore(path, tree, device="cpu")),
+                         _tree.leaves(other)):
+        assert torch.equal(got, want)
+    assert sorted(os.listdir(tmp_path)) == ["ck.npz"]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_consensus_export_and_load_match_jax(tmp_path, dtype):
     """A worker-stacked checkpoint of reduced granite: the port's

@@ -457,7 +457,7 @@ def test_continuous_rejects_window_config_and_mesh():
         ContinuousBatcher({"embed": torch.zeros(1)}, cfg, 2, 16, page_size=4)
     tcfg = tget_config("granite-3-2b", reduced=True)
     tp = TM.init(torch.Generator().manual_seed(0), tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+    with pytest.raises(TypeError, match="serves over a live mesh"):
         ContinuousBatcher(tp, tcfg, 2, 16, page_size=4, mesh=object())
     with pytest.raises(ValueError, match="multiples of page_size"):
         ContinuousBatcher(tp, tcfg, 2, 16, page_size=4, buckets=[6, 16])

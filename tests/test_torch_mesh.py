@@ -25,6 +25,7 @@ from repro.launch import mesh as JLM  # noqa: E402
 from repro.launch import shardings as JS  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.models import params as JPa  # noqa: E402
+from repro.serving import kvcache as JKV  # noqa: E402
 from repro_torch import _tree  # noqa: E402
 from repro_torch.configs import ARCH_NAMES  # noqa: E402
 from repro_torch.configs import get_config as tget_config  # noqa: E402
@@ -32,6 +33,7 @@ from repro_torch.launch import mesh as TLM  # noqa: E402
 from repro_torch.launch import shardings as TS  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models import params as TPa  # noqa: E402
+from repro_torch.serving import kvcache as TKV  # noqa: E402
 
 MESHES = [((4, 2), ("data", "model")), ((2, 2, 2), ("pod", "data", "model")),
           ((16, 16), ("data", "model"))]
@@ -80,6 +82,20 @@ def test_every_spec_of_every_config_equals_the_reference(shape, names):
             if tcfg.encoder_layers:
                 _same_specs(JS.cross_kv_pspecs(jcfg, jmesh, batch),
                             TS.cross_kv_pspecs(tcfg, tmesh, batch))
+
+
+@pytest.mark.parametrize("shape,names", MESHES + [((2, 4), ("data", "model"))],
+                         ids=MESH_IDS + ["2x4"])
+def test_serving_cache_specs_equal_the_reference(shape, names):
+    """paged_cache_pspecs (the continuous batcher's pools) and cache_pspecs
+    (the wave caches, which serving on a mesh cuts) equal the reference's,
+    spec for spec, for every config, published and reduced."""
+    jmesh, tmesh = _meshes(shape, names)
+    for name in ARCH_NAMES:
+        for reduced in (False, True):
+            jcfg, tcfg = jget_config(name, reduced=reduced), tget_config(name, reduced=reduced)
+            _same_specs(JKV.paged_cache_pspecs(jcfg, jmesh), TKV.paged_cache_pspecs(tcfg, tmesh))
+            _same_specs(JS.cache_pspecs(jcfg, jmesh, 4), TS.cache_pspecs(tcfg, tmesh, 4))
 
 
 def test_rules_and_spec_helpers_equal_the_reference():

@@ -63,7 +63,6 @@ from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.launch import shardings as S  # noqa: E402
 from repro_torch.launch import tensor_parallel as tp  # noqa: E402
 from repro_torch.launch.mesh import AbstractMesh, WorkerMesh, make_host_mesh  # noqa: E402
-from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import layers as Ly  # noqa: E402
 from repro_torch.models import model as Mo  # noqa: E402
 from repro_torch.train import checkpoint as TC  # noqa: E402
@@ -257,8 +256,8 @@ def _rank_main(rank: int, store_path: str, out_dir: str) -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store_path, WORLD), rank=rank,
                             world_size=WORLD, timeout=timedelta(seconds=120))
-    # the (4, 1) mesh over ranks 0-3 comes last: a gloo group made over all
-    # ranks after it (the first sharded save's report group) would not form
+    # the (4, 1) mesh over ranks 0-3 comes last (tests/test_torch_train_tp_recurrent.py
+    # makes its own first, before its sharded saves)
     dms = {name: make_host_mesh(**MESHES[name], device="cpu") for name in ("4x2", "2x4")}
     wms = {name: WorkerMesh.from_mesh(dm) for name, dm in dms.items()}
     out = {"cases": {}, "loops": {}, "coord": wms["4x2"].coordinate,
@@ -798,35 +797,6 @@ def test_rows_cut_over_an_abstract_mesh_asks_for_a_live_one():
     with mesh_lib.rows_cut_over(wm):
         with pytest.raises(ValueError, match="needs a live mesh"):
             Ly.moe_apply(params, cfg, x)
-
-
-@pytest.mark.parametrize("what", ["gqa-cache", "gqa-flash", "mla-cache", "encode-flash"])
-def test_serving_branches_refuse_on_the_model_axis(what):
-    """Caches and the flash kernel refuse inside model_parallel at k = 2,
-    naming step 6c (serving on a mesh)."""
-    name = "deepseek-v2-lite-16b" if what.startswith("mla") else "seamless-m4t-large-v2"
-    cfg = get_config(name, reduced=True, n_heads=8, n_kv_heads=8, head_dim=8, d_model=64)
-    wm = WorkerMesh.from_mesh(AbstractMesh((1, 2), ("data", "model")))
-    defs = Mo.model_defs(cfg)
-    params = S.local_tree(_tree.map(lambda d: torch.zeros(d.shape), defs),
-                          S.param_pspecs(cfg, wm, "allreduce"), wm,
-                          coordinate={"data": 0, "model": 1})
-    x = torch.zeros(1, 4, 64)
-    mix = params["segments"][0][0]["mix"]
-    calls = {
-        "gqa-cache": lambda: A.gqa_apply(mix, cfg, x, cache=A.init_kv_cache(
-            cfg, 1, 8, torch.float32, torch.device("cpu"))),
-        "gqa-flash": lambda: A.gqa_apply(mix, cfg, x, causal=False, flash=True),
-        "mla-cache": lambda: A.mla_apply(mix, cfg, x, cache=A.init_mla_cache(
-            cfg, 1, 8, torch.float32, torch.device("cpu"))),
-        "encode-flash": lambda: Mo.encode(params, cfg, x, flash=True),
-    }
-    token = mesh_lib._MODEL.set(mesh_lib.ModelShard(None, 2, 1))
-    try:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 3, step 6c"):
-            calls[what]()
-    finally:
-        mesh_lib._MODEL.reset(token)
 
 
 if __name__ == "__main__":
