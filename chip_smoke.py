@@ -41,6 +41,21 @@ through these phases, in order, and exits non-zero at the first failure:
 6. checkpoint — ``export_consensus`` of slice 1's trained worker-stacked
    params to an npz under ``build/``; ``load_consensus_params`` of it must
    equal ``consensus_params`` of the in-memory params bit for bit.
+6a. launch — ``repro_torch.launch``'s cost recorder on slice 1's step: A,
+   the fused step (M=4 ring) under ``launch.cost.measure`` on ``meta``
+   tensors (``gossip_mix`` through its meta branch, reporting its work);
+   B, the same step on the card from the same state: FLOPs and bytes
+   equal to A's exactly, one ``gossip_mix`` event in each and no
+   collective (the meta peak printed beside ``max_memory_allocated``, not
+   gated); C, slice 3's prefill wave (4 x 3072, full depth) on both: equal
+   FLOPs and 40 ``flash_attention`` events each; D, B's roofline terms at
+   the card's rates (``launch.roofline``, the one home of the rates this
+   script bounds its kernels with) against slice 1's measured ms/step:
+   the bound's share must be at most 1.05, and the MFU is printed; E, the
+   dry-run CLI's ``--smoke`` must exit 0, and its full-width run of
+   granite-3-2b x train_4k on the single-pod mesh, started after the
+   build on one host core beside the card's phases, must have exited 0
+   before the report (it waits at most ``LAUNCH_DRYRUN_TIMEOUT`` s).
 7. slice 5 — the same model and batches on the one-peer time-varying ring
    (``GossipSpec(time_varying="one_peer_exp")``, M=4): 5 ``train()``
    steps of ``momentum_sgd(warmup_cosine(0.01, 2, 5), 0.9)`` with
@@ -469,12 +484,6 @@ S15_NARROW_SERVE = {
 # and without it shows whether a cycle holds device memory again.
 COLLECT = "--collect" in sys.argv[1:]
 
-# Device-memory rates (bytes/s) from NVIDIA's data sheets, by card name
-# (first match wins), and the H100's float32 rate outside the tensor cores.
-MEMORY_RATES = (("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
-                ("H100", 3.35e12))
-F32_PEAK = 67e12
-BF16_PEAK = 989e12      # dense tensor-core rate
 
 
 def log(msg: str) -> None:
@@ -497,13 +506,6 @@ def fresh_gb(label: str, tag: str | None = None) -> float:
     gb = torch.cuda.memory_allocated() / 1e9
     log(f"[{tag or label}] {gb:.2f} GB allocated before {label}")
     return gb
-
-
-def memory_rate(name: str) -> float:
-    for key, bw in MEMORY_RATES:
-        if key in name:
-            return bw
-    raise RuntimeError(f"no memory rate on record for {name!r}")
 
 
 def time_cuda(fn, iters: int, warmup: int = 2) -> float:
@@ -629,10 +631,14 @@ def _mix_inputs(rows, cols, k, w_dtype, u_dtype, gen):
     return w, nbr, wts, u
 
 
-def _bound(moved: float, ops: float, card: str, peak: float = F32_PEAK) -> tuple[float, str]:
+def _bound(moved: float, ops: float, card: str, peak: float | None = None) -> tuple[float, str]:
     """Least time (ms) for ``moved`` bytes and ``ops`` operations at the
-    ``peak`` rate of their type, and which of the two bounds it."""
-    t_bytes, t_ops = moved / memory_rate(card), ops / peak
+    ``peak`` rate of their type (float32 on the CUDA cores by default), and
+    which of the two bounds it; the card's rates are
+    ``repro_torch.launch.roofline``'s."""
+    from repro_torch.launch.roofline import F32_PEAK, memory_rate
+
+    t_bytes, t_ops = moved / memory_rate(card), ops / (peak or F32_PEAK)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -641,6 +647,7 @@ def phase_kernel_check(card: str) -> dict:
 
     from repro_torch.core import bus
     from repro_torch.kernels.gossip_mix import gossip_mix_2d, gossip_mix_reference
+    from repro_torch.kernels.gossip_mix.kernel import work
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -683,9 +690,7 @@ def phase_kernel_check(card: str) -> dict:
 
     ms = time_cuda(lambda: gossip_mix_2d(w, nbr, wts, u, -1.0), iters=20)
     plain_ms = time_cuda(lambda: gossip_mix_reference(w, nbr, wts, u, -1.0), iters=3, warmup=1)
-    n = w.numel()
-    moved = n * w.element_size() * (1 + 2 + 1) + n * u.element_size()  # w, 2 nbr, out + u
-    flops = n * (2 * 2 + 3)   # k+1 multiplies and k adds, then multiply and subtract
+    flops, moved = work(w, nbr, u)     # the figures the wrapper reports to launch.cost
     bound_ms, bound_by = _bound(moved, flops, card)
     log(f"[kernel] gossip_mix {ms:.3f} ms (bound {bound_ms:.3f} ms by {bound_by}, "
         f"{moved / ms / 1e6:.0f} GB/s); plain version {plain_ms:.3f} ms")
@@ -703,8 +708,8 @@ def phase_kernel_check(card: str) -> dict:
         raise AssertionError(f"gossip_mix mismatch at the one-peer shape: {err1}")
     ms1 = time_cuda(lambda: gossip_mix_2d(w, nbr, wts, u, -1.0), iters=20)
     plain_ms1 = time_cuda(lambda: gossip_mix_reference(w, nbr, wts, u, -1.0), iters=3, warmup=1)
-    moved1 = n * w.element_size() * (1 + 1 + 1) + n * u.element_size()  # w, 1 nbr, out + u
-    bound_ms1, bound_by1 = _bound(moved1, n * (2 * 1 + 3), card)
+    ops1, moved1 = work(w, nbr, u)
+    bound_ms1, bound_by1 = _bound(moved1, ops1, card)
     log(f"[kernel] gossip_mix at the one-peer shape ({rows}, {bus.LANE}) bf16 k=1: max|err| "
         f"{err1:.3g} vs plain version; {ms1:.3f} ms (bound {bound_ms1:.3f} ms by {bound_by1}, "
         f"{moved1 / ms1 / 1e6:.0f} GB/s); plain version {plain_ms1:.3f} ms")
@@ -750,6 +755,7 @@ def phase_quant_check(card: str) -> dict:
 
     from repro_torch.core import bus
     from repro_torch.kernels.quant_pack import quantize_pack_2d, quantize_pack_reference
+    from repro_torch.kernels.quant_pack.kernel import work
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = _quant_cases(gen)
@@ -782,9 +788,7 @@ def phase_quant_check(card: str) -> dict:
         f"values and scales equal to the plain version")
     ms = time_cuda(lambda: quantize_pack_2d(x, block_r=group.block_r), iters=20)
     plain_ms = time_cuda(lambda: quantize_pack_reference(x), iters=3, warmup=1)
-    n = x.numel()
-    moved = n * x.element_size() + n + rows * 4        # x in; values and scales out
-    ops = 4 * n + 2 * rows    # |x|, max, divide, round per element; scale per row
+    ops, moved = work(x)      # the figures the wrapper reports to launch.cost
     bound_ms, bound_by = _bound(moved, ops, card)
     log(f"[kernel] quant_pack {ms:.3f} ms (bound {bound_ms:.3f} ms by {bound_by}, "
         f"{moved / ms / 1e6:.0f} GB/s); plain version {plain_ms:.3f} ms")
@@ -889,6 +893,8 @@ def phase_flash_check(card: str) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import attention_reference, flash_attention
+    from repro_torch.kernels.flash_attention.kernel import work
+    from repro_torch.launch.roofline import BF16_PEAK, F32_PEAK
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     worst = {}
@@ -929,19 +935,17 @@ def phase_flash_check(card: str) -> dict:
     log(f"[kernel] flash_attention at the prefill shape q {(B, L, H, hd)} k/v "
         f"{(B, L, Hkv, hd)} causal vs plain version: max|err| float32 {err32:.3g}, "
         f"bf16 {err:.3g}")
-    ops = 4 * B * H * hd * (L * (L + 1) // 2)   # q·k and p·v over the causal pairs
+    ops, moved = work(q, k, v, True, None)   # q·k and p·v over the causal pairs
     ms32 = time_cuda(lambda: flash_attention(q32, k32, v32, causal=True), iters=5)
     library32_ms = time_cuda(lambda: F.scaled_dot_product_attention(
         q32, k32, v32, is_causal=True, enable_gqa=True), iters=5)
-    bound32_ms, bound32_by = _bound(2 * q32.numel() * 4 + 2 * k32.numel() * 4, ops, card,
-                                    peak=F32_PEAK)
+    bound32_ms, bound32_by = _bound(2 * moved, ops, card, peak=F32_PEAK)
     del q32, k32, v32
     torch.cuda.empty_cache()
     ms = time_cuda(lambda: flash_attention(q, k, v, causal=True), iters=20)
     plain_ms = time_cuda(lambda: attention_reference(q, k, v, causal=True), iters=3, warmup=1)
     library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), iters=20)
-    moved = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()  # q, k, v in; o out
     bound_ms, bound_by = _bound(moved, ops, card, peak=BF16_PEAK)
     log(f"[kernel] flash_attention bf16 (wgmma) {ms:.3f} ms, {ops / ms / 1e9:.1f} TFLOP/s "
         f"(bound {bound_ms:.3f} ms by {bound_by}; it issues 1.5x these FLOP on the tensor "
@@ -961,17 +965,6 @@ def phase_flash_check(card: str) -> dict:
             "float32_library_ms": library32_ms, "path_shapes": paths}
 
 
-def _pairs(L: int, causal: bool, window: int | None) -> int:
-    """(q, k) pairs a causal (windowed) mask keeps over L positions; all
-    L² without a mask."""
-    if not causal:
-        return L * L
-    if window is None:
-        return L * (L + 1) // 2
-    w = min(window, L)
-    return w * (w + 1) // 2 + (L - w) * w
-
-
 def _flash_path(card: str, gen, name, B, L, H, Hkv, hd, window, hd_v, causal) -> dict:
     """The bf16 kernel at one path shape of slices 8 to 10: held to its
     plain version, timed beside it, its bound and one library call. The
@@ -985,6 +978,8 @@ def _flash_path(card: str, gen, name, B, L, H, Hkv, hd, window, hd_v, causal) ->
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import attention_reference, flash_attention
+    from repro_torch.kernels.flash_attention.kernel import pairs
+    from repro_torch.launch.roofline import BF16_PEAK
 
     q, k, v = _attn_inputs(B, L, L, H, Hkv, hd, torch.bfloat16, gen, hd_v=hd_v)
     shape = (B, L, L, H, Hkv, hd, causal, window)
@@ -1011,7 +1006,7 @@ def _flash_path(card: str, gen, name, B, L, H, Hkv, hd, window, hd_v, causal) ->
         del mask
     if hd_v < hd:
         library += f" with v at head dim {hd_v}"
-    ops = 2 * (hd + hd_v) * B * H * _pairs(L, causal, window)
+    ops = 2 * (hd + hd_v) * B * H * pairs(L, L, causal, window)
     # q, k in; v at its own head dim in; o at v's head dim out (bf16)
     moved = (q.numel() + k.numel() + B * Hkv * L * hd_v + B * H * L * hd_v) * q.element_size()
     bound_ms, bound_by = _bound(moved, ops, card, peak=BF16_PEAK)
@@ -2017,6 +2012,7 @@ def phase_continuous(card: str) -> dict:
 
     from repro_torch import _tree
     from repro_torch.models import model as Mo
+    from repro_torch.launch.roofline import memory_rate
     from repro_torch.models.params import count_params
     from repro_torch.serving import ContinuousBatcher, WaveBatcher, generate
     from repro_torch.serving.batcher import default_buckets
@@ -3813,6 +3809,8 @@ def _logits_share(params, cfg, B: int, step_ms: float, tag: str) -> None:
     time the unaligned vocab costs."""
     import torch
 
+    from repro_torch.launch.roofline import memory_rate
+
     from repro_torch.models import model as Mo
     from repro_torch.models.attention import f32_product
 
@@ -4570,6 +4568,165 @@ def _kernel_kind(name: str) -> str:
     return "other elementwise and reductions"
 
 
+# ---------------------------------------------------------------------------
+# [launch]: the dry run's cost recorder on meta and on the card
+# ---------------------------------------------------------------------------
+
+LAUNCH_DRYRUN = ("--arch", "granite-3-2b", "--shape", "train_4k", "--tag", "chip_smoke")
+LAUNCH_DRYRUN_TIMEOUT = 60     # seconds the report waits for it, at most
+LAUNCH_SHARE_MAX = 1.05     # a bound above the measured step means a wrong count
+
+
+def start_dryrun(argv, log_path: str) -> subprocess.Popen:
+    """The dry-run CLI (``repro_torch.launch.dryrun``) in a process of its
+    own, on the host's CPU: meta tensors over the fake process group, with
+    no card (``CUDA_VISIBLE_DEVICES`` empty) and one thread, so that it
+    runs beside the card's phases."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    os.makedirs(os.path.dirname(log_path), exist_ok=True)
+    with open(log_path, "w") as out:
+        return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *argv],
+                                cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT)
+
+
+def _finish_dryrun(proc: subprocess.Popen, log_path: str, what: str, timeout: float) -> str:
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"the dry run ({what}) took over {timeout} s")
+    with open(log_path) as f:
+        text = f.read()
+    if rc != 0:
+        raise AssertionError(f"the dry run ({what}) exited {rc}:\n{text[-4000:]}")
+    return text
+
+
+def _to_meta(tree):
+    import torch
+
+    from repro_torch import _tree
+
+    return _tree.map(lambda x: torch.empty_like(x, device="meta"), tree)
+
+
+def _same_cost(tag: str, meta, card, kernel: str, events: int) -> None:
+    """Gate: the meta run and the card run of one call count the same
+    FLOPs and bytes, ``events`` calls of ``kernel`` each, and no collective."""
+    for c in (meta, card):
+        if c.kernel_events(kernel) != events or c.collectives or c.unreported_c10d():
+            raise AssertionError(f"[launch] {tag}: {c.kernel_events(kernel)} {kernel} events "
+                                 f"(want {events}), collectives {c.collectives}, c10d "
+                                 f"{c.c10d_ops}")
+    if meta.flops != card.flops or meta.bytes != card.bytes:
+        raise AssertionError(f"[launch] {tag}: meta counts {meta.flops} FLOP, {meta.bytes} B; "
+                             f"the card {card.flops} FLOP, {card.bytes} B")
+
+
+def phase_launch(slice1: dict, card: str) -> dict:
+    """The [launch] phase: slice 1's step under ``launch.cost.measure`` on
+    meta (A) and on the card from the same state (B), slice 3's prefill
+    wave on both (C), B's roofline terms against slice 1's measured step
+    (D), and the dry-run CLI's ``--smoke`` (E; its full-width run, started
+    beside the card's phases, is read by :func:`finish_launch`)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import to_device
+    from repro_torch.core import topology as T
+    from repro_torch.core.decentralized import TrainState, init_state, make_train_step
+    from repro_torch.core.gossip import GossipSpec
+    from repro_torch.data import token_stream
+    from repro_torch.launch import cost, roofline
+    from repro_torch.models import model as Mo
+
+    fresh_gb("[launch]", "launch")
+    params0, batcher, _, loss, opt = slice_setup("launch")
+    step = make_train_step(loss, opt, gossip=GossipSpec(topology=T.undirected_ring(M_WORKERS),
+                                                        backend="fused"))
+    state = init_state(params0, opt)
+    del params0
+    batch = to_device({"tokens": batcher.next()[0]}, "cuda")
+    m_state = TrainState(state.step, _to_meta(state.params), _to_meta(state.opt_state))
+    m_batch = _to_meta(batch)
+    step(m_state, m_batch)                  # first calls copy the permutation index
+    _, meta = cost.measure(step, m_state, m_batch)
+    step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out, card_cost = cost.measure(step, state, batch)
+    launches = {"launch_card_step": read_launches()}
+    card_peak = torch.cuda.max_memory_allocated()
+    del out
+    _same_cost("slice 1's step", meta, card_cost, "gossip_mix", 1)
+    log(f"[launch] A/B slice 1's step: meta {meta.flops / 1e12:.3f} TFLOP, "
+        f"{meta.bytes / 1e9:.3f} GB moved, 1 gossip_mix event ({meta.seconds:.2f} s on the "
+        f"host); the card the same, exactly ({card_cost.seconds * 1e3:.1f} ms measured); peak "
+        f"live {meta.peak_bytes / 1e9:.3f} GB on meta, {card_peak / 1e9:.3f} GB "
+        f"max_memory_allocated on the card (ratio {meta.peak_bytes / card_peak:.3f}, not gated)")
+
+    cfg = slice_config()
+    tokens = M_WORKERS * PER_WORKER_BATCH * SEQ_LEN
+    terms = roofline.analyze(card_cost, cfg, chips=1, n_tokens=tokens, kind="train", card=card)
+    step_s = slice1["step_s"]
+    share = terms.t_bound / step_s
+    mfu = terms.model_flops_total / (step_s * roofline.BF16_PEAK)
+    log(f"[launch] D slice 1's roofline on {card}: t_compute {terms.t_compute * 1e3:.2f} ms, "
+        f"t_memory {terms.t_memory * 1e3:.2f} ms, bound {terms.t_bound * 1e3:.2f} ms "
+        f"({terms.bottleneck}); measured {step_s * 1e3:.1f} ms/step, the bound's share "
+        f"{share:.3f}; model FLOPs {terms.model_flops_total / 1e12:.2f} T (useful share "
+        f"{terms.useful_flops_ratio:.3f}), MFU {mfu:.4f}")
+    if share > LAUNCH_SHARE_MAX:
+        raise AssertionError(f"[launch] the roofline bound is {share:.3f} of the measured step: "
+                             "the card cannot beat its own roofline, so a count is wrong")
+    del state, m_state, batch, m_batch
+    collect()
+    torch.cuda.empty_cache()
+
+    scfg = serve_config()
+    params = Mo.init(torch.Generator(device="cuda").manual_seed(0), scfg, device="cuda")
+    prompts, _ = token_stream(S=SERVE_SLOTS, seq_len=PROMPT_LEN - 1, vocab=scfg.vocab_size,
+                              seed=1)
+    tok = torch.from_numpy(prompts).cuda()
+    with torch.no_grad():
+        wave = lambda p, t: Mo.prefill(p, scfg, t, max_len=SERVE_MAX_LEN)[0]  # noqa: E731
+        _, m_wave = cost.measure(wave, _to_meta(params), _to_meta(tok))
+        reset_launches()
+        _, c_wave = cost.measure(wave, params, tok)
+        launches["launch_card_prefill"] = read_launches()
+    del params
+    torch.cuda.empty_cache()
+    if m_wave.flops != c_wave.flops:
+        raise AssertionError(f"[launch] C slice 3's wave: meta {m_wave.flops} FLOP, the card "
+                             f"{c_wave.flops}")
+    for c in (m_wave, c_wave):
+        if c.kernel_events("flash_attention") != scfg.n_layers:
+            raise AssertionError(f"[launch] C: {c.kernel_events('flash_attention')} "
+                                 f"flash_attention events, want {scfg.n_layers}")
+    log(f"[launch] C slice 3's prefill wave ({SERVE_SLOTS} x {PROMPT_LEN}): "
+        f"{m_wave.flops / 1e12:.3f} TFLOP on meta and on the card, {scfg.n_layers} "
+        f"flash_attention events each; bytes {m_wave.bytes / 1e9:.3f} / "
+        f"{c_wave.bytes / 1e9:.3f} GB")
+
+    smoke_log = os.path.join(ROOT, "build", "dryrun_smoke.log")
+    smoke = _finish_dryrun(start_dryrun(("--smoke",), smoke_log), smoke_log, "--smoke", 300)
+    log(f"[launch] E {smoke.strip().splitlines()[-1]}")
+    return {"launches": launches, "share": share, "mfu": mfu}
+
+
+def finish_launch(dryrun: tuple) -> None:
+    """E, the end of the [launch] phase: the full-width dry run of
+    ``LAUNCH_DRYRUN``, started after the build, must have exited 0."""
+    proc, path = dryrun
+    t0 = time.perf_counter()
+    full = _finish_dryrun(proc, path, " ".join(LAUNCH_DRYRUN), LAUNCH_DRYRUN_TIMEOUT)
+    log(f"[launch] E the full-width dry run (waited {time.perf_counter() - t0:.1f} s for it): "
+        + " | ".join(full.strip().splitlines()[-3:]))
+
+
 def main() -> int:
     import torch
 
@@ -4580,11 +4737,25 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
+    dryrun_log = os.path.join(ROOT, "build", "dryrun_full.log")
+    dryrun = start_dryrun(LAUNCH_DRYRUN, dryrun_log)
+    try:
+        return _phases(smi, t_start, (dryrun, dryrun_log))
+    finally:
+        if dryrun.poll() is None:
+            dryrun.kill()
+            dryrun.wait()
+
+
+def _phases(smi: str, t_start: float, dryrun: tuple) -> int:
+    import torch
+
     card = torch.cuda.get_device_name(0)
     entries = [phase_kernel_check(card), phase_quant_check(card), phase_flash_check(card)]
     slice1 = phase_slice()
     phase_checkpoint(slice1.pop("params"))
     by_path = {"slice1_train": slice1["launches"]}
+    by_path.update(phase_launch(slice1, card)["launches"])
     by_path.update(phase_slice2(slice1))
     by_path["slice5_train"] = phase_slice5(slice1)["launches"]
     by_path["paper_fused_train"] = phase_paper()["launches"]
@@ -4598,6 +4769,7 @@ def main() -> int:
     by_path.update(phase_slice11())
     by_path.update(phase_slice12())
     by_path.update(phase_slice13())
+    finish_launch(dryrun)
     for e in entries:
         e["launches_by_path"] = {path: n[e["name"]] for path, n in by_path.items()}
         e["launches"] = sum(e["launches_by_path"].values())

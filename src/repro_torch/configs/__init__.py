@@ -44,4 +44,13 @@ def get_config(name: str, *, reduced: bool = False, **overrides) -> ModelConfig:
     return cfg
 
 
-__all__ = ["ModelConfig", "ARCH_NAMES", "get_config"]
+# Input shapes from the assignment (the reference's, which the dry run iterates
+# over: ``launch.dryrun``).
+INPUT_SHAPES = {
+    "train_4k": dict(seq_len=4096, global_batch=256, kind="train"),
+    "prefill_32k": dict(seq_len=32768, global_batch=32, kind="prefill"),
+    "decode_32k": dict(seq_len=32768, global_batch=128, kind="decode"),
+    "long_500k": dict(seq_len=524288, global_batch=1, kind="decode"),
+}
+
+__all__ = ["ModelConfig", "ARCH_NAMES", "get_config", "INPUT_SHAPES"]

@@ -47,6 +47,7 @@ import torch
 from repro_torch import _tree, telemetry
 from repro_torch.kernels.gossip_mix import gossip_mix_2d
 from repro_torch.kernels.quant_pack import quantize_pack_2d
+from repro_torch.launch import cost
 
 PyTree = Any
 
@@ -393,10 +394,13 @@ def _device_index(perm: np.ndarray, device: torch.device) -> torch.Tensor:
 @functools.lru_cache(maxsize=256)
 def _index_on(perm_bytes: bytes, device: torch.device) -> torch.Tensor:
     """A CUDA copy goes through pinned memory, asynchronously: a pageable
-    copy would make the host wait for the device."""
+    copy would make the host wait for the device. On ``meta`` (a dry run)
+    the index lives on the device too, as on the card."""
     ix = torch.from_numpy(np.frombuffer(perm_bytes, np.int64).copy())
     if device.type == "cuda":
         return ix.pin_memory().to(device, non_blocking=True)
+    if device.type == "meta":
+        return ix.to(device)
     return ix
 
 
@@ -466,7 +470,8 @@ def _ppermute(xs: Sequence[torch.Tensor], pairs, wm, M: int, outs=None):
     shard, group = wm.model_index, wm.p2p_group
     here = range(j0, j0 + m)
     ops, sent = [], []
-    for src, j in sorted(pairs, key=lambda pr: pr[1]):      # destination order
+    pairs = sorted(pairs, key=lambda pr: pr[1])             # destination order
+    for src, j in pairs:
         if src in here and j in here:
             for x, o in zip(xs, outs):
                 o[j - j0].copy_(x[src - j0])
@@ -477,7 +482,14 @@ def _ppermute(xs: Sequence[torch.Tensor], pairs, wm, M: int, outs=None):
             peer = wm.rank_of(j // m, shard)
             sent += [x[src - j0].contiguous() for x in xs]
             ops += [dist.P2POp(dist.isend, t, peer, group) for t in sent[-len(xs):]]
-    return outs, (dist.batch_isend_irecv(ops) if ops else [], sent)
+    if not ops:
+        return outs, ([], sent)
+    reqs = dist.batch_isend_irecv(ops)
+    cost.record_collective(
+        "collective-permute", sum(o.numel() * o.element_size() for o in outs),
+        pairs=[(wm.rank_of(src // m, shard), wm.rank_of(j // m, shard)) for src, j in pairs],
+        c10d_ops=len(ops))
+    return outs, (reqs, sent)
 
 
 def _wait(pending) -> None:
@@ -529,6 +541,7 @@ def _all_gather(x: torch.Tensor, wm):
 
     out = torch.empty((wm.model_factor,) + tuple(x.shape), dtype=x.dtype, device=x.device)
     dist.all_gather(list(out.unbind(0)), x.contiguous(), group=wm.model_group)
+    cost.record_collective("all-gather", out.numel() * out.element_size(), wm.model_group)
     return out
 
 

@@ -60,6 +60,7 @@ from repro_torch import _tree
 from repro_torch.core import bus
 from repro_torch.core import gossip as gossip_lib
 from repro_torch.core.gossip import GossipSpec
+from repro_torch.launch import cost
 from repro_torch.launch.mesh import model_parallel, rows_cut_over
 from repro_torch.launch.tensor_parallel import ModelCut, model_cut
 from repro_torch.optim import Optimizer
@@ -125,6 +126,7 @@ def _all_sum(x: torch.Tensor, groups) -> torch.Tensor:
     for group in groups:
         if dist.get_world_size(group) > 1:
             dist.all_reduce(x, group=group)
+            cost.record_collective("all-reduce", x.numel() * x.element_size(), group)
     return x
 
 

@@ -52,6 +52,7 @@ from repro_torch.core.topology import (
     split_kronecker,
     survivor_matrix,
 )
+from repro_torch.launch import cost
 
 __all__ = ["GossipSpec", "mix_pytree", "mix_reference", "mix_pytree_reference",
            "make_mixer", "mix_pytree_time_varying", "split_hierarchical",
@@ -155,6 +156,7 @@ def _allreduce_leaf(x: torch.Tensor, wm, M: int) -> torch.Tensor:
     y = x.sum(0, keepdim=True) if x.shape[0] > 1 else x.clone()
     for group in wm.worker_groups:
         dist.all_reduce(y, group=group)
+        cost.record_collective("all-reduce", y.numel() * y.element_size(), group)
     return (y / M).expand_as(x).clone()
 
 

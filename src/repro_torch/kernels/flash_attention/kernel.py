@@ -18,7 +18,12 @@ dense variants and mixtral (128), nemotron (192) and gemma (256), and the
 smaller ones of the reduced test configs.
 
 Nothing falls back from one route to another: a failed build or launch
-raises. ``flash_attention.launches`` counts kernel launches.
+raises. For ``meta`` tensors (a dry run, ``launch.dryrun``) the wrapper
+takes the card's route as far as the launch: the same checks but the
+pointers' alignment (a meta tensor has no storage), an output of the kernel's shape and dtype, and no
+launch. ``flash_attention.launches`` counts kernel launches. Each launch,
+and each call on ``meta``, reports its :func:`work` to a running
+``launch.cost.measure``.
 
 The kernels read every operand through its (batch, head, row) strides, so a
 transposed view of a (B, L, H, hd) tensor goes in without a copy; the head
@@ -38,6 +43,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_reference
+from repro_torch.launch import cost
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -59,6 +65,25 @@ def library() -> tuple[ctypes.CDLL, str]:
     return lib, log
 
 
+def pairs(Lq: int, Lkv: int, causal: bool, window: int | None) -> int:
+    """(q, k) position pairs the masks keep (query i sees key j ≤ i when
+    causal, j > i − window with a window), all Lq·Lkv without a mask."""
+    i = np.arange(Lq, dtype=np.int64)
+    hi = np.minimum(i, Lkv - 1) if causal else np.full(Lq, Lkv - 1)
+    lo = np.maximum(i - window + 1, 0) if window is not None else np.zeros(Lq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+         window: int | None) -> tuple[int, int]:
+    """(FLOPs, bytes) of one call: q·k and p·v, 2·(hd + hd_v) FLOP per kept
+    pair and q head; q, k and v read once, the output written once."""
+    B, H, Lq, hd = q.shape
+    ops = 2 * (hd + v.shape[3]) * B * H * pairs(Lq, k.shape[2], causal, window)
+    moved = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    return ops, moved
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     scale: float | None = None) -> torch.Tensor:
@@ -77,8 +102,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = float(scale if scale is not None else 1.0 / np.sqrt(hd))
     if q.device.type == "cpu":
         return attention_reference(q, k, v, causal=causal, window=window, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on CPU or CUDA tensors, not {q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention runs on CPU, CUDA or meta tensors, not {q.device}")
 
     for t in (k, v):
         if t.device != q.device:
@@ -96,13 +121,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         if t.stride(3) != 1:
             raise ValueError(f"{name} needs a contiguous head dim, got strides {t.stride()}")
-        if t.data_ptr() % 16 or any(s % vec for s in t.stride()[:3]):
+        if (t.is_cuda and t.data_ptr() % 16) or any(s % vec for s in t.stride()[:3]):
             raise ValueError(f"{name} rows must be 16-byte aligned: data_ptr "
-                             f"{t.data_ptr()}, strides {t.stride()}")
+                             f"{t.data_ptr() if t.is_cuda else '-'}, strides {t.stride()}")
         strides += list(t.stride()[:3])
     if q.dtype == torch.bfloat16 and (B > MAX_GRID_YZ or -(-Lq // BF16_BLOCK_Q) > MAX_GRID_YZ):
         raise ValueError(f"the bf16 kernel takes at most {MAX_GRID_YZ} batches and "
                          f"{MAX_GRID_YZ * BF16_BLOCK_Q} q rows, got {B} and {Lq}")
+    if q.device.type == "meta":
+        cost.record_kernel("flash_attention", lambda: work(q, k, v, causal, window),
+                           products=True)
+        return out
 
     lib, _ = library()
     c_strides = (ctypes.c_longlong * 12)(*strides)
@@ -115,6 +144,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
     flash_attention.launches += 1
+    cost.record_kernel("flash_attention", lambda: work(q, k, v, causal, window),
+                       products=True)
     return out
 
 

@@ -5,8 +5,12 @@
 ``repro/kernels/gossip_mix/kernel.py:gossip_mix_2d``. For CPU tensors it
 runs the plain version (:mod:`.ref`); for CUDA tensors it launches the CUDA
 kernel, built at first call, or raises. There is no fallback from one to
-the other. ``gossip_mix_2d.launches`` counts kernel launches and
-``gossip_mix_2d.launches_by_k`` counts them by neighbour count k.
+the other. For ``meta`` tensors (a dry run, ``launch.dryrun``) it takes the
+card's route as far as the launch: the same checks, an output of the
+kernel's shape and dtype, and no launch. ``gossip_mix_2d.launches`` counts
+kernel launches and ``gossip_mix_2d.launches_by_k`` counts them by
+neighbour count k. Each launch, and each call on ``meta``, reports its
+:func:`work` to a running ``launch.cost.measure``.
 
 The weights and η are host values (Python floats, a numpy array or a CPU
 tensor), passed to the kernel by value; the bus knows them from the
@@ -24,6 +28,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.gossip_mix.ref import gossip_mix_reference
+from repro_torch.launch import cost
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gossip_mix.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -42,6 +47,17 @@ def library() -> tuple[ctypes.CDLL, str]:
     lib.gossip_mix_max_neighbors.argtypes = []
     lib.gossip_mix_max_neighbors.restype = ctypes.c_int
     return lib, log
+
+
+def work(w: torch.Tensor, neighbors: torch.Tensor,
+         update: torch.Tensor | None) -> tuple[int, int]:
+    """(operations, bytes) of one call: k+1 multiplies and k adds per
+    element, a multiply and a subtract more with an update; w, the k
+    neighbours and the update read once, the output written once."""
+    n, k = w.numel(), neighbors.shape[0]
+    ops = n * (2 * k + 1 + (2 if update is not None else 0))
+    moved = n * w.element_size() * (k + 2) + (0 if update is None else n * update.element_size())
+    return ops, moved
 
 
 def gossip_mix_2d(
@@ -64,8 +80,8 @@ def gossip_mix_2d(
             raise ValueError("update without eta")
     if w.device.type == "cpu":
         return gossip_mix_reference(w, neighbors, wts, update, eta)
-    if w.device.type != "cuda":
-        raise ValueError(f"gossip_mix_2d runs on CPU or CUDA tensors, not {w.device}")
+    if w.device.type not in ("cuda", "meta"):
+        raise ValueError(f"gossip_mix_2d runs on CPU, CUDA or meta tensors, not {w.device}")
 
     tensors = [w, neighbors] + ([update] if update is not None else [])
     for t in tensors:
@@ -78,6 +94,12 @@ def gossip_mix_2d(
                         f"got {w.dtype}/{neighbors.dtype}")
     if update is not None and update.dtype not in _DTYPE_CODE:
         raise TypeError(f"update must be float32 or bfloat16, got {update.dtype}")
+
+    if w.device.type == "meta":
+        out = torch.empty_like(w)
+        if w.numel():
+            cost.record_kernel("gossip_mix", lambda: work(w, neighbors, update))
+        return out
 
     lib, _ = library()
     if k > lib.gossip_mix_max_neighbors():
@@ -103,6 +125,7 @@ def gossip_mix_2d(
         raise RuntimeError(f"gossip_mix kernel launch failed: cudaError {err}")
     gossip_mix_2d.launches += 1
     gossip_mix_2d.launches_by_k[k] = gossip_mix_2d.launches_by_k.get(k, 0) + 1
+    cost.record_kernel("gossip_mix", lambda: work(w, neighbors, update))
     return out
 
 

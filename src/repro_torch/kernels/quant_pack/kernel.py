@@ -5,7 +5,11 @@ image, one absmax scale per row: the port of the Pallas TPU kernel
 ``repro/kernels/quant_pack/kernel.py:quantize_pack_2d``. For CPU tensors it
 runs the plain version (:mod:`.ref`); for CUDA tensors it launches the CUDA
 kernel, built at first call, or raises. There is no fallback from one to
-the other. ``quantize_pack_2d.launches`` counts kernel launches.
+the other. For ``meta`` tensors (a dry run, ``launch.dryrun``) it takes the
+card's route as far as the launch: the same checks, outputs of the
+kernel's shapes and dtypes, and no launch. ``quantize_pack_2d.launches``
+counts kernel launches. Each launch, and each call on ``meta``, reports
+its :func:`work` to a running ``launch.cost.measure``.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.quant_pack.ref import quantize_pack_reference
+from repro_torch.launch import cost
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "quant_pack.cu"
 DEFAULT_BLOCK_R = 256
@@ -33,6 +38,14 @@ def library() -> tuple[ctypes.CDLL, str]:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.quant_pack.restype = ctypes.c_int
     return lib, log
+
+
+def work(x: torch.Tensor) -> tuple[int, int]:
+    """(operations, bytes) of one call on an (R, C) buffer: |x|, the row
+    max, a divide and a round per element, a scale per row; x read once,
+    the int8 values and float32 scales written once."""
+    (R, C), n = x.shape, x.numel()
+    return 4 * n + 2 * R, n * x.element_size() + n + R * 4
 
 
 def quantize_pack_2d(x: torch.Tensor, *,
@@ -52,16 +65,19 @@ def quantize_pack_2d(x: torch.Tensor, *,
         raise ValueError(f"rows {R} are not a multiple of block_r {br}")
     if x.device.type == "cpu":
         return quantize_pack_reference(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"quantize_pack_2d runs on CPU or CUDA tensors, not {x.device}")
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"quantize_pack_2d runs on CPU, CUDA or meta tensors, not {x.device}")
     if not x.is_contiguous():
         raise ValueError("quantize_pack_2d needs a contiguous buffer")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"quantize_pack_2d takes float32 or bfloat16, got {x.dtype}")
 
-    lib, _ = library()
     values = torch.empty((R, C), dtype=torch.int8, device=x.device)
     scales = torch.empty((R, 1), dtype=torch.float32, device=x.device)
+    if x.device.type == "meta":
+        cost.record_kernel("quant_pack", lambda: work(x))
+        return values, scales
+    lib, _ = library()
     # one 16-byte (float32) or 8-byte (bf16) load per lane, 4 int8 out
     vectorized = C == _ROW and x.data_ptr() % (4 * x.element_size()) == 0
     with torch.cuda.device(x.device):
@@ -71,6 +87,7 @@ def quantize_pack_2d(x: torch.Tensor, *,
     if err != 0:
         raise RuntimeError(f"quant_pack kernel launch failed: cudaError {err}")
     quantize_pack_2d.launches += 1
+    cost.record_kernel("quant_pack", lambda: work(x))
     return values, scales
 
 

@@ -13,10 +13,13 @@ A mesh comes in two forms, as the reference's does:
   need nothing more; :func:`make_production_mesh` returns one.
 * **live**: a ``torch.distributed.device_mesh.DeviceMesh`` over the ranks of
   the default process group (:func:`make_host_mesh`). Its device type is
-  ``"cuda"`` unless the caller asks for ``"cpu"``, and the process group's
-  backend must match it: NCCL on the card, gloo on the CPU, or gloo on
-  CUDA tensors where the caller names it (ranks sharing one card). Nothing
-  here switches device or backend.
+  ``"cuda"`` unless the caller asks for ``"cpu"`` or ``"meta"``, and the
+  process group's backend must match it: NCCL on the card, gloo on the CPU,
+  gloo on CUDA tensors where the caller names it (ranks sharing one card),
+  or, for ``"meta"`` (a dry run, ``launch.dryrun``), torch's fake process
+  group, whose collectives move nothing: one process stands for rank 0 of
+  a world of any size (:func:`init_fake_group`). Nothing here switches
+  device or backend.
 
 On a live mesh each rank holds the tensors of ``M / n_workers`` consecutive
 workers (one when the mesh has a worker per rank) and, for a leaf sharded
@@ -41,7 +44,8 @@ from repro_torch import _tree
 __all__ = ["AbstractMesh", "WorkerMesh", "SINGLE_POD", "MULTI_POD", "MODEL_AXIS",
            "make_production_mesh", "make_worker_mesh", "make_host_mesh",
            "worker_axes", "n_workers", "rows_cut_over", "rows_cut",
-           "ModelShard", "model_parallel", "model_shard", "report_group"]
+           "ModelShard", "model_parallel", "model_shard", "report_group",
+           "init_fake_group"]
 
 SINGLE_POD = (16, 16)                  # 256 chips
 MULTI_POD = (2, 16, 16)                # 2 pods × 256 chips = 512
@@ -49,7 +53,7 @@ MULTI_POD = (2, 16, 16)                # 2 pods × 256 chips = 512
 MODEL_AXIS = "model"
 
 # the process-group backend each device type of a live mesh runs on
-_BACKEND = {"cuda": "nccl", "cpu": "gloo"}
+_BACKEND = {"cuda": "nccl", "cpu": "gloo", "meta": "cpu:fake,meta:fake"}
 # the one other pairing a caller may ask for by name: gloo on CUDA tensors,
 # for several ranks sharing one card (NCCL refuses two ranks on a device;
 # gloo stages each collective through host memory)
@@ -385,8 +389,9 @@ def make_host_mesh(data: int = 2, model: int = 2, pod: int | None = None, *,
                    device: str = "cuda", backend: str | None = None):
     """A live mesh over the first ``(pod ×) data × model`` ranks of the
     default process group, which the caller has initialized (NCCL for
-    ``device='cuda'``, gloo for ``'cpu'``); every rank calls this. Ranks
-    past the mesh get no coordinate. ``backend='gloo'`` with
+    ``device='cuda'``, gloo for ``'cpu'``; for ``'meta'``, the fake group,
+    which this initializes at the mesh's size if no group is); every rank
+    calls this. Ranks past the mesh get no coordinate. ``backend='gloo'`` with
     ``device='cuda'`` asks for gloo on CUDA tensors by name (ranks sharing
     one card); the mesh never picks another backend itself."""
     import torch.distributed as dist
@@ -397,14 +402,16 @@ def make_host_mesh(data: int = 2, model: int = 2, pod: int | None = None, *,
     want = backend or _BACKEND[device]
     if want != _BACKEND[device] and (device, want) not in _NAMED:
         raise ValueError(f"a {device} mesh does not run on {want}")
+    shape, names = ((pod, data, model), ("pod", "data", "model")) if pod else \
+        ((data, model), ("data", "model"))
+    n = int(np.prod(shape))
+    if device == "meta" and not dist.is_initialized():
+        init_fake_group(n)
     if not dist.is_initialized():
         raise RuntimeError("make_host_mesh needs an initialized default process group")
     if dist.get_backend() != want:
         raise ValueError(f"a {device} mesh runs on {want}; the default process group "
                          f"is {dist.get_backend()}")
-    shape, names = ((pod, data, model), ("pod", "data", "model")) if pod else \
-        ((data, model), ("data", "model"))
-    n = int(np.prod(shape))
     if n > dist.get_world_size():
         raise ValueError(f"a {shape} mesh needs {n} ranks; the world has "
                          f"{dist.get_world_size()}")
@@ -417,8 +424,27 @@ def make_host_mesh(data: int = 2, model: int = 2, pod: int | None = None, *,
         # by a hash of its ranks and of the groups each rank has made, which
         # differs between ranks once a mesh over a subset of them exists,
         # and then never forms.
-        _REPORT_GROUPS[key] = dist.new_group(list(range(n)), backend="gloo")
+        _REPORT_GROUPS[key] = dist.new_group(list(range(n)),
+                                             backend=None if device == "meta" else "gloo")
     return mesh
+
+
+def init_fake_group(world_size: int) -> None:
+    """Initialize the default process group as torch's fake group
+    (``torch.testing._internal.distributed.fake_pg``, a private module) on
+    the CPU and ``meta`` devices: rank 0 of ``world_size`` in this one
+    process, every collective returning at once without moving data. The
+    group is the process's, so a dry run runs in a process of its own."""
+    import torch.distributed as dist
+
+    try:
+        import torch.testing._internal.distributed.fake_pg  # noqa: F401  (registers "fake")
+    except ImportError as e:
+        raise RuntimeError("a meta mesh needs torch's fake process group, "
+                           "torch.testing._internal.distributed.fake_pg, which this "
+                           f"torch ({torch.__version__}) lacks") from e
+    dist.init_process_group(_BACKEND["meta"], store=dist.HashStore(), rank=0,
+                            world_size=world_size)
 
 
 # the gloo group of each live mesh's ranks, by default group and ranks, made

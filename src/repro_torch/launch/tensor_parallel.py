@@ -67,6 +67,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch import _tree
+from repro_torch.launch import cost
 from repro_torch.launch.mesh import model_shard
 
 __all__ = ["copy_to_model", "reduce_from_model", "max_over_model", "gather_from_model",
@@ -81,6 +82,7 @@ def _all_reduce(x: torch.Tensor, groups, op) -> torch.Tensor:
     out = x.contiguous().clone()
     for group in groups:
         dist.all_reduce(out, op=op, group=group)
+        cost.record_collective("all-reduce", out.numel() * out.element_size(), group)
     return out
 
 
@@ -93,6 +95,7 @@ def _all_gather(x: torch.Tensor, groups, dim: int) -> torch.Tensor:
         parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
         dist.all_gather(parts, x.contiguous(), group=group)
         x = torch.cat(parts, dim)
+        cost.record_collective("all-gather", x.numel() * x.element_size(), group)
     return x
 
 

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch import _tree
+from repro_torch.launch import cost
 
 PyTree = Any
 Schedule = Callable[[int], float]
@@ -169,6 +170,7 @@ def _all_workers(x: torch.Tensor, cuts) -> torch.Tensor:
         parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
         dist.all_gather(parts, x.contiguous(), group=group)
         x = torch.cat(parts, 0)
+        cost.record_collective("all-gather", x.numel() * x.element_size(), group)
     return x
 
 
@@ -182,6 +184,7 @@ def _mean(x: torch.Tensor, dim: int, sharded: tuple[int, ...], model) -> torch.T
 
     total = x.sum(dim)
     dist.all_reduce(total, group=model.group)
+    cost.record_collective("all-reduce", total.numel() * total.element_size(), model.group)
     return total.div_(x.shape[dim] * model.k)
 
 

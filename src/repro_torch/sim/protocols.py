@@ -185,6 +185,8 @@ def _device_matrix(A, device: torch.device) -> torch.Tensor:
     t = torch.from_numpy(np.ascontiguousarray(A, dtype=np.float64))
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
+    if device.type == "meta":
+        return t.to(device)
     return t
 
 
