@@ -71,7 +71,9 @@ through these phases, in order, and exits non-zero at the first failure:
    its input, the live ones within the bf16 tolerance of a float32 einsum
    with the repaired matrices). Prints ms/step with and without a
    checkpoint in flight, the writer's seconds and each part's peak memory.
-8. paper — the paper's Fig. 2 (``benchmarks/bench_fig2.py``'s settings):
+8. paper (in a process of its own, ``chip_smoke.py --phase paper OUT``,
+   beside slices 8-10, once the dry run's host core is free) — the
+   paper's Fig. 2 (``benchmarks/bench_fig2.py``'s settings):
    ``problems.run_dsm`` of the classifier (150 steps, lr 0.5) and the LM
    (60 steps, lr 0.1) at M=8 on degrees 2, 4 and 7, random and by-label
    splits; prints the 12 tail losses and each one's gap to the clique;
@@ -300,7 +302,30 @@ through these phases, in order, and exits non-zero at the first failure:
    config, rank 1 waiting); every continuous request in full, its decode
    eager (no CUDA graph over gloo); the narrow configs' greedy tokens
    equal to meshless. Each checkpoint is removed once read.
-21. report — the run's time, one JSON line of kernels, the nvidia-smi line,
+21. examples — the entry points of ``repro_torch.examples``, each through
+   its ``main(argv)`` with ``--device cuda``, at its default size:
+   ``train_100m --preset full`` (49.8M parameters, M = 4 ring, 300 steps)
+   meshless and with ``--mesh`` (a world-size-1 NCCL group, the 4 workers
+   on the rank, the fused bus): finite losses, the last below the first,
+   the checkpoint written, one gossip_mix launch per step of the mesh run
+   (path ``examples_train_100m_mesh``) and none meshless; ``serve_demo
+   --gossip-ckpt`` of the mesh run's checkpoint with the continuous and the
+   wave batcher, every request answered in full; ``topology_matters``, its
+   four tail losses within 1e-4 relative of its CPU run; ``quickstart``.
+   These runs on the card go in a process of their own (``chip_smoke.py
+   --phase examples OUT``, at most ≈ 20 GB of the card) started after
+   slice 5, beside sim, telemetry, serve and continuous, and read before
+   slice 8. The six simulator examples (fleet_wallclock at ``--quick``,
+   which keeps M = 512) run in ``EX_SIM_PROCS`` worker processes and the
+   command lines (``python -m`` of ``train_100m --preset small --steps 6``,
+   then of ``serve_demo`` of its checkpoint) in a subprocess, all started
+   before slice 12 and read here: each exits 0, and each simulator example's
+   claim holds in what it wrote (``EX_SIM``'s gates), and
+   ``outage_wallclock --trace``'s bundles pass ``telemetry.report
+   --check``. Prints each run's wall seconds, train_100m's ms/step (steps 2
+   onward), tokens/s and peak, and the simulator examples' host seconds
+   per virtual round.
+22. report — the run's time, one JSON line of kernels, the nvidia-smi line,
    and last the ``{"ok": true, ...}`` line.
 
 ``--collect`` runs ``gc.collect()`` before each part (and the microbatch=2
@@ -369,6 +394,7 @@ CB_AGREE_TOKENS = 16    # tokens per request held against one-at-a-time generate
 PAPER_M = 8             # Fig. 2 (benchmarks/bench_fig2.py): M = 8, degrees 2, 4, 7
 PAPER_DEGREES = (2, 4, 7)
 PAPER_RTOL = 1e-4       # card vs CPU curves, fused vs einsum losses (PERF.md §6)
+PAPER_CPU_PROCS, PAPER_CPU_THREADS = 3, 2   # the CPU twins' pool, beside the card's runs
 SIM_ROUNDS = 4          # simulator rounds per run at full width
 TEL_ROUNDS = 2
 SNAP_DEPTH = 4          # snapshot planes of the barrier protocols (2.75 GB each)
@@ -1462,14 +1488,31 @@ def _rel_diff(a, b) -> float:
     return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
 
 
+def _paper_cpu_curve(make: str, steps: int, lr: float, split: str, d: int):
+    """One Fig. 2 curve of the port on the CPU, in a worker process of
+    :func:`phase_paper`'s pool: the same seeds as the card's run."""
+    import torch
+
+    from repro_torch import problems
+
+    torch.set_num_threads(PAPER_CPU_THREADS)
+    losses, _, _ = problems.run_dsm(getattr(problems, make)(), _fig2_topo(d), steps=steps,
+                                    lr=lr, split=split, device="cpu")
+    return losses
+
+
 def phase_paper() -> dict:
     """Fig. 2 on the card: ``problems.run_dsm`` (einsum) for the classifier
     (150 steps, lr 0.5) and the LM (60 steps, lr 0.1) at M = 8 on degrees 2,
     4, 7, random and by-label splits; each curve against the port's own CPU
-    run of the same seeds; the classifier on the ring (random split) also
+    run of the same seeds (the 12 CPU runs in a pool of processes beside
+    the card's); the classifier on the ring (random split) also
     through ``train()`` on the fused bus, one gossip_mix launch per step,
     its per-step losses against ``train()`` on einsum, whose final global
     loss is run_dsm's last point."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
     import numpy as np
     import torch
 
@@ -1484,40 +1527,48 @@ def phase_paper() -> dict:
     t0 = time.perf_counter()
     worst, first, card_s = 0.0, 0.0, 0.0
     rows, gate = [], None
-    for make, steps, lr in ((problems.problem_classifier, 150, 0.5),
-                            (problems.problem_lm, 60, 0.1)):
-        problem = make()
-        for split in ("random", "by_label"):
-            curves = {}
-            for d in PAPER_DEGREES:
-                t1 = time.perf_counter()
-                losses, _, parts = problems.run_dsm(problem, _fig2_topo(d), steps=steps, lr=lr,
-                                                    split=split, device="cuda")
-                card_s += time.perf_counter() - t1
-                cpu, _, _ = problems.run_dsm(problem, _fig2_topo(d), steps=steps, lr=lr,
-                                             split=split, device="cpu")
-                err = _rel_diff(losses, cpu)
-                first = max(first, _rel_diff(losses[:1], cpu[:1]))
-                worst = max(worst, err)
-                if not np.isfinite(losses).all() or err > PAPER_RTOL:
-                    raise AssertionError(f"{problem[4]} {split} d={d}: card curve off the CPU "
-                                         f"run by {err:.3g} relative (tol {PAPER_RTOL}), "
-                                         f"finite {np.isfinite(losses).all()}")
-                curves[d] = losses
-                if make is problems.problem_classifier and split == "random" and d == 2:
-                    gate = (problem, parts, losses, steps, lr)
-            base = curves[PAPER_DEGREES[-1]]
-            drop = float(base[0] - base[-20:].mean())
-            for d in PAPER_DEGREES:
-                tail = float(curves[d][-20:].mean())
-                rows.append((problem[4], split, d, tail,
-                             (tail - float(base[-20:].mean())) / max(drop, 1e-9)))
-    for name, split, d, tail, gap in rows:
-        log(f"[paper] {name:34s} {split:8s} degree {d}: tail loss (mean of the last 20 "
-            f"steps) {tail:.5f}, gap_vs_clique_frac {gap:+.4f}")
+    runs = (("problem_classifier", 150, 0.5), ("problem_lm", 60, 0.1))
+    pool = ProcessPoolExecutor(PAPER_CPU_PROCS, mp_context=multiprocessing.get_context("spawn"))
+    cpu_runs = {(name, split, d): pool.submit(_paper_cpu_curve, name, steps, lr, split, d)
+                for name, steps, lr in runs for split in ("random", "by_label")
+                for d in PAPER_DEGREES}
+    try:
+        for name, steps, lr in runs:
+            make = getattr(problems, name)
+            problem = make()
+            for split in ("random", "by_label"):
+                curves = {}
+                for d in PAPER_DEGREES:
+                    t1 = time.perf_counter()
+                    losses, _, parts = problems.run_dsm(problem, _fig2_topo(d), steps=steps,
+                                                        lr=lr, split=split, device="cuda")
+                    card_s += time.perf_counter() - t1
+                    cpu = cpu_runs[(name, split, d)].result()
+                    err = _rel_diff(losses, cpu)
+                    first = max(first, _rel_diff(losses[:1], cpu[:1]))
+                    worst = max(worst, err)
+                    if not np.isfinite(losses).all() or err > PAPER_RTOL:
+                        raise AssertionError(f"{problem[4]} {split} d={d}: card curve off the "
+                                             f"CPU run by {err:.3g} relative (tol "
+                                             f"{PAPER_RTOL}), finite {np.isfinite(losses).all()}")
+                    curves[d] = losses
+                    if make is problems.problem_classifier and split == "random" and d == 2:
+                        gate = (problem, parts, losses, steps, lr)
+                base = curves[PAPER_DEGREES[-1]]
+                drop = float(base[0] - base[-20:].mean())
+                for d in PAPER_DEGREES:
+                    tail = float(curves[d][-20:].mean())
+                    rows.append((problem[4], split, d, tail,
+                                 (tail - float(base[-20:].mean())) / max(drop, 1e-9)))
+        for name, split, d, tail, gap in rows:
+            log(f"[paper] {name:34s} {split:8s} degree {d}: tail loss (mean of the last 20 "
+                f"steps) {tail:.5f}, gap_vs_clique_frac {gap:+.4f}")
+    finally:
+        pool.shutdown(cancel_futures=True)
     log(f"[paper] 12 curves finite; card vs the port's CPU run: max relative difference "
         f"{worst:.3g} (first step {first:.3g}; tol {PAPER_RTOL}); card run_dsm time "
-        f"{card_s:.1f} s for all 12")
+        f"{card_s:.1f} s for all 12, the CPU runs in {PAPER_CPU_PROCS} processes of "
+        f"{PAPER_CPU_THREADS} threads beside them, {time.perf_counter() - t0:.1f} s in all")
 
     # the gate configuration through train(): fused bus against einsum
     problem, parts, dsm_losses, steps, lr = gate
@@ -4717,6 +4768,351 @@ def phase_launch(slice1: dict, card: str) -> dict:
     return {"launches": launches, "share": share, "mfu": mfu}
 
 
+# ---------------------------------------------------------------------------
+# [examples]: the entry points users run (repro_torch.examples)
+# ---------------------------------------------------------------------------
+
+EX_TRAIN = ("--preset", "full")     # 300 steps, M = 4 ring, 4 x 8 x 128 tokens per step
+
+
+def _fig5_claim(rec: dict) -> tuple[bool, str]:
+    import numpy as np
+
+    s = rec["summary"]
+    ring, clique = s["ring_time_to_target"], s["clique_time_to_target"]
+    return bool(np.isfinite(ring) and ring < clique), (
+        f"the ring reaches loss {s['target']:.3f} at virtual time {ring:.1f}, the clique at "
+        f"{clique:.1f}")
+
+
+def _straggler_claim(rec: dict) -> tuple[bool, str]:
+    import numpy as np
+
+    sparse, dense = (rec[f"degree {d}"]["time_to_target"] for d in (2, 15))
+    return bool(np.isfinite(sparse) and sparse < dense), (
+        f"degree 2 reaches loss {rec['summary']['target']:.2f} at virtual time {sparse:.1f}, "
+        f"the clique (degree 15) at {dense:.1f}")
+
+
+def _hier_claim(rec: dict) -> tuple[bool, str]:
+    import numpy as np
+
+    t = rec["summary"]["hier_crosses_ring_at_vtime"]
+    return bool(np.isfinite(t)), f"hier crosses below the flat ring at virtual time {t:.1f}"
+
+
+# (module, argv, its record, its claim): a claim held to the record, or one
+# that the example's exit code gates (the reference's gates); longest first,
+# as the pool takes them
+EX_SIM = (
+    ("outage_wallclock", ("--trace",), "outage_crossing.json",
+     "hier through the outage beats the healthy ring: exit code"),
+    ("hier_wallclock", (), "hier_crossing.json", _hier_claim),
+    ("fleet_wallclock", ("--quick",), "fleet_wallclock.json",
+     "the 512-ring beats hier through the composite: exit code"),
+    ("dci_compress_wallclock", (), "dci_compress.json",
+     "int8 DCI beats the exact wire: exit code"),
+    ("straggler_wallclock", (), "straggler_wallclock.json", _straggler_claim),
+    ("fig5_realloss", (), "fig5_realloss.json", _fig5_claim),
+)
+EX_SIM_PROCS = 3         # worker processes for the simulator examples
+EX_SIM_THREADS = 2       # torch threads in each
+EX_TIMEOUT = 900         # seconds from their start the started examples may take
+EX_RTOL = PAPER_RTOL     # topology_matters' tail losses, card against CPU
+
+
+def _example_main(name: str, argv) -> tuple[int, float]:
+    """``repro_torch.examples.<name>.main(argv)`` in this process, on the
+    card: (exit code, wall seconds)."""
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    t0 = time.perf_counter()
+    rc = mod.main(list(argv) + ["--device", "cuda"])
+    return rc, time.perf_counter() - t0
+
+
+def _example_worker(name: str, argv, out_path: str) -> tuple[int, float]:
+    """:func:`_example_main` in a worker process of :func:`start_examples`'s
+    pool, what the example prints written to ``out_path``."""
+    import contextlib
+
+    import torch
+
+    torch.set_num_threads(EX_SIM_THREADS)
+    with open(out_path, "w") as fp, contextlib.redirect_stdout(fp):
+        out = _example_main(name, argv)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _example_record(name: str) -> dict:
+    from repro_torch.examples import RESULTS
+
+    with open(os.path.join(RESULTS, name)) as fp:
+        return json.load(fp)
+
+
+def start_examples() -> dict:
+    """Start what the [examples] phase reads: the simulator examples'
+    ``main(argv)`` in a pool of ``EX_SIM_PROCS`` worker processes, and the
+    command lines themselves (``python -m`` of ``train_100m --preset small
+    --steps 6``, then of ``serve_demo`` of its checkpoint) in a
+    subprocess. :func:`stop_examples` ends both."""
+    import multiprocessing
+
+    from repro_torch.examples import RESULTS
+
+    logs = os.path.join(ROOT, "build", "examples")
+    os.makedirs(logs, exist_ok=True)
+    small = os.path.join(RESULTS, "chip_smoke_cli.npz")
+    with open(os.path.join(logs, "cli.log"), "w") as fp:
+        cli = subprocess.Popen(
+            ["sh", "-c", 'set -e; "$0" -m repro_torch.examples.train_100m --preset small '
+             '--steps 6 --ckpt "$1"; "$0" -m repro_torch.examples.serve_demo --gossip-ckpt '
+             '"$1" --preset small', sys.executable, small],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                               OMP_NUM_THREADS=str(EX_SIM_THREADS)),
+            stdout=fp, stderr=subprocess.STDOUT)
+    pool = multiprocessing.get_context("spawn").Pool(EX_SIM_PROCS)
+    sims = {name: pool.apply_async(_example_worker,
+                                   (name, argv, os.path.join(logs, f"{name}.log")))
+            for name, argv, _, _ in EX_SIM}
+    pool.close()
+    log(f"[examples] started: the {len(sims)} simulator examples in {EX_SIM_PROCS} worker "
+        f"processes of {EX_SIM_THREADS} threads, and the command lines in a subprocess")
+    return {"pool": pool, "sims": sims, "cli": cli, "small": small, "logs": logs,
+            "t0": time.perf_counter()}
+
+
+def stop_examples(started: dict) -> None:
+    started["pool"].terminate()
+    started["pool"].join()
+    if started["cli"].poll() is None:
+        started["cli"].kill()
+        started["cli"].wait()
+
+
+def _read_started(started: dict, tag: str) -> None:
+    """The examples :func:`start_examples` started: each exits 0, each
+    simulator example's claim holds, the outage bundles pass the report's
+    ``--check``."""
+    from repro_torch.examples import RESULTS
+    from repro_torch.telemetry import report
+
+    t0 = time.perf_counter()
+    deadline = started["t0"] + EX_TIMEOUT
+    for name, argv, record, claim in EX_SIM:
+        rc, wall = started["sims"][name].get(timeout=max(1.0, deadline - time.perf_counter()))
+        with open(os.path.join(started["logs"], f"{name}.log")) as fp:
+            print(fp.read(), end="", flush=True)
+        rec = _example_record(record)
+        ok, said = (rc == 0, claim) if isinstance(claim, str) else claim(rec)
+        if rc or not ok:
+            raise AssertionError(f"{name}: exit {rc}, its claim failed on the card: {said}")
+        per_round = ", ".join(f"{k} {v['wall_s'] / v['rounds']:.4f}" for k, v in rec.items()
+                              if isinstance(v, dict) and "wall_s" in v)
+        log(f"[{tag}] {name} {' '.join(argv)}: exit 0; claim held: {said}; {wall:.1f} s; "
+            f"host s per virtual round: {per_round}")
+    started["pool"].join()
+    for job in ("ring-nofault", "ring-outage", "hier-outage"):
+        if report.main([os.path.join(RESULTS, "runs", "outage", job), "--check"]):
+            raise AssertionError(f"outage bundle {job}: the report's --check failed")
+    log(f"[{tag}] outage --trace bundles: python -m repro_torch.telemetry.report --check "
+        f"passed for all three")
+    cli = started["cli"]
+    try:
+        cli.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        pass
+    with open(os.path.join(started["logs"], "cli.log")) as fp:
+        out = fp.read()
+    if cli.returncode != 0:
+        raise AssertionError(f"python -m repro_torch.examples.train_100m --preset small "
+                             f"--steps 6, then serve_demo of its checkpoint: exit "
+                             f"{cli.returncode}\n{out[-3000:]}")
+    log(f"[{tag}] python -m repro_torch.examples.train_100m --preset small --steps 6, then "
+        f"python -m repro_torch.examples.serve_demo --gossip-ckpt of it: exit 0; last line: "
+        f"{out.strip().splitlines()[-1]}")
+    log(f"[{tag}] the started examples done {time.perf_counter() - started['t0']:.1f} s after "
+        f"their start; waited {time.perf_counter() - t0:.1f} s for them here")
+
+
+def _card_examples() -> dict:
+    """The [examples] runs on the card, run in a process of their own
+    (:func:`start_phase`) beside sim, telemetry, serve and continuous:
+    ``train_100m --preset full`` meshless and ``--mesh`` (a world-size-1
+    NCCL group, all M workers on the rank, the fused bus), ``serve_demo
+    --gossip-ckpt`` of the mesh run's checkpoint with both batchers,
+    ``topology_matters`` against its CPU run and ``quickstart``, each
+    through its ``main(argv)``. Raises at the first failed gate. Returns
+    launches by path."""
+    import numpy as np
+    import torch
+
+    from repro_torch.examples import RESULTS, topology_matters, train_100m
+
+    tag = "examples"
+    t_phase = time.perf_counter()
+    fresh_gb("the entry points", tag)
+    by_path = {}
+    steps = train_100m.PRESETS["full"][-1]
+    ckpts = {}
+    for label, extra in (("meshless", ()), ("mesh", ("--mesh",))):
+        ckpts[label] = os.path.join(RESULTS, f"chip_smoke_{label}.npz")
+        if os.path.exists(ckpts[label]):
+            os.remove(ckpts[label])
+        reset_launches()
+        rc, wall = _example_main("train_100m", EX_TRAIN + extra + ("--ckpt", ckpts[label]))
+        launches = read_launches()
+        rec = _example_record("train_100m.json")
+        loss = np.asarray(rec["loss"])
+        want = steps if label == "mesh" else 0
+        if rc or not np.isfinite(loss).all() or not loss[-1] < loss[0] or rec["steps"] != steps \
+                or launches["gossip_mix"] != want or not os.path.exists(ckpts[label]):
+            raise AssertionError(
+                f"train_100m {label}: exit {rc}, {rec['steps']} steps, losses {loss[0]:.4f} -> "
+                f"{loss[-1]:.4f} (finite {np.isfinite(loss).all()}), gossip_mix launches "
+                f"{launches['gossip_mix']} (want {want}), checkpoint "
+                f"{os.path.exists(ckpts[label])}")
+        if label == "mesh":
+            by_path["examples_train_100m_mesh"] = launches
+        log(f"[{tag}] train_100m --preset full {label}: {rec['n_params']:,} params, "
+            f"Smith lr {rec['lr']:.4f}, loss {loss[0]:.4f} -> {loss[-1]:.4f} over "
+            f"{rec['steps']} steps, {rec['ms_per_step']:.2f} ms/step (steps 2 onward, host "
+            f"clock), {rec['tokens_per_s']:.0f} tokens/s, peak {rec['peak_gb']:.3f} GB "
+            f"allocated, gossip_mix launches {launches['gossip_mix']}; {wall:.1f} s")
+
+    for batcher in ("continuous", "wave"):
+        rc, wall = _example_main("serve_demo", ("--gossip-ckpt", ckpts["mesh"], "--preset",
+                                                "full", "--batcher", batcher))
+        rec = _example_record("serve_demo.json")
+        short = {r: len(t) for r, t in rec["tokens"].items() if len(t) != rec["n_new"]}
+        if rc or rec["batcher"] != batcher or len(rec["tokens"]) != 6 or short:
+            raise AssertionError(f"serve_demo {batcher}: exit {rc}, served by "
+                                 f"{rec['batcher']}, {len(rec['tokens'])} requests, short "
+                                 f"answers {short}")
+        log(f"[{tag}] serve_demo --gossip-ckpt (the mesh run's consensus) --batcher "
+            f"{batcher}: 6 requests x {rec['n_new']} tokens in full, 2 sampled; {wall:.1f} s")
+
+    rc, wall = _example_main("topology_matters", ())
+    card = _example_record("topology_matters.json")
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)       # thousands of tiny ops: one thread is faster
+    try:
+        t0 = time.perf_counter()
+        cpu = topology_matters.run(device="cpu")
+        cpu_s = time.perf_counter() - t0
+    finally:
+        torch.set_num_threads(n)
+    worst = max(_rel_diff([card[s][f"{t}_tail"]], [cpu[s][f"{t}_tail"]])
+                for s in topology_matters.SPLITS for t in ("ring", "clique"))
+    if rc or worst > EX_RTOL:
+        raise AssertionError(f"topology_matters: exit {rc}, tail losses off the CPU run by "
+                             f"{worst:.3g} relative (tol {EX_RTOL})")
+    log(f"[{tag}] topology_matters: tails " + ", ".join(
+        f"{s} ring {card[s]['ring_tail']:.5f} clique {card[s]['clique_tail']:.5f}"
+        for s in topology_matters.SPLITS)
+        + f"; card vs CPU max relative difference {worst:.3g} (tol {EX_RTOL}); card "
+        f"{wall:.1f} s, CPU {cpu_s:.1f} s for 4 x {topology_matters.STEPS} steps")
+
+    rc, wall = _example_main("quickstart", ())
+    if rc:
+        raise AssertionError(f"quickstart: exit {rc}")
+    log(f"[{tag}] quickstart: exit 0; {wall:.1f} s")
+    _remove_ckpts(ckpts.values())
+    log(f"[{tag}] the runs on the card took {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
+def _remove_ckpts(paths) -> None:
+    """Each checkpoint of ``paths`` and the files written beside it."""
+    for path in paths:
+        d, base = os.path.split(path)
+        for f in os.listdir(d):
+            if f.startswith(base):
+                os.remove(os.path.join(d, f))
+
+
+def _background_phase(name: str, out_path: str) -> None:
+    """One phase of ``BACKGROUND_PHASES`` in a process of its own
+    (``chip_smoke.py --phase NAME OUT``), the card set up as phase 1 sets
+    it; what the phase returns goes to ``OUT`` as JSON."""
+    import torch
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = BACKGROUND_PHASES[name]()
+    with open(out_path, "w") as fp:
+        json.dump(out, fp)
+
+
+def start_phase(name: str, beside: str) -> dict:
+    """Start phase ``name`` (``BACKGROUND_PHASES``) in a process of its own,
+    beside the phases named by ``beside``: it holds little of the card
+    (the examples ≈ 20 GB, paper 0.2 GB), so it runs beside phases whose
+    own peak leaves that free; :func:`finish_phase` waits for it before a
+    phase that needs the card."""
+    logs = os.path.join(ROOT, "build", "phases")
+    os.makedirs(logs, exist_ok=True)
+    out, path = os.path.join(logs, f"{name}.json"), os.path.join(logs, f"{name}.log")
+    if os.path.exists(out):
+        os.remove(out)
+    with open(path, "w") as fp:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--phase", name,
+                                 out], stdout=fp, stderr=subprocess.STDOUT)
+    log(f"[{name}] started in a process of its own, beside {beside}")
+    return {"name": name, "proc": proc, "out": out, "log": path, "t0": time.perf_counter()}
+
+
+def finish_phase(bg: dict) -> dict:
+    """Wait for :func:`start_phase`'s process; print what it logged; fail
+    if it failed. Returns what the phase returned."""
+    proc, name, t0 = bg["proc"], bg["name"], time.perf_counter()
+    try:
+        proc.wait(timeout=max(1.0, bg["t0"] + BACKGROUND_TIMEOUT - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    with open(bg["log"]) as fp:
+        out = fp.read()
+    print(out, end="" if out.endswith("\n") else "\n", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"the {name} phase's process: exit {proc.returncode} (killed at "
+                             f"{BACKGROUND_TIMEOUT} s if negative)")
+    with open(bg["out"]) as fp:
+        result = json.load(fp)
+    log(f"[{name}] read {time.perf_counter() - bg['t0']:.1f} s after its start; waited "
+        f"{time.perf_counter() - t0:.1f} s for it here")
+    return result
+
+
+def stop_phase(bg: dict) -> None:
+    if bg["proc"].poll() is None:
+        bg["proc"].kill()
+        bg["proc"].wait()
+
+
+def phase_examples(started: dict) -> dict:
+    """The rest of the [examples] phase, after slices 13-15: what
+    :func:`start_examples` started (the simulator examples and the command
+    lines). The runs on the card (:func:`_card_examples`) were read before
+    slice 8. Returns launches by path (none: the simulator examples mix
+    through the einsum and leaf paths)."""
+    tag = "examples"
+    t_phase = time.perf_counter()
+    _read_started(started, tag)
+    _remove_ckpts([started["small"]])
+    log(f"[{tag}] phase {time.perf_counter() - t_phase:.1f} s after slices 13-15")
+    return {}
+
+
+# phases run in a process of their own (:func:`start_phase`)
+BACKGROUND_PHASES = {"examples": _card_examples, "paper": phase_paper}
+BACKGROUND_TIMEOUT = 600     # seconds from its start such a phase may take
+
+
 def finish_launch(dryrun: tuple) -> None:
     """E, the end of the [launch] phase: the full-width dry run of
     ``LAUNCH_DRYRUN``, started after the build, must have exited 0."""
@@ -4751,25 +5147,54 @@ def _phases(smi: str, t_start: float, dryrun: tuple) -> int:
     import torch
 
     card = torch.cuda.get_device_name(0)
-    entries = [phase_kernel_check(card), phase_quant_check(card), phase_flash_check(card)]
-    slice1 = phase_slice()
-    phase_checkpoint(slice1.pop("params"))
+    seconds = {"device and build": time.perf_counter() - t_start}
+
+    def timed(name: str, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    entries = timed("kernel checks", lambda: [phase_kernel_check(card), phase_quant_check(card),
+                                              phase_flash_check(card)])
+    slice1 = timed("slice1", phase_slice)
+    timed("checkpoint", phase_checkpoint, slice1.pop("params"))
     by_path = {"slice1_train": slice1["launches"]}
-    by_path.update(phase_launch(slice1, card)["launches"])
-    by_path.update(phase_slice2(slice1))
-    by_path["slice5_train"] = phase_slice5(slice1)["launches"]
-    by_path["paper_fused_train"] = phase_paper()["launches"]
-    by_path.update(phase_sim())
-    by_path.update(phase_telemetry())
-    by_path["slice3_serve"] = phase_serve()["launches"]
-    by_path["slice7_continuous"] = phase_continuous(card)["launches"]
-    by_path.update(phase_slice8())
-    by_path.update(phase_slice9())
-    by_path.update(phase_slice10())
-    by_path.update(phase_slice11())
-    by_path.update(phase_slice12())
-    by_path.update(phase_slice13())
-    finish_launch(dryrun)
+    by_path.update(timed("launch", phase_launch, slice1, card)["launches"])
+    by_path.update(timed("slice2", phase_slice2, slice1))
+    by_path["slice5_train"] = timed("slice5", phase_slice5, slice1)["launches"]
+    # the [examples] runs on the card (≈ 20 GB) beside the four phases that
+    # leave that free, read before slice 8's models fill the card
+    bg = start_phase("examples", "sim, telemetry, serve and continuous")
+    try:
+        by_path.update(timed("sim", phase_sim))
+        by_path.update(timed("telemetry", phase_telemetry))
+        by_path["slice3_serve"] = timed("serve", phase_serve)["launches"]
+        by_path["slice7_continuous"] = timed("continuous", phase_continuous, card)["launches"]
+        by_path.update(timed("examples on the card (wait)", finish_phase, bg))
+    finally:
+        stop_phase(bg)
+    # Fig. 2 (0.2 GB; its CPU twins in a pool, the dry run's host core free
+    # by now) beside slices 8-10; slice 11's deepest run needs the whole card
+    bg = start_phase("paper", "slices 8-10")
+    try:
+        for name, fn in (("slice8", phase_slice8), ("slice9", phase_slice9),
+                         ("slice10", phase_slice10)):
+            by_path.update(timed(name, fn))
+        by_path["paper_fused_train"] = timed("paper (wait)", finish_phase, bg)["launches"]
+    finally:
+        stop_phase(bg)
+    by_path.update(timed("slice11", phase_slice11))
+    # the simulator examples and the command lines run beside slices 12-15
+    started = start_examples()
+    try:
+        by_path.update(timed("slice12", phase_slice12))
+        by_path.update(timed("slices13-15", phase_slice13))
+        by_path.update(timed("examples", phase_examples, started))
+    finally:
+        stop_examples(started)
+    timed("dry run wait", finish_launch, dryrun)
+    log("[report] seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     for e in entries:
         e["launches_by_path"] = {path: n[e["name"]] for path, n in by_path.items()}
         e["launches"] = sum(e["launches_by_path"].values())
@@ -4787,5 +5212,8 @@ def _phases(smi: str, t_start: float, dryrun: tuple) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp-rank"]:
         _tp_rank(int(sys.argv[2]), sys.argv[3])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--phase"]:
+        _background_phase(sys.argv[2], sys.argv[3])
         sys.exit(0)
     sys.exit(main())

@@ -8,3 +8,6 @@ subpackage layout (``core``, ``data``, ``optim``, ``models``, ``configs``,
 Entry points that create tensors take ``device=`` and default to ``"cuda"``;
 without a card they raise unless the caller passes ``device="cpu"``.
 """
+from repro_torch.convert import resolve_device
+
+__all__ = ["resolve_device"]

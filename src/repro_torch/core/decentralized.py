@@ -68,7 +68,7 @@ from repro_torch.optim import Optimizer
 PyTree = Any
 
 __all__ = ["TrainState", "StepMetrics", "init_state", "replicate_for_workers",
-           "step_metrics", "make_train_step"]
+           "gradient_stats", "param_spread", "step_metrics", "make_train_step"]
 
 
 class TrainState(NamedTuple):
@@ -155,6 +155,19 @@ def _spread(tree: PyTree, M: int, groups, cut: ModelCut | None = None):
         mean_sq[i] = mean_sq[i] + torch.sum(torch.square(mean.float()))
     return tuple(spread), tuple(mean_sq)
 
+
+
+def gradient_stats(grads_M: PyTree) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(E, E_sp, √M·||ḡ||₂) of per-worker gradients (leading worker dim M),
+    float32 scalars: the terms :func:`step_metrics` reports, meshless."""
+    M = _tree.leaves(grads_M)[0].shape[0]
+    E_sp, mean_sq = _spread(grads_M, M, ())
+    return _sq_norms(_tree.leaves(grads_M), None)[1], E_sp[1], torch.sqrt(M * mean_sq[1])
+
+
+def param_spread(params_M: PyTree) -> torch.Tensor:
+    """The consensus spread Σ_j ||w_j − w̄||² of worker-stacked params."""
+    return _spread(params_M, _tree.leaves(params_M)[0].shape[0], ())[0][1]
 
 def step_metrics(losses: torch.Tensor, grads_M: PyTree, params_M: PyTree, M: int,
                  groups=(), compute_stats: bool = True,

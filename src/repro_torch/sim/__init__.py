@@ -19,7 +19,9 @@ windows (:class:`~repro_torch.sim.scenarios.LinkFault`). The barrier
 protocols become churn-capable with a ``barrier_timeout``
 (survivor-renormalized degraded commits); scenario constructors
 ``preemption_wave`` / ``regional_outage`` / ``elastic`` package the
-robustness worlds. A device mesh of workers is not ported yet.
+robustness worlds. ``run_simulated(mesh=WorkerMesh)`` takes a worker mesh
+(abstract or live) as well: its pod axis gives the worker groups and the
+bus layout plan over the params the per-message payload bytes.
 
 Entry points: ``repro_torch.train.loop.run_simulated`` (one call) or
 the Engine/Protocol API directly. ``repro_torch.core.straggler.simulate`` is

@@ -270,13 +270,17 @@ class TrainExecutor:
     def patched(self, T: PyTree, rows) -> PyTree:
         """A copy of T with the (i, slice) pairs of ``rows`` written in; T
         itself is untouched (the reference's non-donated row sets)."""
-        rows = list(rows)
-        if not rows:
+        last = dict(rows)           # a row given twice keeps its last value
+        if not last:
             return T
-        S = _tree.map(lambda x: x.clone(), T)
-        for i, v in rows:
-            self.set_slice_(S, i, v)
-        return S
+        idx = self.index(list(last))
+        treedef = _tree.flatten(T)[1]
+        cols = zip(*(_tree.leaves(v) for v in last.values()))
+        with torch.no_grad():
+            # one indexed write per leaf, not one copy per row and leaf
+            return _tree.unflatten(treedef, [
+                x.clone().index_copy_(0, idx, torch.stack(col).to(x.dtype))
+                for x, col in zip(_tree.leaves(T), cols)])
 
     def loss_and_grad(self, w: PyTree, batch: PyTree):
         g, l = self._vg1(w, batch)

@@ -233,3 +233,44 @@ def test_entry_points_refuse_a_missing_card(monkeypatch, rng):
               sgd(0.1), iter([]), steps=1, mode="allreduce")
     assert convert.to_device(tree, device="cpu")["w"].device.type == "cpu"
     assert TM.init(gen, cfg, device="cpu")["embed"].device.type == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# Gradient statistics and the consensus spread: the reference's public pair
+# ---------------------------------------------------------------------------
+
+
+def _stats_inputs():
+    """tests/test_decentralized.py's inputs: its (4, 2) gradient tree, and
+    the (8, 4) seeded normal params after 0 and 25 ring mixes."""
+    from repro.core.gossip import mix_pytree_reference
+
+    grads = {"a": np.asarray([[1.0, 0.0], [0.0, 1.0], [1.0, 1.0], [0.0, 0.0]], np.float32)}
+    x = {"w": jnp.asarray(np.random.default_rng(0).normal(size=(8, 4)), jnp.float32)}
+    mixed, A = x, JT.undirected_ring(8).A
+    for _ in range(25):
+        mixed = mix_pytree_reference(mixed, A)
+    return grads, [x, mixed]
+
+
+def test_gradient_stats_and_param_spread_match_reference():
+    from repro.core import decentralized as jdec
+    from repro_torch.core import decentralized as tdec
+
+    grads, params = _stats_inputs()
+    params.append({"a": grads["a"], "b": np.arange(12, dtype=np.float32).reshape(4, 3)})
+    for g in [grads, params[-1]] + params[:2]:
+        want = [np.asarray(v) for v in jdec.gradient_stats(jax.tree.map(jnp.asarray, g))]
+        got = tdec.gradient_stats(convert.params_from_jax(jax.tree.map(np.asarray, g),
+                                                          device="cpu"))
+        for name, a, b in zip(("E", "E_sp", "H"), got, want):
+            assert a.dtype == torch.float32 and a.shape == ()
+            np.testing.assert_allclose(a.numpy(), b, rtol=1e-5, atol=1e-6, err_msg=name)
+    for p in params:
+        want = np.asarray(jdec.param_spread(jax.tree.map(jnp.asarray, p)))
+        got = tdec.param_spread(convert.params_from_jax(jax.tree.map(np.asarray, p),
+                                                        device="cpu"))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    assert float(tdec.param_spread(convert.params_from_jax(
+        jax.tree.map(np.asarray, params[1]), device="cpu"))) < float(tdec.param_spread(
+        convert.params_from_jax(jax.tree.map(np.asarray, params[0]), device="cpu")))

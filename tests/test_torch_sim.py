@@ -595,3 +595,26 @@ def test_watermark_advances_during_sync_run():
     assert ex.batches.floor >= 18 and len(ex.batches) <= 4
     with pytest.raises(RuntimeError, match="retired"):
         ex.batches.get(0)
+
+
+def test_patched_rows_are_written_in_one_copy():
+    """``TrainExecutor.patched``: a copy of the stacked tree with the given
+    rows written in (a row given twice keeps its last value, as row-by-row
+    writes leave it), the source untouched; no rows return the source."""
+    from repro_torch.sim.protocols import TrainExecutor
+
+    M = 6
+    T = {"b": torch.arange(M * 2, dtype=torch.float32).reshape(M, 2),
+         "w": torch.arange(M * 6, dtype=torch.bfloat16).reshape(M, 2, 3)}
+    ex = TrainExecutor(lambda p, b: p["b"].sum(), toptim.sgd(0.1), T, iter([]),
+                       TSpec(topology=TT.undirected_ring(M), backend="einsum"))
+    before = _tree.map(torch.clone, T)
+    row = lambda v: {"b": torch.full((2,), v), "w": torch.full((2, 3), v)}
+    S = ex.patched(T, [(4, row(7.0)), (1, row(-1.0)), (4, row(9.0))])
+    want = _tree.map(torch.clone, T)
+    for i, v in ((1, -1.0), (4, 9.0)):
+        ex.set_slice_(want, i, row(v))
+    for a, b in zip(_tree.leaves(S), _tree.leaves(want)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(_tree.leaves(T), _tree.leaves(before)))
+    assert ex.patched(T, []) is T
