@@ -426,9 +426,10 @@ def _mix_buffers_local(bufs, upd_bufs, weights, eta, perms, nchunks, groups):
             u2 = None
             if upd_bufs is not None:
                 u2 = upd_bufs[gi][:, start:start + size].reshape(M * size, g.cols)
-            pieces.append(gossip_mix_2d(
-                w2, nbrs.view(len(perms), M * size, g.cols), weights, u2,
-                eta).view(M, size, g.cols))
+            with telemetry.get().span("bus.kernel"):
+                pieces.append(gossip_mix_2d(
+                    w2, nbrs.view(len(perms), M * size, g.cols), weights, u2,
+                    eta).view(M, size, g.cols))
         outs.append(pieces[0] if len(pieces) == 1 else torch.cat(pieces, 1))
     return outs
 
@@ -524,9 +525,10 @@ def _mix_group_chunked(x, u, rows: int, block_r: int, weights, eta, pairs, wm,
         (nbrs, pending), nxt = nxt, (start(c + 1) if c + 1 < len(chunks) else None)
         _wait(pending)
         u2 = None if u is None else u[:, lo:lo + size].reshape(m * size, C)
-        pieces.append(gossip_mix_2d(x[:, lo:lo + size].reshape(m * size, C),
-                                    nbrs.view(len(pairs), m * size, C), weights, u2,
-                                    eta).view(m, size, C))
+        with telemetry.get().span("bus.kernel"):
+            pieces.append(gossip_mix_2d(x[:, lo:lo + size].reshape(m * size, C),
+                                        nbrs.view(len(pairs), m * size, C), weights, u2,
+                                        eta).view(m, size, C))
         done += size * C
         if gather is not None and gathered is None and done >= span[1]:
             head = torch.cat(pieces, 1).reshape(m, -1)
@@ -579,23 +581,61 @@ def _mix_pytree_model_sharded(params, updates, spec, wm, param_specs, weights, e
         tel.counter("bus.all_gathers", sum(1 for g in layout.groups
                                            if k > 1 and g.split_off < g.split_end))
     s = wm.model_index if k > 1 else 0
-    bufs = pack(params, layout, shard_index=s)
-    upd_bufs = None if updates is None else pack(updates, layout, shard_index=s)
+    with tel.span("bus.pack"):
+        bufs = pack(params, layout, shard_index=s)
+        upd_bufs = None if updates is None else pack(updates, layout, shard_index=s)
     outs, gathered = [], []
-    for gi, g in enumerate(layout.groups):
-        u = None if upd_bufs is None else upd_bufs[gi]
-        if k > 1 and g.split_off < g.split_end:
-            out, gat = _mix_group_chunked(bufs[gi], u, g.rows, g.block_r, weights, eta,
-                                          pairs, wm, M, nchunks,
-                                          gather=lambda x: _all_gather(x, wm),
-                                          span=(g.split_off, g.split_end))
-            gathered.append(gat)
-        else:
-            out = _mix_group_chunked(bufs[gi], u, g.rows, g.block_r, weights, eta,
-                                     pairs, wm, M, nchunks)
-        outs.append(out)
+    with tel.span("bus.fused_mix"):
+        for gi, g in enumerate(layout.groups):
+            u = None if upd_bufs is None else upd_bufs[gi]
+            if k > 1 and g.split_off < g.split_end:
+                out, gat = _mix_group_chunked(bufs[gi], u, g.rows, g.block_r, weights, eta,
+                                              pairs, wm, M, nchunks,
+                                              gather=lambda x: _all_gather(x, wm),
+                                              span=(g.split_off, g.split_end))
+                gathered.append(gat)
+            else:
+                out = _mix_group_chunked(bufs[gi], u, g.rows, g.block_r, weights, eta,
+                                         pairs, wm, M, nchunks)
+            outs.append(out)
     gat_iter = iter(gathered)
-    return unpack(outs, layout, gather=(lambda _span: next(gat_iter)) if gathered else None)
+    with tel.span("bus.unpack"):
+        mixed = unpack(outs, layout,
+                       gather=(lambda _span: next(gat_iter)) if gathered else None)
+    if tel.active:
+        # the row-split leaves come out of the gathered stacks as copies
+        _count_bytes(tel, params, updates, layout, bufs, upd_bufs, len(perms), s,
+                     unpacked=2 * sum(t.numel() * t.element_size() for t in gathered))
+    return mixed
+
+
+def _count_bytes(tel, params, updates, layout: BusLayout, bufs, upd_bufs, k: int,
+                 shard_index: int = 0, unpacked: int = 0) -> None:
+    """The bus's byte counters of one mix, each bytes read plus written,
+    from the tensors' sizes: ``bus.bytes_packed`` (the leaves, or a
+    row-split leaf's piece, read; the buffers, padding included, written),
+    ``bus.bytes_gathered`` (each of the k neighbour stacks read at its
+    source and written), ``bus.bytes_kernel`` (what ``gossip_mix`` reads
+    and writes) and ``bus.bytes_unpacked`` (the copies unpack makes: none
+    where every leaf is a view of the mixed buffer)."""
+    def packed(tree, out):
+        if tree is None:
+            return 0
+        leaves, moved = _tree.leaves(tree), sum(b.numel() * b.element_size() for b in out)
+        for g in layout.groups:
+            for sl in g.slots:
+                x, n = leaves[sl.leaf_id], sl.size
+                if not sl.sharded and layout.shards > 1:
+                    n = max(0, min(sl.chunk, sl.size - shard_index * sl.chunk))
+                moved += x.shape[0] * n * x.element_size()
+        return moved
+
+    buf_b = sum(b.numel() * b.element_size() for b in bufs)
+    upd_b = 0 if upd_bufs is None else sum(u.numel() * u.element_size() for u in upd_bufs)
+    tel.counter("bus.bytes_packed", packed(params, bufs) + packed(updates, upd_bufs))
+    tel.counter("bus.bytes_gathered", 2 * k * buf_b)
+    tel.counter("bus.bytes_kernel", (k + 2) * buf_b + upd_b)
+    tel.counter("bus.bytes_unpacked", unpacked)
 
 
 def _live(mesh):
@@ -624,42 +664,50 @@ def mix_bus(params: PyTree, spec, mesh=None, *, updates: PyTree | None = None,
     (``launch.shardings.param_pspecs``) switches to the per-model-shard
     bus, which every rank runs on its 1/k of the replica.
 
-    With a telemetry sink active, each call counts ``bus.mix_calls`` and
-    ``bus.collectives``, gauges ``bus.padded_bytes`` (the per-worker payload
-    one exchange moves) and runs its gathers and kernel launches inside a
-    ``bus.fused_mix`` profiler range.
+    With a telemetry sink active, each call counts ``bus.mix_calls``,
+    ``bus.collectives`` and the byte counters of :func:`_count_bytes`,
+    gauges ``bus.padded_bytes`` (the per-worker payload one exchange moves)
+    and runs in a ``bus.mix`` span: ``bus.pack`` around the packing of the
+    params and the updates, ``bus.fused_mix`` around the neighbour gathers
+    (or exchanges) and the kernel launches, ``bus.kernel`` around each
+    ``gossip_mix`` launch and ``bus.unpack`` around the unpacking.
     """
-    wm = _live(mesh)
-    a0, others = _split_perms(spec)
     tel = telemetry.get()
-    if tel.active:
-        tel.counter("bus.mix_calls")
-        tel.counter("bus.collectives", bulk_collectives_per_step(spec, nchunks))
-    weights = np.asarray([a0] + [w for w, _ in others], np.float32)
-    if not others:  # degenerate (M == 1): no communication at all
-        if updates is None:
-            return params
-        w0, e = float(weights[0]), float(np.float32(eta))
-        return _tree.map(lambda b, u: (b.float() * w0 - e * u.float()).to(b.dtype),
-                         params, updates)
-    eta = eta if updates is not None else None
-    if wm is not None and param_specs is not None:
-        with tel.annotate("bus.fused_mix"):
+    with tel.span("bus.mix"):
+        wm = _live(mesh)
+        a0, others = _split_perms(spec)
+        if tel.active:
+            tel.counter("bus.mix_calls")
+            tel.counter("bus.collectives", bulk_collectives_per_step(spec, nchunks))
+        weights = np.asarray([a0] + [w for w, _ in others], np.float32)
+        if not others:  # degenerate (M == 1): no communication at all
+            if updates is None:
+                return params
+            w0, e = float(weights[0]), float(np.float32(eta))
+            return _tree.map(lambda b, u: (b.float() * w0 - e * u.float()).to(b.dtype),
+                             params, updates)
+        eta = eta if updates is not None else None
+        if wm is not None and param_specs is not None:
             return _mix_pytree_model_sharded(params, updates, spec, wm, param_specs,
                                              weights, eta, others, nchunks, block_r)
-    layout = plan_layout(params, lead_ndim=1, block_r=block_r)
-    if tel.active:
-        tel.gauge("bus.padded_bytes", layout.padded_bytes())
-    bufs = pack(params, layout)
-    upd_bufs = pack(updates, layout) if updates is not None else None
-    with tel.annotate("bus.fused_mix"):
-        if wm is not None:
-            mixed = _mix_buffers_sharded(bufs, upd_bufs, spec, wm, weights, eta, others,
-                                         nchunks, layout.groups)
-        else:
-            mixed = _mix_buffers_local(bufs, upd_bufs, weights, eta, others, nchunks,
-                                       layout.groups)
-    return unpack(mixed, layout)
+        layout = plan_layout(params, lead_ndim=1, block_r=block_r)
+        if tel.active:
+            tel.gauge("bus.padded_bytes", layout.padded_bytes())
+        with tel.span("bus.pack"):
+            bufs = pack(params, layout)
+            upd_bufs = pack(updates, layout) if updates is not None else None
+        with tel.span("bus.fused_mix"):
+            if wm is not None:
+                mixed = _mix_buffers_sharded(bufs, upd_bufs, spec, wm, weights, eta, others,
+                                             nchunks, layout.groups)
+            else:
+                mixed = _mix_buffers_local(bufs, upd_bufs, weights, eta, others, nchunks,
+                                           layout.groups)
+        with tel.span("bus.unpack"):
+            out = unpack(mixed, layout)
+        if tel.active:
+            _count_bytes(tel, params, updates, layout, bufs, upd_bufs, len(others))
+        return out
 
 
 def mix_and_update_time_varying(params: PyTree, spec, updates: PyTree,
@@ -785,9 +833,10 @@ def mix_bus_compressed(params: PyTree, spec, mesh=None, *, wire_dtype,
     ``wire_dtype=None`` delegates to :func:`mix_bus` bit-identically and
     passes ``residual`` through untouched. With a telemetry sink active it
     counts ``bus.mix_calls`` and ``bus.collectives``, gauges
-    ``bus.dci_padded_bytes`` and ``bus.dci_bytes_ratio`` and runs inside a
-    ``bus.compressed_mix`` profiler range. With a live ``mesh`` the leaves
-    and the residual are this rank's workers' (:func:`mix_bus`).
+    ``bus.dci_padded_bytes`` and ``bus.dci_bytes_ratio`` and runs its
+    gathers or exchanges in a ``bus.compressed_mix`` span. With a live
+    ``mesh`` the leaves and the residual are this rank's workers'
+    (:func:`mix_bus`).
     """
     wm = _live(mesh)
     if wire_dtype is None:
@@ -815,7 +864,7 @@ def mix_bus_compressed(params: PyTree, spec, mesh=None, *, wire_dtype,
                     for b, wt in zip(bufs, wts)]
     if len(res_bufs) != len(bufs):
         raise ValueError("residual does not match the bus layout")
-    with tel.annotate("bus.compressed_mix"):
+    with tel.span("bus.compressed_mix"):
         if wm is not None:
             mixed, new_res = _mix_buffers_sharded_compressed(
                 bufs, res_bufs, spec, wm, weights, others, layout.groups, wire_dtype)

@@ -49,6 +49,14 @@ in the reference, adapt-then-combine (``mix_first=False``) with
 ``TrainState.step`` is a Python int, so the step count, the gossip period,
 the time-varying round and the learning-rate schedule never wait on the
 device.
+
+With a telemetry sink active (:mod:`repro_torch.telemetry`) a step is a
+``train.step`` span holding ``train.grad`` (the gradient: forward, backward
+and remat's recompute), ``train.forward`` (the loss function inside the
+gradient's transforms, so the backward, which autograd runs after it
+returns, stays in ``train.grad``'s own time), ``train.optim`` (the
+optimizer's update) and ``train.stats`` (:func:`step_metrics`); the mix
+adds the bus's spans and counters (:func:`repro_torch.core.bus.mix_bus`).
 """
 from __future__ import annotations
 
@@ -56,7 +64,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch import _tree
+from repro_torch import _tree, telemetry
 from repro_torch.core import bus
 from repro_torch.core import gossip as gossip_lib
 from repro_torch.core.gossip import GossipSpec
@@ -306,6 +314,10 @@ def make_train_step(
     wm = _step_mesh(mesh, param_specs)
     groups = wm.worker_groups if wm is not None else []
 
+    def forward(params, batch):
+        with telemetry.get().span("train.forward"):
+            return loss_fn(params, batch)
+
     def cut_of(tree) -> ModelCut | None:
         return model_cut(param_specs, _tree.flatten(tree)[1], wm)
 
@@ -318,21 +330,27 @@ def make_train_step(
         # hierarchical spec runs two staged mixes, then adds the update)
         fuse_update = (gossip.resolved_backend() == "fused" and mix_first
                        and not gossip.hierarchical)
-        vg = torch.func.vmap(torch.func.grad_and_value(loss_fn))
+        vg = torch.func.vmap(torch.func.grad_and_value(forward))
         if microbatch > 1:
             vg = _microbatched(vg, microbatch, batch_axis=1)
         if gossip.time_varying:
             gossip.one_peer_specs   # build the rounds' specs once, here
 
         def step(state: TrainState, batch: PyTree) -> tuple[TrainState, StepMetrics]:
+            tel = telemetry.get()
+            with tel.span("train.step"):
+                return _step(tel, state, batch)
+
+        def _step(tel, state: TrainState, batch: PyTree) -> tuple[TrainState, StepMetrics]:
             # batch leaves: (M, per_worker_batch, ...), this rank's workers on a mesh
-            with model_parallel(wm):
+            with tel.span("train.grad"), model_parallel(wm):
                 grads, losses = vg(state.params, batch)
             cut = cut_of(state.params)
             with torch.no_grad():
-                updates, opt_state = optimizer.update(
-                    grads, state.opt_state, state.params, state.step, cuts=groups or None,
-                    model=cut)
+                with tel.span("train.optim"):
+                    updates, opt_state = optimizer.update(
+                        grads, state.opt_state, state.params, state.step,
+                        cuts=groups or None, model=cut)
                 mix_now = state.step % gossip.period == 0
 
                 def do_mix(p):
@@ -364,31 +382,39 @@ def make_train_step(
                                                            param_specs=param_specs)
                     else:
                         new_params = do_mix(stepped) if mix_now else stepped
-                metrics = step_metrics(losses, grads, new_params, M, groups, compute_stats,
-                                       cut)
+                with tel.span("train.stats"):
+                    metrics = step_metrics(losses, grads, new_params, M, groups,
+                                           compute_stats, cut)
             return TrainState(state.step + 1, new_params, opt_state), metrics
 
         return step
 
     # allreduce: the centralized equivalent, a single param copy over the
     # whole batch (on a mesh, this rank's cut of it)
-    vg = torch.func.grad_and_value(loss_fn)
+    vg = torch.func.grad_and_value(forward)
     if microbatch > 1:
         vg = _microbatched(vg, microbatch, batch_axis=0)
     n = wm.n_workers if wm is not None else 1
 
     def step(state: TrainState, batch: PyTree) -> tuple[TrainState, StepMetrics]:
-        with rows_cut_over(wm, microbatch), model_parallel(wm):
+        tel = telemetry.get()
+        with tel.span("train.step"):
+            return _step(tel, state, batch)
+
+    def _step(tel, state: TrainState, batch: PyTree) -> tuple[TrainState, StepMetrics]:
+        with tel.span("train.grad"), rows_cut_over(wm, microbatch), model_parallel(wm):
             grads, loss = vg(state.params, batch)
         cut = cut_of(state.params)
         with torch.no_grad():
             grads = _tree.map(lambda g: _mean_over_ranks(g, groups, n), grads)
             loss = _mean_over_ranks(loss, groups, n)
-            updates, opt_state = optimizer.update(
-                grads, state.opt_state, state.params, state.step, model=cut)
+            with tel.span("train.optim"):
+                updates, opt_state = optimizer.update(
+                    grads, state.opt_state, state.params, state.step, model=cut)
             new_params = _add_updates(state.params, updates)
-            z = torch.zeros((), device=loss.device)
-            gn = _model_sum([_sq_norms(_tree.leaves(grads), cut)], cut)[0]
+            with tel.span("train.stats"):
+                z = torch.zeros((), device=loss.device)
+                gn = _model_sum([_sq_norms(_tree.leaves(grads), cut)], cut)[0]
         metrics = StepMetrics(loss, gn, z, torch.sqrt(gn), z)
         return TrainState(state.step + 1, new_params, opt_state), metrics
 

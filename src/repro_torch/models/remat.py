@@ -30,6 +30,10 @@ The recomputation runs in a copy of the forward's context variables
 on the card the autograd engine runs the backward on its device thread,
 which does not inherit the caller's context, and a tensor-parallel layer
 recomputed without it would skip its collectives.
+
+With a telemetry sink active the recomputed forward of each layer is a
+``model.remat.recompute`` span (:mod:`repro_torch.telemetry`); the layer's
+backward that follows it is not.
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch import _tree
+from repro_torch import _tree, telemetry
 
 __all__ = ["checkpoint"]
 
@@ -65,7 +69,8 @@ class _Checkpoint(torch.autograd.Function):
             return fn(*_tree.unflatten(treedef, list(leaves)))
 
         def recompute(saved):
-            _, vjp_fn = torch.func.vjp(flat_fn, *saved)
+            with telemetry.get().span("model.remat.recompute"):
+                _, vjp_fn = torch.func.vjp(flat_fn, *saved)
             return vjp_fn(grads if len(grads) > 1 else grads[0])
 
         cts = ctx.context.run(recompute, ctx.saved_tensors)

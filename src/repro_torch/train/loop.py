@@ -14,7 +14,15 @@ Checkpoints (``ckpt_path``) go through
 ``ckpt_every`` steps and after the last, at the reference's boundaries.
 With a telemetry sink active, each metrics window is a ``train.window`` span
 (its transfer a ``train.host_sync`` span) and bumps the ``train.steps`` and
-``train.checkpoints`` counters and the ``train.loss`` gauge.
+``train.checkpoints`` counters and the ``train.loss`` gauge; inside, each
+step is a ``train.step`` span holding ``train.grad``, ``train.forward``,
+``train.optim`` and ``train.stats`` (:mod:`repro_torch.core.decentralized`),
+each layer's recompute under remat a ``model.remat.recompute`` span, and
+each fused mix a ``bus.mix`` span holding ``bus.pack``, ``bus.fused_mix``,
+``bus.kernel`` and ``bus.unpack``, with the bus's counters
+(``bus.mix_calls``, ``bus.collectives``, ``bus.bytes_packed``,
+``bus.bytes_gathered``, ``bus.bytes_kernel``, ``bus.bytes_unpacked``) and
+its ``bus.padded_bytes`` gauge (:func:`repro_torch.core.bus.mix_bus`).
 """
 from __future__ import annotations
 

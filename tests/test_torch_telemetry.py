@@ -3,10 +3,12 @@
 
 Health gauges are numpy on both sides and must agree to 1e-12. With the
 null sink the instrumented code must give bit-identical params; with a sink
-the bus counters, the train window and the annotation ranges must appear.
-The port runs eagerly, so its bus counters count calls (one per step),
-where the reference's count compiles of its jitted step.
+the bus counters, the train window and the spans must appear, as ranges of
+a ``torch.profiler`` trace too. The port runs eagerly, so its bus counters
+count calls (one per step), where the reference's count compiles of its
+jitted step.
 """
+import dataclasses
 import json
 import os
 
@@ -200,6 +202,130 @@ def test_fused_mix_annotation_in_profiler_trace():
         assert "bus.fused_mix" in names()
 
 
+# ---------------------------------------------------------------------------
+# Spans and counters of the train step and the bus
+# ---------------------------------------------------------------------------
+
+# span -> its parent in the sink (the innermost span open where it opens)
+_STEP_SPANS = {"train.step": None, "train.grad": "train.step", "train.forward": "train.grad",
+               "model.remat.recompute": "train.grad", "train.optim": "train.step",
+               "train.stats": "train.step", "bus.mix": "train.step", "bus.pack": "bus.mix",
+               "bus.fused_mix": "bus.mix", "bus.kernel": "bus.fused_mix",
+               "bus.unpack": "bus.mix"}
+
+
+@pytest.fixture(scope="module")
+def traced_remat_step():
+    """One fused-bus step of a tiny remat decoder on a 4-ring: with the null
+    sink, then from the same state with a sink under a CPU profile."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.decentralized import init_state, make_train_step
+    from repro_torch.models import model as Mo
+    from repro_torch.optim import momentum_sgd
+
+    cfg = dataclasses.replace(get_config("granite-3-2b").reduced(), remat=True, d_model=64,
+                              n_heads=2, n_kv_heads=1, head_dim=32, d_ff=128, vocab_size=97)
+    M = 4
+    params = replicate_for_workers(Mo.init(torch.Generator().manual_seed(0), cfg, "cpu"), M)
+    opt = momentum_sgd(0.01, 0.9)
+    step = make_train_step(lambda p, b: Mo.loss_fn(p, cfg, b), opt,
+                           gossip=GossipSpec(topology=TT.undirected_ring(M), backend="fused"))
+    state = init_state(params, opt)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (M, 2, 17),
+                                     generator=torch.Generator().manual_seed(1))}
+    off = step(state, batch)
+    with telemetry.run() as tel:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            on = step(state, batch)
+    return dict(cfg=cfg, params=params, off=off, on=on, tel=tel, events=prof.events(),
+                trace_start_ns=prof.profiler.kineto_results.trace_start_ns())
+
+
+def test_sink_leaves_the_step_bit_identical(traced_remat_step):
+    (s_off, m_off), (s_on, m_on) = traced_remat_step["off"], traced_remat_step["on"]
+    assert s_off.step == s_on.step == 1
+    for a, b in zip(_tree.leaves((s_off.params, s_off.opt_state)),
+                    _tree.leaves((s_on.params, s_on.opt_state))):
+        assert torch.equal(a, b)
+    for a, b in zip(m_off, m_on):
+        assert torch.equal(a, b)
+
+
+def test_step_spans_nest_in_the_sink_and_the_profile(traced_remat_step):
+    t, layers = traced_remat_step, traced_remat_step["cfg"].n_layers
+    spans = t["tel"].spans
+    counts = {n: sum(1 for s in spans if s["name"] == n) for n in _STEP_SPANS}
+    assert counts == {n: layers if n == "model.remat.recompute" else 1 for n in _STEP_SPANS}
+    assert {s["name"]: s["parent"] for s in spans} == _STEP_SPANS
+    ranges = [e for e in t["events"] if e.name in _STEP_SPANS]
+    assert sorted(e.name for e in ranges) == sorted(
+        n for n in _STEP_SPANS for _ in range(counts[n]))
+
+    def enclosing(e):
+        up = e.cpu_parent
+        while up is not None and up.name not in _STEP_SPANS:
+            up = up.cpu_parent
+        return None if up is None else up.name
+
+    assert {e.name: enclosing(e) for e in ranges} == _STEP_SPANS
+    for e in ranges:
+        if e.name == "model.remat.recompute":
+            inside = []
+            stack = list(e.cpu_children)
+            while stack:
+                c = stack.pop()
+                inside.append(c.name)
+                stack.extend(c.cpu_children)
+            assert "aten::mm" in inside or "aten::matmul" in inside
+            assert not any("Backward" in n for n in inside)
+
+
+def test_bus_byte_counters_match_the_layout(traced_remat_step):
+    from repro_torch.core.bus import plan_layout
+
+    t = traced_remat_step
+    layout, k = plan_layout(t["params"]), 2            # the ring: two permutations
+    M = _tree.leaves(t["params"])[0].shape[0]
+    leaf_b = sum(x.numel() * x.element_size() for x in _tree.leaves(t["params"]))
+    buf_b = M * layout.padded_bytes()
+    # params and updates share the bf16 group: each packed (read + write),
+    # k neighbour stacks gathered, the kernel reads w, k stacks, the update
+    # and writes the result; unpack hands out views
+    c = t["tel"].counters
+    assert {n: c[n] for n in ("bus.bytes_packed", "bus.bytes_gathered", "bus.bytes_kernel",
+                              "bus.bytes_unpacked")} == {
+        "bus.bytes_packed": 2 * (leaf_b + buf_b), "bus.bytes_gathered": 2 * k * buf_b,
+        "bus.bytes_kernel": (k + 3) * buf_b, "bus.bytes_unpacked": 0}
+
+
+def test_span_intervals_lie_on_the_profile_clock(traced_remat_step):
+    """Shifted by the saved origin, a span's interval lies on its profiler
+    range: each overlaps it, and their starts and ends agree within 1 ms at
+    the median (a host descheduled between the two clock reads moves one
+    pair apart, and the first range of a process pays a one-time cost)."""
+    t = traced_remat_step
+    clock = t["tel"].to_json()["clock"]
+    ranges = {}
+    for e in t["events"]:
+        if e.name in _STEP_SPANS:
+            ranges.setdefault(e.name, []).append(e)
+    gaps_ms = []
+    for s in t["tel"].spans:
+        e = min(ranges[s["name"]],
+                key=lambda e: abs(e.time_range.start * 1e3 + t["trace_start_ns"]
+                                  - clock["unix_ns"] - s["ts"] * 1e9))
+        lo = (t["trace_start_ns"] - clock["unix_ns"]) / 1e6 + e.time_range.start / 1e3
+        hi = lo + (e.time_range.end - e.time_range.start) / 1e3
+        start, end = s["ts"] * 1e3, (s["ts"] + s["dur"]) * 1e3
+        assert start < hi and lo < end, s["name"]
+        gaps_ms += [abs(start - lo), abs(end - hi)]
+    assert sorted(gaps_ms)[len(gaps_ms) // 2] < 1.0, gaps_ms
+    assert all(s["parent"] == "train.grad" for s in t["tel"].spans
+               if s["name"] == "model.remat.recompute")
+
+
 def test_health_gauges_do_not_perturb_trace_signature():
     topo = TT.undirected_ring(4)
     scen = scenarios.heavy_tail("spark", seed=3)
@@ -321,8 +447,8 @@ def test_null_sink_is_inert_and_reusable():
     assert tel.active is False
     with tel.span("x") as s:
         assert s is None
-    with tel.annotate("y"):
-        pass
+    assert tel.span("y") is tel.span("z", tag=1)   # one shared context, no allocation
+    assert not hasattr(tel, "annotate")
     tel.counter("c")
     tel.gauge("g", 1.0)
     tel.save()
