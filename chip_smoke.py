@@ -21,7 +21,11 @@ through these phases, in order, and exits non-zero at the first failure:
    1e-5, bf16 atol 5e-2 (the reference's kernel-test tolerances).
    quant_pack: values and scales exactly equal (float32 and bf16 input, odd
    rows and columns, an unaligned buffer, zero rows, half-way ties, negative
-   values).
+   values). consensus_stats: rtol 1e-5, atol 1e-6 on small trees (float32
+   and bf16, 2, 8 and 16 workers, the worker mesh's column sums) and at
+   slice 1's tree, two calls bit-identical. Every training phase below
+   also counts its consensus_stats launches: one per dtype group of the
+   params a step, two on a live worker mesh.
 4. slice 1 — ``repro_torch.train.loop.train``: the decentralized step of
    paper eq. (3) on granite-3-2b at its published widths, depth cut to 4
    layers, M=4 workers on a ring, momentum SGD, the fused gossip bus. Checks
@@ -553,12 +557,23 @@ def time_cuda(fn, iters: int, warmup: int = 2) -> float:
 
 def _kernel_wrappers() -> dict:
     """Each kernel's wrapper by name; a wrapper counts its launches."""
+    from repro_torch.kernels.consensus_stats import consensus_stats
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.gossip_mix import gossip_mix_2d
     from repro_torch.kernels.quant_pack import quantize_pack_2d
 
     return {"gossip_mix": gossip_mix_2d, "quant_pack": quantize_pack_2d,
-            "flash_attention": flash_attention}
+            "flash_attention": flash_attention, "consensus_stats": consensus_stats}
+
+
+def stats_launches(params, steps: int, mesh: bool = False) -> int:
+    """The consensus_stats launches of ``steps`` train steps of ``params``
+    (gradients of the params' dtypes): one per dtype group of the tree a
+    step, two on a live worker mesh (the gradients' and the params' column
+    sums are all-reduced, and launched, apart)."""
+    from repro_torch import _tree
+
+    return steps * (2 if mesh else 1) * len({x.dtype for x in _tree.leaves(params)})
 
 
 def reset_launches() -> None:
@@ -592,12 +607,13 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     from repro_torch.kernels import _build
+    from repro_torch.kernels.consensus_stats import kernel as cs
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.gossip_mix import kernel as gm
     from repro_torch.kernels.quant_pack import kernel as qp
 
     t0 = time.perf_counter()
-    mods = (gm, qp, fa)
+    mods = (gm, qp, fa, cs)
     with ThreadPoolExecutor(max_workers=len(mods)) as pool:   # nvcc runs outside the GIL
         built = list(pool.map(lambda m: (m, m.library()[1]), mods))
     log(f"[build] {len(built)} kernels built in {time.perf_counter() - t0:.2f} s")
@@ -748,6 +764,102 @@ def phase_kernel_check(card: str) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "k1_max_abs_err": err1, "k1_ms": ms1, "k1_plain_ms": plain_ms1,
             "k1_bound_ms": bound_ms1, "k1_bound_by": bound_by1}
+
+
+def phase_stats_check(card: str) -> dict:
+    """consensus_stats against its plain version on the card (rtol 1e-5,
+    atol 1e-6, the reference tolerance of the port's statistics): small
+    trees with odd leaf sizes, a transposed leaf, a leaf with gaps and
+    params as the bus's views, in float32 and bf16 at 2, 8 and 16 workers (16 reads its column
+    tiles twice), and the worker mesh's form from given column sums; then
+    slice 1's tree (M=4 bf16 replicas of the 4-layer full-width model as
+    the bus hands them out, fresh gradients): two calls bit-identical, one
+    launch per call, and the kernel and the plain version timed."""
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.core import bus
+    from repro_torch.core.decentralized import replicate_for_workers
+    from repro_torch.kernels.consensus_stats import (column_sums, consensus_stats,
+                                                     consensus_stats_reference, plan)
+    from repro_torch.kernels.consensus_stats.kernel import work
+    from repro_torch.models import model as Mo
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def views(tree):
+        layout = bus.plan_layout(tree)
+        return _tree.leaves(bus.unpack(bus.pack(tree, layout), layout))
+
+    def small(workers, dtype):
+        leaves = [torch.randn((workers,) + shape, generator=gen, device="cuda") * 2.0 ** i
+                  for i, shape in enumerate([(37,), (5, 13), (129, 64), (3, 101)])]
+        leaves.append(torch.randn((workers, 13, 9), generator=gen,
+                                  device="cuda").transpose(1, 2))
+        # half of a wider dim, as a model axis's shard leaves a gradient
+        leaves.append(torch.randn((workers, 4, 160), generator=gen, device="cuda")[..., :80])
+        return [x.to(dtype) for x in leaves]
+
+    def check(label, grads, params, M, **kw):
+        p = plan(grads, params, M, **kw)
+        before = consensus_stats.launches
+        got = consensus_stats(p)
+        want = consensus_stats_reference(grads, params, M, **kw)
+        torch.cuda.synchronize()
+        if consensus_stats.launches - before != len(p.groups):
+            raise AssertionError(f"consensus_stats {label}: "
+                                 f"{consensus_stats.launches - before} launches, want "
+                                 f"{len(p.groups)}")
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6,
+                                   msg=lambda m: f"consensus_stats {label}: {m}")
+        return p, got, ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
+
+    worst = 0.0
+    for dtype in (f32, bf16):
+        for M in (2, 8, 16):
+            grads = small(M, dtype)
+            _, _, err = check(f"{dtype} M={M}", grads, views(dict(enumerate(small(M, dtype)))),
+                              M, grad_sharded=[i % 2 == 0 for i in range(len(grads))])
+            worst = max(worst, err)
+        grads, params = small(4, dtype), views(dict(enumerate(small(4, dtype))))
+        sums = [[v.mul_(2) for v in column_sums(t)[1]] for t in (grads, params)]
+        _, _, err = check(f"{dtype} 4 of M=8 workers from column sums", grads, params, 8,
+                          grad_sums=sums[0], param_sums=sums[1])
+        worst = max(worst, err)
+    log(f"[kernel] consensus_stats matches its plain version on 8 small cases (largest "
+        f"relative gap {worst:.3g})")
+
+    params = replicate_for_workers(Mo.init(gen, slice_config(), device="cuda"), M_WORKERS)
+    params = _tree.map(lambda x: (x.float() + 1e-3 * torch.randn(
+        x.shape, generator=gen, device="cuda")).to(x.dtype), params)
+    params = views(params)
+    grads = [(1e-3 * torch.randn(x.shape, generator=gen, device="cuda")).to(x.dtype)
+             for x in params]
+    p, got, err = check("at slice 1's tree", grads, params, M_WORKERS)
+    identical = torch.equal(consensus_stats(p), got)
+    if not identical:
+        raise AssertionError("consensus_stats: two calls on the same inputs differ")
+    ms = time_cuda(lambda: consensus_stats(p), iters=20)
+    plain_ms = time_cuda(lambda: consensus_stats_reference(grads, params, M_WORKERS),
+                         iters=3, warmup=1)
+    ops, moved = sum(work(g)[0] for g in p.groups), p.nbytes
+    n = sum(x[0].numel() for x in params)
+    if moved != 2 * M_WORKERS * n * 2:
+        raise AssertionError(f"consensus_stats reads {moved} B, want 2·M·P·2 = "
+                             f"{2 * M_WORKERS * n * 2}")
+    bound_ms, bound_by = _bound(moved, ops, card)
+    log(f"[kernel] consensus_stats at slice 1's tree (M={M_WORKERS}, P={n:,}, bf16, "
+        f"{len(params)} leaves): largest relative gap {err:.3g} vs plain version, two calls "
+        f"bit-identical; {ms:.3f} ms (bound {bound_ms:.3f} ms by {bound_by}, "
+        f"{moved / ms / 1e6:.0f} GB/s); plain version {plain_ms:.3f} ms")
+    del params, grads, p, got
+    torch.cuda.empty_cache()
+    return {"name": "consensus_stats", "route": "cuda",
+            "source": "src/repro_torch/kernels/consensus_stats/csrc/consensus_stats.cu",
+            "replaces": None, "max_rel_err": err, "small_max_rel_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
 
 
 def _quant_cases(gen):
@@ -1139,9 +1251,10 @@ def phase_slice() -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if not all(math.isfinite(x) for x in hist.loss):
         raise AssertionError(f"non-finite loss: {hist.loss}")
-    if launches != {"gossip_mix": STEPS, "quant_pack": 0, "flash_attention": 0}:
+    if launches != {"gossip_mix": STEPS, "quant_pack": 0, "flash_attention": 0,
+                    "consensus_stats": stats_launches(state.params, STEPS)}:
         raise AssertionError(f"training launched {launches} in {STEPS} steps, "
-                             f"want 1 gossip_mix per step")
+                             f"want 1 gossip_mix and 1 consensus_stats per step")
     tokens = M_WORKERS * PER_WORKER_BATCH * SEQ_LEN
     step_s = hist.step_time[-1]
     log(f"[slice] losses {[round(x, 4) for x in hist.loss]}")
@@ -1196,7 +1309,8 @@ def phase_slice2(slice1: dict) -> dict:
     del params0
     if not all(math.isfinite(x) for x in hist.loss):
         raise AssertionError(f"non-finite loss: {hist.loss}")
-    if train_launches != {"gossip_mix": 2 * STEPS, "quant_pack": 0, "flash_attention": 0}:
+    if train_launches != {"gossip_mix": 2 * STEPS, "quant_pack": 0, "flash_attention": 0,
+                          "consensus_stats": stats_launches(state.params, STEPS)}:
         raise AssertionError(f"hierarchical training launched {train_launches} in "
                              f"{STEPS} steps, want 2 gossip_mix per step")
     step_s = hist.step_time[-1]
@@ -1312,7 +1426,8 @@ def phase_slice5(slice1: dict) -> dict:
     del params0
     if not all(math.isfinite(x) for x in hist.loss):
         raise AssertionError(f"non-finite loss: {hist.loss}")
-    if launches != {"gossip_mix": STEPS, "quant_pack": 0, "flash_attention": 0} \
+    if launches != {"gossip_mix": STEPS, "quant_pack": 0, "flash_attention": 0,
+                    "consensus_stats": stats_launches(state.params, STEPS)} \
             or by_k != {1: STEPS}:
         raise AssertionError(f"one-peer training launched {launches} (by neighbour count "
                              f"{by_k}) in {STEPS} steps, want one k=1 gossip_mix per step")
@@ -1593,7 +1708,8 @@ def phase_paper() -> dict:
         g_e, g_f = mean_loss(st_e), mean_loss(st_f)
     step_err = _rel_diff(h_f.loss, h_e.loss)
     step0 = _rel_diff(h_f.loss[:2], h_e.loss[:2])
-    if launches != {"gossip_mix": steps, "quant_pack": 0, "flash_attention": 0}:
+    if launches != {"gossip_mix": steps, "quant_pack": 0, "flash_attention": 0,
+                    "consensus_stats": stats_launches(st_f.params, steps)}:
         raise AssertionError(f"fused train() launched {launches} in {steps} steps, "
                              f"want one gossip_mix per step")
     if g_e != float(dsm_losses[-1]):
@@ -1684,7 +1800,8 @@ def phase_sim() -> dict:
         del run
     s, f = runs["slice"], runs["full"]
     n_full = sum(1 for r in f.trace.records if r.kind == "compute_done")
-    if out["sim_full_commit"] != {"gossip_mix": n_full, "quant_pack": 0, "flash_attention": 0}:
+    if out["sim_full_commit"] != {"gossip_mix": n_full, "quant_pack": 0, "flash_attention": 0,
+                                  "consensus_stats": stats_launches(params0, n_full)}:
         raise AssertionError(f"full commits launched {out['sim_full_commit']}, want one "
                              f"gossip_mix per commit ({n_full})")
     if out["sim_slice_commit"]["gossip_mix"] != 0:
@@ -2325,7 +2442,8 @@ def _remat_train(name, layers, workers, topology, batch_size, seq_len, remat,
     peak = torch.cuda.max_memory_allocated() / 1e9
     if not all(math.isfinite(x) for x in hist.loss):
         raise AssertionError(f"{tag}: non-finite loss {hist.loss}")
-    if launches != {"gossip_mix": STEPS, "quant_pack": 0, "flash_attention": 0}:
+    if launches != {"gossip_mix": STEPS, "quant_pack": 0, "flash_attention": 0,
+                    "consensus_stats": stats_launches(state.params, STEPS)}:
         raise AssertionError(f"{tag}: {launches} in {STEPS} steps, want 1 gossip_mix per step")
     out = {"peak_gb": peak, "reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
            "step_ms": hist.step_time[-1] * 1e3, "launches": launches, "cfg": cfg}
@@ -2482,7 +2600,8 @@ def _mesh_check(params, cfg) -> dict:
                                                  residual=res1)
             torch.cuda.synchronize()
             launches = read_launches()
-            if launches != {"gossip_mix": 2, "quant_pack": 2, "flash_attention": 0}:
+            if launches != {"gossip_mix": 2, "quant_pack": 2, "flash_attention": 0,
+                            "consensus_stats": 0}:
                 raise AssertionError(f"{tag}: {launches}, want 2 gossip_mix (the fused and the "
                                      "per-shard mix) and 2 quant_pack (two int8 rounds)")
             # late in a whole run the profiler lost the start of its windows
@@ -2620,7 +2739,10 @@ def phase_slice12() -> dict:
                 runs[(label, where)] = run
                 del state
                 want = 0 if allreduce else STEPS
-                if run["launches"] != {"gossip_mix": want, "quant_pack": 0, "flash_attention": 0}:
+                stats = stats_launches(run["params"], STEPS,
+                                       mesh=mesh is not None and not allreduce)
+                if run["launches"] != {"gossip_mix": want, "quant_pack": 0, "flash_attention": 0,
+                                       "consensus_stats": stats}:
                     raise AssertionError(f"{tag} {label} {where}: {run['launches']} in {STEPS} "
                                          f"steps, want {want} gossip_mix")
                 if not all(math.isfinite(x) for x in hist.loss):
@@ -2734,7 +2856,8 @@ def phase_slice13() -> dict:
     flat, f32 = twins["bf16"], twins["float32"]
     by_path = {}
     for i, r in enumerate(ranks):
-        if r["launches"] != {"gossip_mix": STEPS, "quant_pack": 0, "flash_attention": 0}:
+        if r["launches"] != {"gossip_mix": STEPS, "quant_pack": 0, "flash_attention": 0,
+                             "consensus_stats": r["stats_launches"]}:
             raise AssertionError(f"{tag} rank {i}: {r['launches']} in {STEPS} steps, want "
                                  f"one gossip_mix per step")
         if r["rows"] != [r["planned_rows"]] * STEPS or \
@@ -2820,7 +2943,8 @@ def _gate_tp_train(tag: str, names, ranks: list, twins: dict) -> dict:
         twin = twins[name]
         runs = [r["train"][name] for r in ranks]
         for i, r in enumerate(runs):
-            if r["launches"] != {"gossip_mix": S14_STEPS, "quant_pack": 0, "flash_attention": 0}:
+            if r["launches"] != {"gossip_mix": S14_STEPS, "quant_pack": 0, "flash_attention": 0,
+                                 "consensus_stats": r["stats_launches"]}:
                 raise AssertionError(f"{tag} {name} rank {i}: {r['launches']} in {S14_STEPS} "
                                      "steps, want one gossip_mix per step")
             if r["rows"] != [r["planned_rows"]] * S14_STEPS or \
@@ -2940,6 +3064,7 @@ def _tp_rank(rank: int, tmp: str) -> None:
     planned = bus.plan_layout(state.params, shards=S13_RANKS, leaf_sharded=flags)
     m = M_WORKERS // wm.n_workers      # a launch covers the rank's workers' rows
     out = {"loss": hist.loss, "launches": launches, "rows": rows,
+           "stats_launches": stats_launches(state.params, STEPS, mesh=True),
            "planned_rows": m * planned.groups[0].rows,
            "whole_rows": M_WORKERS * bus.plan_layout(params0).groups[0].rows,
            "ms": hist.step_time[-1] * 1e3, "peak_gb": peak_gb, "reserved_gb": reserved_gb,
@@ -3117,6 +3242,7 @@ def _tp_train(rank: int, tmp: str, wm, mark, prefix: str, name: str, layers: int
     mark(f"{name}: gather")
     entry = {
         "loss": hist.loss, "launches": launches, "rows": list(rows),
+        "stats_launches": stats_launches(state.params, S14_STEPS, mesh=True),
         "planned_rows": workers * planned.groups[0].rows,
         "whole_rows": workers * bus.plan_layout(like).groups[0].rows,
         "ms": hist.step_time[-1] * 1e3, "peak_gb": peak_gb, "reserved_gb": reserved_gb,
@@ -3643,7 +3769,8 @@ def _gate_slice15(ranks: list, twins: dict, serve_twins: dict) -> dict:
         runs = [r["serve"][name] for r in ranks]
         own = (twin["bf16"] - twin["f32"]).abs().mean().item()
         for i, r in enumerate(runs):
-            want = {"gossip_mix": 0, "quant_pack": 0, "flash_attention": r["n_attn"]}
+            want = {"gossip_mix": 0, "quant_pack": 0, "flash_attention": r["n_attn"],
+                    "consensus_stats": 0}
             if r["launches"] != want:
                 raise AssertionError(f"{tag} {name} rank {i}: the wave launched "
                                      f"{r['launches']}, want {want}")
@@ -3803,7 +3930,8 @@ def _serve_encdec() -> dict:
     wave_s = time.perf_counter() - t0        # generate() ends in a host transfer
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    if launches != {"gossip_mix": 0, "quant_pack": 0, "flash_attention": n_attn}:
+    if launches != {"gossip_mix": 0, "quant_pack": 0, "flash_attention": n_attn,
+                    "consensus_stats": 0}:
         raise AssertionError(f"{S10_NAME}'s generate launched {launches}, want one "
                              f"flash_attention per encoder layer ({n_attn}) and nothing else")
     if res.tokens.shape != (B, n_new) or not np.isfinite(res.logprobs).all():
@@ -3974,7 +4102,8 @@ def _serve_wave(slice_tag, name, layers, slots, prompt_len, n_new) -> dict:
     wave_s = time.perf_counter() - t0
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    if launches != {"gossip_mix": 0, "quant_pack": 0, "flash_attention": n_attn}:
+    if launches != {"gossip_mix": 0, "quant_pack": 0, "flash_attention": n_attn,
+                    "consensus_stats": 0}:
         raise AssertionError(f"{name}'s wave launched {launches}, want one flash_attention "
                              f"per attention layer ({n_attn}) and nothing else")
     if sorted(wb.done) != rids or any(len(wb.done[r]) != n_new for r in rids):
@@ -4315,7 +4444,8 @@ def _train_family(slice_tag, name, layers, batch_size, seq_len, workers=M_WORKER
     launches = read_launches()
     if not all(math.isfinite(x) for x in hist.loss):
         raise AssertionError(f"{tag}: non-finite loss {hist.loss}")
-    if launches != {"gossip_mix": STEPS, "quant_pack": 0, "flash_attention": 0}:
+    if launches != {"gossip_mix": STEPS, "quant_pack": 0, "flash_attention": 0,
+                    "consensus_stats": stats_launches(state.params, STEPS)}:
         raise AssertionError(f"{tag}: {launches} in {STEPS} steps, want 1 gossip_mix per step")
     batch = to_device(next_batch(), "cuda")
     s_f, m_f = make_train_step(loss, opt, gossip=spec)(state, batch)
@@ -4713,6 +4843,7 @@ def phase_launch(slice1: dict, card: str) -> dict:
     card_peak = torch.cuda.max_memory_allocated()
     del out
     _same_cost("slice 1's step", meta, card_cost, "gossip_mix", 1)
+    _same_cost("slice 1's step", meta, card_cost, "consensus_stats", 1)
     log(f"[launch] A/B slice 1's step: meta {meta.flops / 1e12:.3f} TFLOP, "
         f"{meta.bytes / 1e9:.3f} GB moved, 1 gossip_mix event ({meta.seconds:.2f} s on the "
         f"host); the card the same, exactly ({card_cost.seconds * 1e3:.1f} ms measured); peak "
@@ -5156,7 +5287,8 @@ def _phases(smi: str, t_start: float, dryrun: tuple) -> int:
         return out
 
     entries = timed("kernel checks", lambda: [phase_kernel_check(card), phase_quant_check(card),
-                                              phase_flash_check(card)])
+                                              phase_flash_check(card),
+                                              phase_stats_check(card)])
     slice1 = timed("slice1", phase_slice)
     timed("checkpoint", phase_checkpoint, slice1.pop("params"))
     by_path = {"slice1_train": slice1["launches"]}

@@ -55,11 +55,14 @@ With a telemetry sink active (:mod:`repro_torch.telemetry`) a step is a
 and remat's recompute), ``train.forward`` (the loss function inside the
 gradient's transforms, so the backward, which autograd runs after it
 returns, stays in ``train.grad``'s own time), ``train.optim`` (the
-optimizer's update) and ``train.stats`` (:func:`step_metrics`); the mix
-adds the bus's spans and counters (:func:`repro_torch.core.bus.mix_bus`).
+optimizer's update) and ``train.stats`` (:func:`step_metrics`, whose
+kernel launches run in ``stats.kernel``: :func:`_stats` names its
+counters); the mix adds the bus's spans and counters
+(:func:`repro_torch.core.bus.mix_bus`).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -68,6 +71,7 @@ from repro_torch import _tree, telemetry
 from repro_torch.core import bus
 from repro_torch.core import gossip as gossip_lib
 from repro_torch.core.gossip import GossipSpec
+from repro_torch.kernels import consensus_stats
 from repro_torch.launch import cost
 from repro_torch.launch.mesh import model_parallel, rows_cut_over
 from repro_torch.launch.tensor_parallel import ModelCut, model_cut
@@ -103,26 +107,14 @@ def replicate_for_workers(params: PyTree, M: int) -> PyTree:
                      params)
 
 
-def _sq_norms(leaves, cut: ModelCut | None) -> tuple[torch.Tensor, torch.Tensor]:
-    """(Σ ||x||² over the leaves ``cut`` shards over the model axis, Σ over
-    the others), float32: the first is this rank's part of a sum over the
-    model group; without a cut every leaf is whole."""
-    z = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-    parts = [z, z]
-    for x, sharded in zip(leaves, cut.sharded if cut is not None else (False,) * len(leaves)):
-        i = 0 if sharded else 1
-        parts[i] = parts[i] + torch.sum(torch.square(x.float()))
-    return parts[0], parts[1]
-
-
-def _model_sum(parts, cut: ModelCut | None) -> torch.Tensor:
-    """Sums whose ``parts`` are (sharded, whole) pairs of float32 scalars
-    (:func:`_sq_norms`): the sharded parts all-reduced over the model
-    group (one all-reduce), the whole parts added once."""
-    sharded = torch.stack([p[0] for p in parts])
+def _model_sum(parts: torch.Tensor, cut: ModelCut | None) -> torch.Tensor:
+    """Sums whose ``parts`` are rows of (sharded, whole) float32 pairs
+    (:func:`_stats`): the sharded column all-reduced over the model group
+    (one all-reduce), the whole column added once."""
+    sharded = parts[:, 0].contiguous()
     if cut is not None:
         sharded = _all_sum(sharded, [cut.group])
-    return sharded + torch.stack([p[1] for p in parts])
+    return sharded + parts[:, 1]
 
 
 def _all_sum(x: torch.Tensor, groups) -> torch.Tensor:
@@ -138,44 +130,67 @@ def _all_sum(x: torch.Tensor, groups) -> torch.Tensor:
     return x
 
 
-def _spread(tree: PyTree, M: int, groups, cut: ModelCut | None = None):
-    """(Σ_j ||x_j − x̄||² over this process's workers, ||x̄||²) of a
-    worker-stacked tree, each as a :func:`_sq_norms` pair (over the
-    leaves ``cut`` shards over the model axis, over the others). x̄ is
-    the float32 sum over all M workers ÷ M, rounded to each leaf's dtype
-    as the reference's mean is: the rank's sums of every leaf land in one
-    flat float32 buffer, which one all-reduce over ``groups`` completes
-    (4 bytes per element of the rank's part of a replica). The squares sum
-    in float32."""
-    leaves = _tree.leaves(tree)
-    sizes = [x[0].numel() for x in leaves]
-    flat = torch.empty(sum(sizes), dtype=torch.float32, device=leaves[0].device)
-    means = [v.view(x.shape[1:]) for x, v in zip(leaves, flat.split(sizes))]
-    for x, v in zip(leaves, means):
-        torch.sum(x, 0, dtype=torch.float32, out=v)
-    _all_sum(flat, groups).div_(M)
-    flags = cut.sharded if cut is not None else (False,) * len(leaves)
-    z = torch.zeros((), dtype=torch.float32, device=flat.device)
-    spread, mean_sq = [z, z], [z, z]
-    for x, v, sharded in zip(leaves, means, flags):
-        mean, i = v.to(x.dtype), 0 if sharded else 1
-        spread[i] = spread[i] + torch.sum(torch.square((x - mean).float()))
-        mean_sq[i] = mean_sq[i] + torch.sum(torch.square(mean.float()))
-    return tuple(spread), tuple(mean_sq)
+def _column_sums(leaves, groups) -> list[torch.Tensor]:
+    """Each leaf's float32 sum over all M workers: the rank's sums land in
+    one flat float32 buffer, which one all-reduce over ``groups`` completes
+    (4 bytes per element of the rank's part of a replica)."""
+    flat, sums = consensus_stats.column_sums(leaves)
+    _all_sum(flat, groups)
+    return sums
 
+
+def _stats(grads, params, M: int, groups=(), cut: ModelCut | None = None) -> torch.Tensor:
+    """(4, 2) float32: rows E, E_sp, ||ḡ||² of the ``grads`` leaves and the
+    consensus spread of the ``params`` leaves (each with a leading worker
+    dim: all M, or this rank's own on a mesh), columns the leaves ``cut``
+    shards over the model axis and the others (the first is this rank's
+    part of a sum over the model group). x̄ is the float32 sum over all M
+    workers ÷ M, rounded to each leaf's dtype as the reference's mean is;
+    the squares sum in float32 (:mod:`repro_torch.kernels.consensus_stats`:
+    the kernel on the card, its plain version on the CPU). On a worker mesh
+    (``groups``) the column sums are all-reduced first, one tree at a time,
+    so one sums buffer is alive at once. With a telemetry sink active each
+    call counts ``stats.bytes_kernel`` (what the kernel reads),
+    ``stats.plain_leaves`` (leaves the plain version sums, on the CPU) and
+    ``stats.reread_columns`` (column tiles the kernel reads twice), and the
+    kernel's launches run in a ``stats.kernel`` span."""
+    flags = cut.sharded if cut is not None else None
+
+    def run(g, p, **sums):
+        return _launch_stats(consensus_stats.plan(
+            g, p, M, grad_sharded=flags if g else None, param_sharded=flags if p else None,
+            **sums))
+
+    if not groups:
+        return run(grads, params)
+    out = run(grads, [], grad_sums=_column_sums(grads, groups))
+    return out + run([], params, param_sums=_column_sums(params, groups))
+
+
+def _launch_stats(plan: consensus_stats.Plan) -> torch.Tensor:
+    tel = telemetry.get()
+    if tel.active:
+        tel.counter("stats.bytes_kernel", plan.nbytes)
+        tel.counter("stats.plain_leaves", plan.plain_leaves)
+        tel.counter("stats.reread_columns", plan.reread_columns)
+    with tel.span("stats.kernel") if plan.groups else contextlib.nullcontext():
+        return consensus_stats.consensus_stats(plan)
 
 
 def gradient_stats(grads_M: PyTree) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(E, E_sp, √M·||ḡ||₂) of per-worker gradients (leading worker dim M),
     float32 scalars: the terms :func:`step_metrics` reports, meshless."""
-    M = _tree.leaves(grads_M)[0].shape[0]
-    E_sp, mean_sq = _spread(grads_M, M, ())
-    return _sq_norms(_tree.leaves(grads_M), None)[1], E_sp[1], torch.sqrt(M * mean_sq[1])
+    leaves = _tree.leaves(grads_M)
+    M = leaves[0].shape[0]
+    s = _stats(leaves, [], M)
+    return s[0, 1], s[1, 1], torch.sqrt(M * s[2, 1])
 
 
 def param_spread(params_M: PyTree) -> torch.Tensor:
     """The consensus spread Σ_j ||w_j − w̄||² of worker-stacked params."""
-    return _spread(params_M, _tree.leaves(params_M)[0].shape[0], ())[0][1]
+    leaves = _tree.leaves(params_M)
+    return _stats([], leaves, leaves[0].shape[0])[3, 1]
+
 
 def step_metrics(losses: torch.Tensor, grads_M: PyTree, params_M: PyTree, M: int,
                  groups=(), compute_stats: bool = True,
@@ -195,10 +210,8 @@ def step_metrics(losses: torch.Tensor, grads_M: PyTree, params_M: PyTree, M: int
     if not compute_stats:
         z = torch.zeros((), dtype=torch.float32, device=losses.device)
         return StepMetrics(_all_sum(loss_sum.reshape(1), groups)[0] / M, z, z, z, z)
-    E = _sq_norms(_tree.leaves(grads_M), cut)
-    E_sp, mean_g_sq = _spread(grads_M, M, groups, cut)
-    spread, _ = _spread(params_M, M, groups, cut)
-    E, E_sp, mean_g_sq, spread = _model_sum([E, E_sp, mean_g_sq, spread], cut)
+    E, E_sp, mean_g_sq, spread = _model_sum(
+        _stats(_tree.leaves(grads_M), _tree.leaves(params_M), M, groups, cut), cut)
     sums = _all_sum(torch.stack([loss_sum, E, E_sp, spread]), groups)
     return StepMetrics(sums[0] / M, sums[1], sums[2], torch.sqrt(M * mean_g_sq), sums[3])
 
@@ -414,7 +427,8 @@ def make_train_step(
             new_params = _add_updates(state.params, updates)
             with tel.span("train.stats"):
                 z = torch.zeros((), device=loss.device)
-                gn = _model_sum([_sq_norms(_tree.leaves(grads), cut)], cut)[0]
+                gn = _model_sum(_stats([x[None] for x in _tree.leaves(grads)], [], 1,
+                                       cut=cut)[:1], cut)[0]
         metrics = StepMetrics(loss, gn, z, torch.sqrt(gn), z)
         return TrainState(state.step + 1, new_params, opt_state), metrics
 

@@ -253,6 +253,64 @@ def _stats_inputs():
     return grads, [x, mixed]
 
 
+def _seed_sq_norms(leaves, flags):
+    """The statistics' plain arithmetic before the consensus_stats kernel
+    (``core/decentralized.py``: ``_sq_norms``), kept as the oracle."""
+    z = torch.zeros((), dtype=torch.float32)
+    parts = [z, z]
+    for x, sharded in zip(leaves, flags):
+        i = 0 if sharded else 1
+        parts[i] = parts[i] + torch.sum(torch.square(x.float()))
+    return parts[0], parts[1]
+
+
+def _seed_spread(leaves, M, flags):
+    """``_spread`` as it was, meshless."""
+    sizes = [x[0].numel() for x in leaves]
+    flat = torch.empty(sum(sizes), dtype=torch.float32)
+    means = [v.view(x.shape[1:]) for x, v in zip(leaves, flat.split(sizes))]
+    for x, v in zip(leaves, means):
+        torch.sum(x, 0, dtype=torch.float32, out=v)
+    flat.div_(M)
+    z = torch.zeros((), dtype=torch.float32)
+    spread, mean_sq = [z, z], [z, z]
+    for x, v, sharded in zip(leaves, means, flags):
+        mean, i = v.to(x.dtype), 0 if sharded else 1
+        spread[i] = spread[i] + torch.sum(torch.square((x - mean).float()))
+        mean_sq[i] = mean_sq[i] + torch.sum(torch.square(mean.float()))
+    return tuple(spread), tuple(mean_sq)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_statistics_equal_the_seed_composition_bit_for_bit(dtype):
+    """kernels/consensus_stats/ref.py, which CPU tensors take, is the
+    arithmetic step_metrics had before the kernel, bit for bit, on
+    _stats_inputs' trees (with and without sharded leaves)."""
+    from repro_torch.core import decentralized as tdec
+    from repro_torch.kernels.consensus_stats import consensus_stats_reference
+
+    grads, params = _stats_inputs()
+    params.append({"a": grads["a"], "b": np.arange(12, dtype=np.float32).reshape(4, 3)})
+    trees = [convert.params_from_jax(jax.tree.map(np.asarray, t), device="cpu")
+             for t in [grads] + params]
+    for tree in trees:
+        leaves = [x.to(dtype) for x in _tree.leaves(tree)]
+        M = leaves[0].shape[0]
+        for flags in ([i == 0 for i in range(len(leaves))], [False] * len(leaves)):
+            E = _seed_sq_norms(leaves, flags)
+            E_sp, mean_sq = _seed_spread(leaves, M, flags)
+            spread, _ = _seed_spread(leaves, M, flags)
+            want = torch.stack([torch.stack(p) for p in (E, E_sp, mean_sq, spread)])
+            got = consensus_stats_reference(leaves, leaves, M, grad_sharded=flags,
+                                            param_sharded=flags)
+            assert torch.equal(got, want)
+        t = _tree.map(lambda x: x.to(dtype), tree)     # want: every leaf whole
+        E, E_sp, H = tdec.gradient_stats(t)
+        assert torch.equal(torch.stack([E, E_sp, H]), torch.stack(
+            [want[0, 1], want[1, 1], torch.sqrt(M * want[2, 1])]))
+        assert torch.equal(tdec.param_spread(t), want[3, 1])
+
+
 def test_gradient_stats_and_param_spread_match_reference():
     from repro.core import decentralized as jdec
     from repro_torch.core import decentralized as tdec

@@ -1097,3 +1097,235 @@ def test_moe_expert_shards_fill_only_their_slots_on_card(cuda, k):
         local = {n: params[n][r * e:(r + 1) * e] for n in ("w_gate", "w_up", "w_down")}
         total += Ly._dispatch(local, cfg, xf, topw, keep, slot, capacity, first=r * e)
     torch.testing.assert_close(total, want, rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The consensus statistics: one kernel launch per dtype group for E, E_sp,
+# ||ḡ||² and the spread, against the plain version on the card at the
+# reference tolerance of the statistics (rtol 1e-5, atol 1e-6): the kernel
+# rounds every deviation as the plain version does and sums in another
+# order (float64 partials)
+# ---------------------------------------------------------------------------
+
+# leaf shapes: sizes that are not multiples of the 16-byte tile, a single
+# element, and one large enough for many tiles a thread
+_STATS_SHAPES = {"a": (37,), "b": (5, 13), "c": (129, 64), "d": (1,), "e": (3, 1001),
+                 "f": (96, 300)}
+
+
+def _stats_tree(M, dtype, seed, device, tie=True):
+    """A worker-stacked tree of _STATS_SHAPES, seeded normal values at
+    widening scales, and (``tie``) a leaf whose every column mean sits on a
+    rounding tie of bf16: half the workers at 1, half at 1 + 2^-7, scaled
+    by powers of two, so that s / M = 1 + 2^-8 lies halfway between two
+    bf16 values."""
+    tree = {k: _randn((M,) + s, F32, seed + i, device) * 2.0 ** (i - 2)
+            for i, (k, s) in enumerate(_STATS_SHAPES.items())}
+    # laid out as the tied embedding's gradient comes out of vmap
+    tree["g"] = _randn((M, 97, 64), F32, seed + 20, device).transpose(1, 2)
+    if tie:
+        col = torch.tensor([1.0] * (M // 2) + [1.0 + 2 ** -7] * (M - M // 2), device=device)
+        scale = 2.0 ** (torch.arange(45, device=device) % 7 - 3)
+        tree["tie"] = col[:, None] * scale[None, :]
+    return _tree.map(lambda x: x.to(dtype), tree)
+
+
+def _bus_views(tree):
+    """The tree's leaves as the bus's unpack hands them out: views into one
+    (M, rows·cols) buffer per dtype group, with a worker stride that is not
+    the leaf's size."""
+    layout = bus.plan_layout(tree)
+    views = _tree.leaves(bus.unpack(bus.pack(tree, layout), layout))
+    assert any(v.stride(0) != v[0].numel() for v in views)
+    return views
+
+
+def _stats_both(grads, params, M, **kw):
+    from repro_torch.kernels.consensus_stats import (consensus_stats,
+                                                     consensus_stats_reference, plan)
+
+    p = plan(grads, params, M, **kw)
+    assert p.plain_leaves == 0 and p.groups
+    before = consensus_stats.launches
+    got = consensus_stats(p)
+    torch.cuda.synchronize()
+    assert consensus_stats.launches - before == len(p.groups)
+    want = consensus_stats_reference(grads, params, M, **kw)
+    return got, want, p
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("M", [2, 4, 8, 16])
+def test_consensus_stats_kernel_matches_plain_version(cuda, dtype, M):
+    """Gradients fresh, params as bus views; half the leaves sharded; M = 16
+    reads its column tiles twice."""
+    from repro_torch.kernels.consensus_stats import consensus_stats
+
+    grads = _tree.leaves(_stats_tree(M, dtype, 0, cuda))
+    params = _bus_views(_stats_tree(M, dtype, 50, cuda))
+    flags = [i % 2 == 0 for i in range(len(grads))]
+    reread = consensus_stats.reread_columns
+    got, want, p = _stats_both(grads, params, M, grad_sharded=flags, param_sharded=flags)
+    assert (consensus_stats.reread_columns - reread > 0) == (M > 8) == (p.reread_columns > 0)
+    assert got.shape == (4, 2) and got.dtype == torch.float32
+    assert bool((want[:, 0] > 0).all()) and bool((want[:, 1] > 0).all())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    # the same inputs give the same bits
+    assert torch.equal(consensus_stats(p), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [2, 4, 16])
+def test_consensus_stats_tie_means_round_to_even(cuda, M):
+    """Every column of the one leaf ties: x̄ rounds to 1 (even), so ||ḡ||²
+    is Σ scale², where rounding away from even would read (1 + 2^-7)² as
+    much."""
+    tree = _stats_tree(M, BF16, 0, cuda)
+    grads = [tree["tie"]]
+    got, want, _ = _stats_both(grads, [tree["tie"]], M)
+    scale = 2.0 ** (torch.arange(45) % 7 - 3)
+    assert float(want[2, 1]) == float((scale ** 2).sum())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("M,workers", [(8, 4), (32, 16)])
+def test_consensus_stats_reads_the_mean_buffer(cuda, dtype, M, workers):
+    """The worker mesh's form: this rank's workers, x̄ from float32 column
+    sums over all M workers (here the rank's own sums times M / workers, as
+    if the other ranks held the same)."""
+    from repro_torch.kernels.consensus_stats import column_sums
+
+    grads = _tree.leaves(_stats_tree(workers, dtype, 3, cuda))
+    params = _bus_views(_stats_tree(workers, dtype, 9, cuda))
+    sums = [[s.mul_(M // workers) for s in column_sums(t)[1]] for t in (grads, params)]
+    got, want, p = _stats_both(grads, params, M, grad_sums=sums[0], param_sums=sums[1])
+    assert p.reread_columns == 0 and p.nbytes == sum(
+        x.numel() * x.element_size() + 4 * x[0].numel() for x in grads + params)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_consensus_stats_launches_once_per_dtype_group(cuda):
+    """float32 gradients (microbatch accumulation) with bf16 params: two
+    launches, whose sums add; the allreduce mode's energy (whole leaves as
+    one worker): one."""
+    from repro_torch.kernels.consensus_stats import consensus_stats, plan
+    from repro_torch.kernels.consensus_stats.ref import sq_norms
+
+    grads = _tree.leaves(_stats_tree(4, F32, 1, cuda))
+    params = _bus_views(_stats_tree(4, BF16, 2, cuda))
+    got, want, p = _stats_both(grads, params, 4)
+    assert [g.dtype for g in p.groups] == [F32, BF16]
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    whole = [x[0] for x in grads]
+    before = consensus_stats.launches
+    e = consensus_stats(plan([x[None] for x in whole], [], 1))
+    assert consensus_stats.launches - before == 1
+    torch.testing.assert_close(e[0], torch.stack(sq_norms(whole)), rtol=1e-5, atol=1e-6)
+    assert float(e[1].abs().sum()) == 0.0
+
+
+@pytest.mark.gpu
+def test_consensus_stats_refuses_a_leaf_the_kernel_cannot_read(cuda):
+    """No plain route on the card: a float64 leaf is refused before
+    anything runs."""
+    from repro_torch.kernels.consensus_stats import consensus_stats, plan
+
+    x = torch.ones(4, 10, 7, dtype=BF16, device=cuda)
+    before = consensus_stats.launches
+    with pytest.raises(ValueError, match="float64"):
+        plan([x.double()], [x], 4)
+    assert consensus_stats.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("M,workers", [(4, 4), (8, 4), (16, 16)])
+def test_consensus_stats_reads_leaves_with_gaps(cuda, dtype, M, workers):
+    """Worker copies with gaps, as a model axis's shard of a wider dim
+    leaves them (half of each row, a padded block, outer dims that do not
+    line up, every other element), meshless and from column sums."""
+    from repro_torch.kernels.consensus_stats import column_sums
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    full = lambda *s: torch.randn((workers,) + s, generator=g, device=cuda).to(dtype)
+    grads = [full(4, 160)[..., :80], full(3, 40)[:, 1:, 8:32],
+             full(2, 5, 96)[:, :, 1:4, :64], full(50)[:, ::2], full(130, 72)[:, :, 3:70]]
+    params = [full(4, 160)[..., 80:], full(6, 24)[:, :, :16], full(130, 72)[:, :, :64]]
+    kw = {}
+    if M != workers:
+        sums = [[v.mul_(M // workers) for v in column_sums(t)[1]] for t in (grads, params)]
+        kw = dict(grad_sums=sums[0], param_sums=sums[1])
+    got, want, p = _stats_both(grads, params, M, **kw)
+    assert any(int(r[8]) > 1 for r in p.groups[0].rows)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_consensus_stats_kernel_is_linked_to_the_range_around_it(cuda):
+    """The launch is an operator of the dispatcher, so the profiler gives
+    the kernel's device time to the range that holds the call."""
+    from repro_torch.kernels.consensus_stats import consensus_stats, plan
+
+    grads = _tree.leaves(_stats_tree(4, BF16, 4, cuda))
+    p = plan(grads, [], 4)
+    consensus_stats(p)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function("stats.range"):
+            consensus_stats(p)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and "stats_kernel" in e.name]
+    assert kernels
+    (rng,) = [e for e in prof.events() if e.name == "stats.range"
+              and e.device_type == torch.autograd.DeviceType.CPU]
+    assert rng.device_time_total >= sum(k.device_time for k in kernels) > 0
+
+
+@pytest.mark.gpu
+def test_train_step_metrics_equal_the_plain_path_on_card(cuda, monkeypatch):
+    """A bf16 remat decoder's fused step on a 4-ring: the StepMetrics from
+    the kernel (one launch, no plain leaf) equal those of the same step
+    with the statistics forced through the plain version."""
+    import dataclasses
+
+    from repro_torch import telemetry
+    from repro_torch.configs import get_config
+    from repro_torch.core import decentralized as Dc
+    from repro_torch.kernels import consensus_stats as CS
+    from repro_torch.models import model as Mo
+    from repro_torch.optim import momentum_sgd
+
+    cfg = dataclasses.replace(get_config("granite-3-2b").reduced(), remat=True, d_model=64,
+                              n_heads=2, n_kv_heads=1, head_dim=32, d_ff=128, vocab_size=97,
+                              param_dtype="bfloat16")
+    M = 4
+    params = Dc.replicate_for_workers(Mo.init(torch.Generator().manual_seed(0), cfg, cuda), M)
+    opt = momentum_sgd(0.01, 0.9)
+    step = Dc.make_train_step(lambda p, b: Mo.loss_fn(p, cfg, b), opt,
+                              gossip=GossipSpec(topology=T.undirected_ring(M), backend="fused"))
+    state = Dc.init_state(params, opt)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (M, 2, 17),
+                                     generator=torch.Generator().manual_seed(1)).to(cuda)}
+    assert _tree.leaves(state.params)[0].dtype == BF16
+    before = CS.consensus_stats.launches
+    with telemetry.run() as tel:
+        s_k, m_k = step(state, batch)
+    assert CS.consensus_stats.launches - before == 1
+    c = tel.counters
+    assert c["stats.plain_leaves"] == 0 and c["stats.reread_columns"] == 0
+    n = sum(x.numel() * x.element_size() for x in _tree.leaves(state.params))
+    assert c["stats.bytes_kernel"] == 2 * n
+    assert [s["parent"] for s in tel.spans if s["name"] == "stats.kernel"] == ["train.stats"]
+    monkeypatch.setattr(CS, "consensus_stats", lambda p: CS.consensus_stats_reference(
+        p.keep[0], p.keep[1], p.M))
+    _, m_p = step(state, batch)
+    torch.testing.assert_close(m_k.loss, m_p.loss, rtol=1e-6, atol=0)
+    for name in ("grad_energy", "grad_spread", "mean_grad_norm", "param_spread"):
+        torch.testing.assert_close(getattr(m_k, name), getattr(m_p, name), rtol=1e-5,
+                                   atol=1e-6, msg=name)

@@ -300,6 +300,18 @@ def test_bus_byte_counters_match_the_layout(traced_remat_step):
         "bus.bytes_kernel": (k + 3) * buf_b, "bus.bytes_unpacked": 0}
 
 
+def test_stats_counters_count_the_plain_leaves_on_cpu(traced_remat_step):
+    """On the CPU the statistics take the plain version: every gradient and
+    new-param leaf counted in ``stats.plain_leaves``, nothing read by the
+    kernel, no ``stats.kernel`` span (the span test above)."""
+    t = traced_remat_step
+    c = t["tel"].counters
+    n = len(_tree.leaves(t["params"]))
+    assert {k: c[k] for k in ("stats.bytes_kernel", "stats.plain_leaves",
+                              "stats.reread_columns")} == {
+        "stats.bytes_kernel": 0, "stats.plain_leaves": 2 * n, "stats.reread_columns": 0}
+
+
 def test_span_intervals_lie_on_the_profile_clock(traced_remat_step):
     """Shifted by the saved origin, a span's interval lies on its profiler
     range: each overlaps it, and their starts and ends agree within 1 ms at
