@@ -3,6 +3,10 @@
 A copy of the reference's ``repro/configs/base.py`` (a plain dataclass), so
 a config and its ``reduced()`` smoke variant carry the same numbers in both
 packages. configs/<id>.py instantiate it with the exact assignment numbers.
+The fields after ``parallel_block`` are the port's own (Granite's
+multipliers, attention without positions, an MLP beside each Mamba-2
+mixer): the reference has none of them, and at their defaults a config
+builds and runs as the reference's.
 """
 from __future__ import annotations
 
@@ -96,6 +100,19 @@ class ModelConfig:
                                       # all-reduce, halving per-layer collective
                                       # bytes. Architectural deviation: opt-in.
 
+    # --- granite-4.0-h: Granite's multipliers, NoPE, the Mamba layers' MLP -------
+    # (port only; each default leaves the model as it is without the field)
+    embedding_multiplier: float = 1.0        # embeddings × m
+    attention_multiplier: float | None = None  # score scale; None: 1/sqrt(head_dim)
+    residual_multiplier: float = 1.0         # x + m·branch, every residual branch
+    logits_scaling: float = 1.0              # logits ÷ s
+    position_embedding: str = "rope"         # rope | nope
+    ssm_mlp: bool = False                    # an MLP beside each Mamba-2 mixer
+
+    def __post_init__(self):
+        if self.position_embedding not in ("rope", "nope"):
+            raise ValueError(f"position_embedding {self.position_embedding!r}: rope or nope")
+
     # ---------------------------------------------------------------------------
     @property
     def layer_kinds(self) -> tuple[str, ...]:
@@ -141,6 +158,8 @@ class ModelConfig:
         for i, kind in enumerate(self.layer_kinds):
             if kind == "ssm":
                 total += per_ssm
+                if self.ssm_mlp:    # granite-4.0-h: an MLP beside each Mamba mixer
+                    total += per_mlp
             elif kind == "rglru":
                 w = self.lru_width or D
                 total += 2 * D * w + w * D + per_mlp

@@ -414,15 +414,18 @@ def _ring_ok(pos: int, W: int, window: int, qp: torch.Tensor) -> torch.Tensor:
     return (slot_pos[None, :] <= qp[:, None]) & valid[None, :]
 
 
-def _ring_decode_attention(q, ck, cv, pos: int, window: int, q_pos=None) -> torch.Tensor:
+def _ring_decode_attention(q, ck, cv, pos: int, window: int, q_pos=None,
+                           scale=None) -> torch.Tensor:
     """Decode attention over a ring cache that already holds the new token
     (q: (B, 1, H, hd), written at slot pos % W): each slot's absolute
     position, masked to the window and to positions written, scores scaled
-    by 1/sqrt(hd), GQA by repeated kv heads, as the reference's ring
-    branch; the queries sit at ``q_pos`` (default ``pos + arange(L)``)."""
+    by 1/sqrt(hd) (or times ``scale``), GQA by repeated kv heads, as the
+    reference's ring branch; the queries sit at ``q_pos`` (default
+    ``pos + arange(L)``)."""
     B, L, H, hd = q.shape
     qp = q_pos if q_pos is not None else pos + torch.arange(L, device=q.device)
-    s = f32_product("bqhd,bshd->bhqs", q, repeat_kv(ck, H)) / float(np.sqrt(hd))
+    s = f32_product("bqhd,bshd->bhqs", q, repeat_kv(ck, H))
+    s = s / float(np.sqrt(hd)) if scale is None else s * float(scale)
     s = s + torch.where(_ring_ok(pos, ck.shape[1], window, qp), 0.0, NEG_INF)[None, None]
     p = torch.softmax(s, dim=-1).to(cv.dtype)
     return torch.einsum("bhqs,bshd->bqhd", p, repeat_kv(cv, H))
@@ -509,7 +512,10 @@ def gqa_apply(params, cfg: ModelConfig, x, *, positions=None, q_base: int = 0,
     rope positions are per row (len_b + t) and the pad columns stay
     masked, so batched ragged decode matches unbatched. With a
     :class:`PagedKVCache` (decode only): one token per slot at the slot's
-    own position ``cache.lengths[s]``.
+    own position ``cache.lengths[s]``. On every path the scores are scaled
+    by ``cfg.attention_multiplier`` where it is set (Granite's), else by
+    1/sqrt(head_dim); at ``cfg.position_embedding == "nope"`` no rotary
+    embedding touches q or k (positions still set the causal mask).
 
     Inside ``launch.mesh.model_parallel``, with ``wq`` cut to this rank's
     q heads (``params`` are the rank's shards; ``cfg``'s head counts stay
@@ -530,6 +536,7 @@ def gqa_apply(params, cfg: ModelConfig, x, *, positions=None, q_base: int = 0,
     B, L, _ = x.shape
     paged = isinstance(cache, PagedKVCache)
     kv_src = memory if memory is not None else x
+    scale = cfg.attention_multiplier            # None: 1/sqrt(head_dim)
     # on the model axis: this rank's q heads, and its kv heads where they
     # shard too (else every kv head, replicated)
     shard = model_shard() if params["wq"].shape[-2] < cfg.n_heads else None
@@ -552,7 +559,7 @@ def gqa_apply(params, cfg: ModelConfig, x, *, positions=None, q_base: int = 0,
                 k_norm = _tree_copy_to_model(k_norm)
         q = rmsnorm_apply(q_norm, q, cfg.norm_eps)
         k = rmsnorm_apply(k_norm, k, cfg.norm_eps)
-    if memory is None:                          # rope only for self-attention
+    if memory is None and cfg.position_embedding == "rope":   # rope: self-attention only
         if positions is not None:
             q_pos = positions
         elif paged:
@@ -581,9 +588,9 @@ def gqa_apply(params, cfg: ModelConfig, x, *, positions=None, q_base: int = 0,
         causal = causal and memory is None
         k, v = own_kv(k), own_kv(v)
         if flash and q_base == 0 and k.shape[1] > BLOCK_THRESHOLD:
-            o = flash_ops.attention(q, k, v, causal=causal, window=window)
+            o = flash_ops.attention(q, k, v, causal=causal, window=window, scale=scale)
         else:
-            o = attention_any(q, k, v, q_base, causal=causal, window=window)
+            o = attention_any(q, k, v, q_base, causal=causal, window=window, scale=scale)
         return out(o), None
 
     if paged:
@@ -595,7 +602,7 @@ def gqa_apply(params, cfg: ModelConfig, x, *, positions=None, q_base: int = 0,
         kp, vp = cache.k_pages, cache.v_pages
         if shard is not None and not kv_sharded:
             kp, vp = (_local_kv_heads(t, cfg, shard.index, q.shape[2]) for t in (kp, vp))
-        o = paged_decode_attention(q, kp, vp, cache.block_tables, cache.lengths)
+        o = paged_decode_attention(q, kp, vp, cache.block_tables, cache.lengths, scale=scale)
         return out(o), cache
 
     S, first = _slots(cache)
@@ -607,10 +614,11 @@ def gqa_apply(params, cfg: ModelConfig, x, *, positions=None, q_base: int = 0,
         if lengths is not None:
             kv_valid = torch.arange(L, device=x.device)[None, :] < lengths[:, None]
         if kv_valid is None and L > BLOCK_THRESHOLD:
-            o = flash_ops.attention(q, own_kv(k), own_kv(v), causal=True, window=window)
+            o = flash_ops.attention(q, own_kv(k), own_kv(v), causal=True, window=window,
+                                    scale=scale)
         else:
             o = attention_any(q, own_kv(k), own_kv(v), 0, causal=True, window=window,
-                              kv_valid=kv_valid)
+                              kv_valid=kv_valid, scale=scale)
         if ring and L >= S:
             # the last S positions, rolled so position p sits at slot p % S
             k, v = (torch.roll(t[:, -S:], L % S, dims=1) for t in (k, v))
@@ -642,19 +650,20 @@ def gqa_apply(params, cfg: ModelConfig, x, *, positions=None, q_base: int = 0,
                 ok = ok & (kp > qp[:, None] - window)
             ok = ok[None]
         o = _gqa_seq_cut_decode(q, cache.k, cache.v, ok.narrow(-1, first, cache.k.shape[1]),
-                                float(1.0 / np.sqrt(q.shape[-1])))
+                                float(1.0 / np.sqrt(q.shape[-1])) if scale is None
+                                else scale)
         return out(o), new_cache
     ck, cv = own_kv(cache.k), own_kv(cache.v)
     if ring:
-        o = _ring_decode_attention(q, ck, cv, pos, window, positions)
+        o = _ring_decode_attention(q, ck, cv, pos, window, positions, scale)
     elif lengths is not None:
         kv_valid = _ragged_kv_valid(S, lengths, prompt_len, pos)
-        o = slot_decode_attention(q, ck, cv, kv_valid)
+        o = slot_decode_attention(q, ck, cv, kv_valid, scale=scale)
     else:
         arange_s = torch.arange(S, device=x.device)
         kv_valid = (arange_s < pos + L)[None, :].expand(B, S)
         o = dense_attention(q, ck, cv, qp, arange_s, causal=True, window=window,
-                            kv_valid=kv_valid)
+                            kv_valid=kv_valid, scale=scale)
     return out(o), new_cache
 
 

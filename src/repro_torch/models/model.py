@@ -13,7 +13,11 @@ encoder-decoder (seamless-m4t-large-v2): ``model_defs``, ``init``,
 all functions over a params tree. Blocks take every MLP variant or
 capacity-routed MoE, optional qk-norm, scaled embeddings, the opt-in
 parallel block, and sliding windows (ring KV caches); a Mamba-2 block has
-no MLP. Caches are written in place
+no MLP (mamba2-2.7b) but where ``cfg.ssm_mlp`` puts one beside the mixer
+(granite-4.0-h's hybrid, whose attention runs without rotary
+embeddings). Granite's multipliers, where a config sets them, scale the
+embedding, every residual branch and the logits (and, through
+``attention``, the scores). Caches are written in place
 (``attention.KVCache``, ``attention.MLACache``, ``ssm.MambaCache``,
 ``rglru.RGLRUCache``, and for decode the continuous batcher's
 ``attention.PagedKVCache`` and ``attention.PagedMLACache``). The recurrent
@@ -126,7 +130,7 @@ def _block_defs(cfg: ModelConfig, kind: str, moe: bool, cross: bool) -> PyTree:
     if cross:
         d["norm_cross"] = L.rmsnorm_defs(cfg.d_model)
         d["cross"] = attn_lib.gqa_defs(cfg)
-    if kind != "ssm":            # mamba2 stacks have no MLP (d_ff = 0)
+    if kind != "ssm" or cfg.ssm_mlp:     # mamba2-2.7b's Mamba blocks have no MLP
         d["norm2"] = L.rmsnorm_defs(cfg.d_model)
         d["mlp"] = L.moe_defs(cfg) if moe else L.mlp_defs(cfg)
     return d
@@ -185,8 +189,9 @@ def _block_apply(bp: PyTree, cfg: ModelConfig, seg: Segment, x, cache=None,
     decoder with ``memory`` given, + cross(norm_cross(x)), then +
     mlp(norm2(x)) where the block has an MLP (an MoE layer's returns its
     aux loss); with ``cfg.parallel_block`` an attention block without
-    cross-attention is x + attn(norm1(x)) + mlp(norm2(x)). The mix is GQA
-    or MLA attention, Mamba-2 or RG-LRU by ``seg.kind``. Cross-attention
+    cross-attention is x + attn(norm1(x)) + mlp(norm2(x)). Each branch is
+    added times ``cfg.residual_multiplier`` (:func:`_residual`). The mix is
+    GQA or MLA attention, Mamba-2 or RG-LRU by ``seg.kind``. Cross-attention
     reads ``cross_kv`` (this layer's precomputed (k, v), serving) where
     given, else projects ``memory`` itself (training). Returns (x, new
     cache or None, aux); a dense layer's aux is 0.0, a Python float, so it
@@ -220,9 +225,9 @@ def _block_apply(bp: PyTree, cfg: ModelConfig, seg: Segment, x, cache=None,
     parallel = cfg.parallel_block and "mlp" in bp and "cross" not in bp \
         and seg.kind in ("attn", "local")
     if not parallel:
-        x = x + a
+        x = _residual(cfg, x, a)
         if "cross" in bp and memory is not None:
-            x = x + _cross_apply(bp, cfg, x, memory, cross_kv)
+            x = _residual(cfg, x, _cross_apply(bp, cfg, x, memory, cross_kv))
         if "mlp" not in bp:
             return x, new_cache, aux
     h2 = L.rmsnorm_apply(bp["norm2"], x, cfg.norm_eps)
@@ -231,8 +236,15 @@ def _block_apply(bp: PyTree, cfg: ModelConfig, seg: Segment, x, cache=None,
     else:
         y = L.mlp_apply(bp["mlp"], cfg, h2)
     if parallel:
-        return x + a + y, new_cache, aux
-    return x + y, new_cache, aux
+        return _residual(cfg, _residual(cfg, x, a), y), new_cache, aux
+    return _residual(cfg, x, y), new_cache, aux
+
+
+def _residual(cfg: ModelConfig, x, branch):
+    """x + branch, or x + residual_multiplier·branch in one pass (Granite)."""
+    if cfg.residual_multiplier == 1.0:
+        return x + branch
+    return torch.add(x, branch, alpha=cfg.residual_multiplier)
 
 
 def _remat_block_apply(bp: PyTree, cfg: ModelConfig, seg: Segment, x, memory, q_base: int):
@@ -266,7 +278,8 @@ def _cross_apply(bp: PyTree, cfg: ModelConfig, x, memory, cross_kv):
                       for t in (ck, cv))
     q = torch.einsum("bld,dhk->blhk", hc, wq)
     o = attn_lib.dense_attention(q, ck, cv, torch.arange(hc.shape[1], device=hc.device),
-                                 torch.arange(ck.shape[1], device=hc.device), causal=False)
+                                 torch.arange(ck.shape[1], device=hc.device), causal=False,
+                                 scale=cfg.attention_multiplier)
     out = torch.einsum("blhk,hkd->bld", o, bp["cross"]["wo"])
     return out if shard is None else tp.reduce_from_model(out)
 
@@ -302,6 +315,8 @@ def _embed(params, cfg: ModelConfig, tokens):
         # the reference multiplies by a weak-typed Python float, which JAX
         # rounds to the compute dtype first (45.25 for gemma's √2048 in bf16)
         x = x * torch.tensor(float(np.sqrt(cfg.d_model)), dtype=dtype)
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
     return x
 
 
@@ -424,9 +439,14 @@ def logits_from_hidden(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tenso
     the rank's columns all-gathered over the model group."""
     W = _unembed(params, cfg)
     if _vocab_shard(W.shape[-1], cfg) is None:
-        return attn_lib.f32_product("bld,dv->blv", h, W.to(h.dtype))
-    return tp.gather_from_model(
-        attn_lib.f32_product("bld,dv->blv", tp.copy_to_model(h), W.to(h.dtype)), -1)
+        return _scaled(cfg, attn_lib.f32_product("bld,dv->blv", h, W.to(h.dtype)))
+    return tp.gather_from_model(_scaled(
+        cfg, attn_lib.f32_product("bld,dv->blv", tp.copy_to_model(h), W.to(h.dtype))), -1)
+
+
+def _scaled(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
+    """Float32 logits over ``cfg.logits_scaling`` (Granite), as they are at 1."""
+    return logits if cfg.logits_scaling == 1.0 else logits / cfg.logits_scaling
 
 
 def cross_entropy_chunked(params, cfg: ModelConfig, h, labels,
@@ -451,7 +471,7 @@ def cross_entropy_chunked(params, cfg: ModelConfig, h, labels,
     for i in range(n_chunks):
         hs = h[:, i * ck:(i + 1) * ck]
         ls = labels[:, i * ck:(i + 1) * ck]
-        logits = attn_lib.f32_product("bld,dv->blv", hs, W)
+        logits = _scaled(cfg, attn_lib.f32_product("bld,dv->blv", hs, W))
         if shard is None:
             logz = torch.logsumexp(logits, dim=-1)
             gold = torch.gather(logits, -1, ls[..., None].long())[..., 0]

@@ -11,6 +11,14 @@ in-place write, so the train step's ``vmap`` over workers batches it).
 Decode is the O(1) recurrent update. The SSM state stays float32, in the
 cache and in the scan.
 
+With a telemetry sink installed (:mod:`repro_torch.telemetry`) each call of
+:func:`mamba2_apply` is a ``ssm.mix`` span holding the ``ssm.scan`` span of
+its :func:`ssd_chunked` call (a training forward's, and remat's recompute's,
+since both run the layer); ``ssm.tokens`` adds each mixer call's B·L and
+``ssm.chunks`` each scan's b·(l / chunk), by the shapes the call sees: per
+worker inside the train step's ``vmap``, which runs the body once for all
+workers.
+
 The reference's four-operand einsum of the diagonal blocks is written as
 two pairwise products, and every product whose operands JAX would promote
 to float32 (bf16 inputs beside float32 step sizes and decays) takes float32
@@ -46,6 +54,7 @@ from typing import Any, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import telemetry
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import tensor_parallel as tp
 from repro_torch.launch.mesh import model_shard
@@ -148,8 +157,16 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
     x: (b, l, h, p) inputs; dt: (b, l, h) positive float32 step sizes; A:
     (h,) negative float32 decay rates; B, C: (b, l, g, n), the g groups
     broadcast over the heads. Returns y: (b, l, h, p) float32 and the final
-    state (b, h, p, n) float32.
+    state (b, h, p, n) float32. A ``ssm.scan`` span (module note).
     """
+    tel = telemetry.get()
+    with tel.span("ssm.scan"):
+        if tel.active:
+            tel.counter("ssm.chunks", x.shape[0] * (x.shape[1] // chunk))
+        return _ssd(x, dt, A, B, C, chunk)
+
+
+def _ssd(x, dt, A, B, C, chunk: int):
     b, l, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     if l % chunk:
@@ -201,7 +218,16 @@ def _write(cache: MambaCache, conv: torch.Tensor, state: torch.Tensor, n: int) -
 def mamba2_apply(params, cfg: ModelConfig, x, *, cache: MambaCache | None = None):
     """x: (B, L, D) -> ((B, L, D), new cache or None). With a cache and L == 1,
     one recurrent decode step; with a cache and L > 1, a prefill from an
-    empty cache that leaves the conv tail and the final state in it."""
+    empty cache that leaves the conv tail and the final state in it. A
+    ``ssm.mix`` span (module note)."""
+    tel = telemetry.get()
+    with tel.span("ssm.mix"):
+        if tel.active:
+            tel.counter("ssm.tokens", x.shape[0] * x.shape[1])
+        return _mamba2(params, cfg, x, cache)
+
+
+def _mamba2(params, cfg: ModelConfig, x, cache: MambaCache | None):
     Bsz, L, _ = x.shape
     di, G, N, H, P = cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
     conv_dim = di + 2 * G * N

@@ -15,12 +15,13 @@ gradients rtol 1e-4 / atol 1e-6, the encoder's memory, logits, caches,
 cross K/V and logprobs atol 1e-5 (the same float32 arithmetic, summed in
 other orders); greedy tokens must be equal.
 """
-import dataclasses
 import functools
 
 import numpy as np
 import pytest
 import torch
+
+from _torch_config_parity import assert_config_matches_reference
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -132,7 +133,7 @@ def test_model_defs_equal_the_reference_and_the_tree_carries(reduced, scan):
     assert NAME in ARCH_NAMES
     jcfg = jget_config(NAME, reduced=reduced, scan_layers=scan)
     tcfg = tget_config(NAME, reduced=reduced, scan_layers=scan)
-    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    assert_config_matches_reference(jcfg, tcfg)
     jdefs = jax.tree_util.tree_flatten_with_path(
         JM.model_defs(jcfg), is_leaf=lambda x: hasattr(x, "shape"))[0]
     tdefs = _tree.flatten_with_path(TM.model_defs(tcfg))

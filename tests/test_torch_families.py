@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_config_parity import assert_config_matches_reference
+
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
@@ -87,10 +89,7 @@ def _check_caches(tcaches, jcaches, pos):
 def test_config_equals_the_reference_field_by_field(name, reduced):
     assert name in ARCH_NAMES
     j, t = jget_config(name, reduced=reduced), tget_config(name, reduced=reduced)
-    jd, td = dataclasses.asdict(j), dataclasses.asdict(t)
-    assert list(jd) == list(td)
-    for field in jd:
-        assert td[field] == jd[field], field
+    assert_config_matches_reference(j, t)
     assert t.n_params() == j.n_params()
 
 

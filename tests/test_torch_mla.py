@@ -13,12 +13,13 @@ returns a layer output, after ``w_uv`` and ``wo``, so it is held there
 too); greedy tokens must be equal. The zero-padded v of MLA's flash call is held to the reference's
 ``blockwise_attention`` at v head dim below qk head dim, float32 2e-5.
 """
-import dataclasses
 import functools
 
 import numpy as np
 import pytest
 import torch
+
+from _torch_config_parity import assert_config_matches_reference
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -113,7 +114,7 @@ def _x(cfg, B, L, seed=1):
 def test_config_equals_the_reference_field_by_field(reduced):
     assert NAME in ARCH_NAMES
     j, t = jget_config(NAME, reduced=reduced), tget_config(NAME, reduced=reduced)
-    assert dataclasses.asdict(j) == dataclasses.asdict(t)
+    assert_config_matches_reference(j, t)
     assert t.n_params() == j.n_params()
 
 

@@ -17,12 +17,13 @@ two float32 ulps of the largest state. Layer outputs, logits, caches and logprob
 atol 1e-5 and loss and gradients rtol 1e-4 / atol 1e-6, as
 ``tests/test_torch_families.py`` holds them; greedy tokens must be equal.
 """
-import dataclasses
 import functools
 
 import numpy as np
 import pytest
 import torch
+
+from _torch_config_parity import assert_config_matches_reference
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -109,7 +110,7 @@ def _jdecode(jcfg):
 def test_config_equals_the_reference_field_by_field(reduced):
     assert NAME in ARCH_NAMES
     j, t = jget_config(NAME, reduced=reduced), tget_config(NAME, reduced=reduced)
-    assert dataclasses.asdict(j) == dataclasses.asdict(t)
+    assert_config_matches_reference(j, t)
     assert t.n_params() == j.n_params()
     assert TM.plan_segments(t) == [TM.Segment(s.kind, s.moe, s.length, s.scanned)
                                    for s in JM.plan_segments(j)]

@@ -15,12 +15,13 @@ SSM state grows to |11| here, where one float32 rounding is ~1e-6;
 to 96 terms) and its gradients rtol 1e-4 / atol 1e-5; loss and gradients
 of the model rtol 1e-4 / atol 1e-6; greedy tokens must be equal.
 """
-import dataclasses
 import functools
 
 import numpy as np
 import pytest
 import torch
+
+from _torch_config_parity import assert_config_matches_reference
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -116,7 +117,7 @@ def _ssd_inputs(b, l, h, p, g, n, seed):
 def test_config_equals_the_reference_field_by_field(reduced):
     assert NAME in ARCH_NAMES
     j, t = jget_config(NAME, reduced=reduced), tget_config(NAME, reduced=reduced)
-    assert dataclasses.asdict(j) == dataclasses.asdict(t)
+    assert_config_matches_reference(j, t)
     assert t.n_params() == j.n_params()
     assert (t.d_inner, t.ssm_nheads) == (j.d_inner, j.ssm_nheads)
 

@@ -492,3 +492,81 @@ def test_recovery_counters_reach_the_sink():
                  fault_inject=inject)
     assert tel.counters["recovery.step_failures"] == 1 == r.trace.meta["recovery"]["retries"]
     assert all(torch.isfinite(x).all() for x in _tree.leaves(r.params))
+
+
+@pytest.fixture(scope="module")
+def traced_hybrid_step():
+    """One fused-bus step of a tiny remat Granite-4.0-H hybrid (Mamba-2,
+    NoPE attention, Mamba-2, each with an MLP) on the 2-clique: with the
+    null sink, then from the same state with a sink under a CPU profile."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.core.decentralized import init_state, make_train_step
+    from repro_torch.models import model as Mo
+    from repro_torch.optim import momentum_sgd
+
+    cfg = ModelConfig(name="granite-4.0-h-tiny", arch_type="hybrid", n_layers=3, d_model=64,
+                      n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128, vocab_size=97,
+                      layer_pattern=("ssm", "attn", "ssm"), ssm_state=16, ssm_headdim=16,
+                      ssm_expand=1, ssm_chunk=8, tie_embeddings=True, scan_layers=False,
+                      embedding_multiplier=12.0, attention_multiplier=1 / 64,
+                      residual_multiplier=0.22, logits_scaling=8.0,
+                      position_embedding="nope", ssm_mlp=True)
+    M, B, L = 2, 2, 16
+    params = replicate_for_workers(Mo.init(torch.Generator().manual_seed(0), cfg, "cpu"), M)
+    opt = momentum_sgd(0.01, 0.9)
+    step = make_train_step(lambda p, b: Mo.loss_fn(p, cfg, b), opt,
+                           gossip=GossipSpec(topology=TT.clique(M), backend="fused"))
+    state = init_state(params, opt)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (M, B, L + 1),
+                                     generator=torch.Generator().manual_seed(1))}
+    off = step(state, batch)
+    with telemetry.run() as tel:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            on = step(state, batch)
+    return dict(cfg=cfg, B=B, L=L, off=off, on=on, tel=tel, events=prof.events())
+
+
+def test_ssm_sink_leaves_the_hybrid_step_bit_identical(traced_hybrid_step):
+    (s_off, m_off), (s_on, m_on) = traced_hybrid_step["off"], traced_hybrid_step["on"]
+    for a, b in zip(_tree.leaves((s_off.params, s_off.opt_state)),
+                    _tree.leaves((s_on.params, s_on.opt_state))):
+        assert torch.equal(a, b)
+    for a, b in zip(m_off, m_on):
+        assert torch.equal(a, b)
+
+
+def test_ssm_spans_hold_the_scan_in_the_forward_and_the_recompute(traced_hybrid_step):
+    """``ssm.mix`` ⊃ ``ssm.scan``, once per Mamba layer in the forward (under
+    ``train.forward``) and once more in remat's recompute, in the sink and
+    as profiler ranges."""
+    t = traced_hybrid_step
+    n_ssm = t["cfg"].layer_kinds.count("ssm")
+    spans = t["tel"].spans
+    mix = [s for s in spans if s["name"] == "ssm.mix"]
+    scan = [s for s in spans if s["name"] == "ssm.scan"]
+    assert len(mix) == len(scan) == 2 * n_ssm
+    assert all(s["parent"] == "ssm.mix" for s in scan)
+    assert sorted(s["parent"] for s in mix) == sorted(
+        ["train.forward"] * n_ssm + ["model.remat.recompute"] * n_ssm)
+    for s in scan:
+        assert any(m["ts"] <= s["ts"] and s["ts"] + s["dur"] <= m["ts"] + m["dur"]
+                   for m in mix)
+    ranges = [e for e in t["events"] if e.name in ("ssm.mix", "ssm.scan")]
+    assert sorted(e.name for e in ranges) == ["ssm.mix"] * 2 * n_ssm + ["ssm.scan"] * 2 * n_ssm
+    for e in ranges:
+        if e.name == "ssm.scan":
+            assert e.cpu_parent is not None and e.cpu_parent.name == "ssm.mix"
+
+
+def test_ssm_counters_count_the_shapes(traced_hybrid_step):
+    """Per call, by the shapes the call sees (one worker's under the train
+    step's vmap): B·L tokens a mixer, B·L/chunk chunks a scan; twice per
+    Mamba layer (forward and recompute)."""
+    t = traced_hybrid_step
+    cfg, B, L = t["cfg"], t["B"], t["L"]
+    calls = 2 * cfg.layer_kinds.count("ssm")
+    c = t["tel"].counters
+    assert c["ssm.tokens"] == calls * B * L
+    assert c["ssm.chunks"] == calls * B * (L // cfg.ssm_chunk)
